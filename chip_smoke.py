@@ -3,21 +3,27 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py             # every phase, about a minute
+    python3 chip_smoke.py             # every phase, a few minutes
     python3 chip_smoke.py --profile   # plus a torch.profiler breakdown
-                                      # of one bench-size trace
+                                      # of one NSTTF bench-size trace
 
-Phases, each printing one line:
+Phases, each printing its lines:
 
 1. the card (nvidia-smi name and power limit) and the torch / CUDA
    versions;
-2. the build of the CUDA kernels (kernels/csrc/bounce.cu) with nvcc;
-3. each kernel against its plain PyTorch version on the card, on the same
+2. the build of the CUDA kernels (every kernels/csrc/*.cu, one nvcc each,
+   all started together);
+3. K1 and K2 against their plain PyTorch versions on the card, on the same
    inputs and random streams: K1 (bounce_reflect_culled) over 64 NSTTF
    tiles with regeneration and slope error, K2 (bounce_reflect) over the
    same lanes; then each one's time at the benchmark slab (2,101,248
    lanes) beside its plain version's;
-4. the main path at benchmark size: NSTTF scene -> culling ->
+4. K3 (nearest_hit) against its plain version: on the MiniDish at
+   4,194,304 lanes (the sun's rays, then their second bounce), on the
+   NSTTF table, on a table with every quadric class and aperture kind and
+   on the same with 2,000 more rows (groups longer than one staged chunk)
+   at 2,101,248 lanes; each one's time beside the plain version's;
+5. the NSTTF main path at benchmark size: NSTTF scene -> culling ->
    trace_streaming of 537,919,488 rays (slab 2,101,248, max_path 8,
    min_energy 1e-6) with the 50x50 receiver flux map, under bench.py's
    three guards. The NSTTF drain (K2) only runs for parked rays, and with
@@ -26,13 +32,23 @@ Phases, each printing one line:
    (every heliostat survivor parks and takes its next bounce in the
    drain), at 32 slabs. One untimed short trace of each kind runs first;
    then the bench trace runs three times (median and every wall time
-   printed) and the depth-1 trace once. The launch counts cover all
-   timed traces.
+   printed) and the depth-1 trace once;
+6. the MiniDish main paths at the published size (TAU MiniDish rotated by
+   -pi/4, pillbox disk sun of radius 3 m, flux 1000): TracerEngine
+   .ray_tracer on 1,048,576 rays with full records and histogram_hits,
+   then trace_fused on 4,194,304 rays (20 bounces, 50x50 receiver flux
+   map; one warm-up, three timed runs), one of them profiled for K3's
+   share of device time. Guards: energy closure below 1e-4 of the source,
+   K3 launched once per bounce, and against the port's float64 CPU
+   ray_tracer on the first 65,536 rays (same float32 self-hit guard):
+   receiver fraction within 3 binomial sigma, every surface's absorbed
+   energy on those rays within 1e-4 of their source energy.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Any failed check raises, and the script
-exits non-zero without that line; so does a machine without CUDA or a
-directory without the package.
+Every kernel's launch count is set to 0 just before a main path runs and
+read just after. The line before the last is the kernels' JSON record;
+the last line is ``{"ok": true, "device": {...}}``. Any failed check
+raises, and the script exits non-zero without that line; so does a
+machine without CUDA or a directory without the package.
 """
 import argparse
 import json
@@ -73,6 +89,52 @@ def time_cuda(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+# one NVIDIA H100 SXM (NVIDIA's data sheet): HBM3 bytes per second and
+# float32 operations per second outside the tensor cores
+H100_BYTES_S = 3.35e12
+H100_F32_S = 67e12
+
+# float32 operations each kernel spends, counted from its source: per
+# candidate row by quadric class (transform 33, then the class's solve and
+# self-hit guard), per aperture test by kind, per shaded lane (reflect,
+# bivariate slope error, one-sided kill) and per regenerated lane (Buie
+# cell sample). Comparisons and selects count as operations; Philox's
+# integer rounds do not.
+ROW_OPS = {"flat": 48, "parab": 93, "sphere": 90, "quadric": 133}
+AP_OPS = {0: 0, 1: 4, 2: 5, 3: 2, 4: 20, 5: 1, 6: 6, 7: 15, 8: 6, 9: 5,
+          10: 5, 11: 8, 12: 4, 13: 15}
+SHADE_OPS = 130
+REGEN_OPS = 100
+
+
+def row_ops(tag, sig) -> int:
+    """Operations of one lane against one row (curved classes test their
+    apertures at both roots)."""
+    return ROW_OPS[tag] + (1 if tag == "flat" else 2) * sum(
+        AP_OPS[k] for k in sig)
+
+
+def bound(nbytes, nops):
+    """(ms, what sets it): the larger of the bytes over the card's memory
+    rate and the float32 operations over its peak rate."""
+    t_b = nbytes / H100_BYTES_S * 1e3
+    t_o = nops / H100_F32_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
+                 bnd):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": None}
+
+
+def reset_launches(*wrappers) -> None:
+    for w in wrappers:
+        w.launches = 0
 
 
 def compare(name, got, want, live, pos_tol=1e-4, dir_tol=1e-5,
@@ -125,7 +187,10 @@ def main(argv) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA card")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    # the K3 checks share the GPU test's fuzzed table and comparison
+    sys.path.insert(1, os.path.join(root, "tests"))
     try:
         import tracer_tpu_torch  # noqa: F401
     except ImportError as exc:
@@ -136,6 +201,7 @@ def main(argv) -> None:
     from tracer_tpu_torch.engine import energy_closure, trace_streaming
     from tracer_tpu_torch.kernels import bounce as kb
     from tracer_tpu_torch.kernels import build
+    from tracer_tpu_torch.kernels import nearest as kn
     from tracer_tpu_torch.models.nsttf import build_scene, make_source_fn
 
     dev = torch.device("cuda", 0)
@@ -155,7 +221,8 @@ def main(argv) -> None:
         f"{build.info['cache_hit']}, load {time.perf_counter() - t0:.1f} s, "
         f"{build.info['path']}")
     for line in build.info.get("ptxas", "").splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line \
+                or "spill" in line:
             log("  ptxas: " + line.strip())
 
     # ---- phase 3: kernels vs their plain versions
@@ -225,17 +292,6 @@ def main(argv) -> None:
     torch.cuda.synchronize()
     k2_err, k2_ties = compare("K2", got, want, e > 0.0)
 
-    record = {"kernels": [
-        {"name": "bounce_reflect_culled", "route": "cuda",
-         "source": "tracer_tpu_torch/kernels/csrc/bounce.cu",
-         "replaces": "tracer_tpu/kernels/pallas_intersect.py:2049",
-         "launches": 0, "max_abs_err": k1_err, "ms": None,
-         "plain_ms": None},
-        {"name": "bounce_reflect", "route": "cuda",
-         "source": "tracer_tpu_torch/kernels/csrc/bounce.cu",
-         "replaces": "tracer_tpu/kernels/pallas_intersect.py:1693",
-         "launches": 0, "max_abs_err": k2_err, "ms": None,
-         "plain_ms": None}]}
     # per-call times at the benchmark slab: round-2 state of every tile
     nbb = culling.nb
     args = culled_args(nbb)
@@ -271,16 +327,44 @@ def main(argv) -> None:
     for k, (t_k, t_p) in times.items():
         log(f"{k} at {nbb * kb.TILE} lanes: kernel {t_k:.3f} ms, plain "
             f"{t_p:.3f} ms ({card})")
-    record["kernels"][0].update(ms=times["K1"][0], plain_ms=times["K1"][1])
-    record["kernels"][1].update(ms=times["K2"][0], plain_ms=times["K2"][1])
+    # the bounds of the timed calls: each lane's state read once (28 B)
+    # and written once (36 B); K1 tests its tile's candidates, shades its
+    # live lanes and samples its regenerated ones, K2 tests every row
+    # (only lanes that carry a ray after regeneration need the work)
+    n_lanes = nbb * kb.TILE
+    live_b = (e > 0.0).view(nbb, kb.TILE).sum(1).cpu()
+    regen_b = torch.minimum(kb.TILE - live_b, rem.cpu().to(live_b.dtype))
+    n_live, n_regen = int(live_b.sum()), int(regen_b.sum())
+    cand = int(((live_b + regen_b)
+                * torch.as_tensor(culling.counts.sum(1))).sum())
+    k1_bound = bound(64 * n_lanes, cand * row_ops("flat", (1,))
+                     + (n_live + n_regen) * SHADE_OPS + n_regen * REGEN_OPS)
+    k2_bound = bound(64 * n_lanes, n_live * (sum(
+        (g[1] - g[0]) * row_ops(g[3], g[2]) for g in table.groups)
+        + SHADE_OPS))
+    for k, bnd in (("K1", k1_bound), ("K2", k2_bound)):
+        log(f"{k} bound at {n_lanes} lanes ({n_live} live, {n_regen} "
+            f"regenerated by K1): {bnd[0]:.4f} ms, set by {bnd[1]}")
+    record = {"kernels": [
+        kernel_entry("bounce_reflect_culled",
+                     "tracer_tpu_torch/kernels/csrc/bounce.cu",
+                     "tracer_tpu/kernels/pallas_intersect.py:2049", 0,
+                     k1_err, times["K1"][0], times["K1"][1], k1_bound),
+        kernel_entry("bounce_reflect",
+                     "tracer_tpu_torch/kernels/csrc/bounce.cu",
+                     "tracer_tpu/kernels/pallas_intersect.py:1693", 0,
+                     k2_err, times["K2"][0], times["K2"][1], k2_bound)]}
     del pos, dirs, e, o
+
+    # ---- phase 4: K3 against its plain version
+    record["kernels"].append(k3_phase(dev, card, table, source_fn, kn))
 
     fspec = flux_plan(meta, "receiver", resolution=50)
     if profiling:
         profile(table, source_fn, culling, 256 * slab, fspec,
                 trace_streaming)
 
-    # ---- phase 4: the main path at benchmark size
+    # ---- phase 5: the NSTTF main path at benchmark size
     culling_d1 = build_block_culling(table, meta, spec, slab, age_cap=1)
     # (label, culling, rays, max_rounds, timed runs)
     runs = (("default corridors", culling, 256 * slab, 600, 3),
@@ -292,8 +376,8 @@ def main(argv) -> None:
                         total_rays=4 * slab, max_rounds=max_rounds,
                         max_path=8, min_energy=1e-6, culling=cul,
                         fluxspecs=(fspec,))
-    kb.bounce_reflect_culled.launches = 0
-    kb.bounce_reflect.launches = 0
+    reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
+                   kn.nearest_hit)
     for label, cul, total, max_rounds, reps in runs:
         l1, l2 = kb.bounce_reflect_culled.launches, kb.bounce_reflect.launches
         walls = []
@@ -318,10 +402,293 @@ def main(argv) -> None:
             f", {int(emitted) / wall / 1e6:.1f} Mrays/s ({card})")
     record["kernels"][0]["launches"] = kb.bounce_reflect_culled.launches
     record["kernels"][1]["launches"] = kb.bounce_reflect.launches
+    check(kn.nearest_hit.launches == 0, "K3 launched on the NSTTF path")
+
+    # ---- phase 6: the MiniDish main paths
+    record["kernels"][2]["launches"] = minidish_phase(dev, card, kn, kb)
     for k in record["kernels"]:
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
     print(json.dumps(record))
     return finish()
+
+
+MD_LANES = 4_194_304          # trace_fused and K3 at the MiniDish
+MD_RECORDED = 1_048_576       # ray_tracer with full records
+MD_CPU = 65_536               # the float64 CPU reference
+F32_T_EPS = 3e-4              # kernels.intersect.default_t_eps(float32)
+
+
+def minidish_scene(device, dtype=None):
+    """(assembly, table, meta) of the TAU MiniDish as the examples build
+    it: 5 m dish, f = 6.25 m, 0.4 m homogenizer 0.7 m deep in front of the
+    receiver, efficiencies 0.9, rotated by -pi/4 about x."""
+    import numpy as np
+    import torch
+    from tracer_tpu_torch import spatial
+    from tracer_tpu_torch.models.tau_minidish import MiniDish
+    from tracer_tpu_torch.scene import compile_scene
+    asm = MiniDish(5.0, 6.25, 0.9, 6.95, 0.4, 0.7, 0.9)
+    asm.set_transform(spatial.rotx(-np.pi / 4))
+    table, meta = compile_scene(asm, dtype=dtype or torch.float32,
+                                device=device)
+    return asm, table, meta
+
+
+def minidish_sun(n, device, seed=42):
+    """The examples' pillbox disk sun (radius 3 m, 5 mrad, 1000 W/m^2)
+    shining down the dish axis, drawn on ``device``."""
+    import math
+    import torch
+    from tracer_tpu_torch.sources import solar_disk_bundle
+    x = -1.0 / math.sqrt(2.0)
+    return solar_disk_bundle(
+        torch.Generator(device=device).manual_seed(seed), n,
+        center=[0.0, 7.0, 7.0], direction=[0.0, x, x], radius=3.0,
+        ang_range=0.005, flux=1000.0, device=device)
+
+
+def head(bundle, n, device=None, dtype=None):
+    """The first n rays of a bundle, optionally moved / cast."""
+    from tracer_tpu_torch.bundle import RayBundle
+    out = {}
+    for k, v in bundle.__dict__.items():
+        v = v[:n]
+        if device is not None:
+            v = v.to(device)
+        if dtype is not None and v.is_floating_point():
+            v = v.to(dtype)
+        out[k] = v.contiguous()
+    return RayBundle(**out)
+
+
+def k3_phase(dev, card, nsttf_table, nsttf_source, kn):
+    """K3 against its plain version on the card (sid equal off ties, t
+    and aux within 1e-5 of their scale: tests/test_torch_gpu.k3_compare),
+    then its time beside the plain version's. Returns its JSON entry with
+    the MiniDish's numbers (the main path's shape); launches are filled in
+    by the MiniDish phase; its max_abs_err is the largest difference in
+    t, normal, local hit and up_dot over the MiniDish's lanes (the other
+    tables' are printed)."""
+    import torch
+    import tracer_tpu_torch as ptt
+    from tracer_tpu_torch.engine import TraceAccum, _bounce_step
+    from tracer_tpu_torch.kernels.bounce import pack_rows
+    from test_torch_gpu import fuzz_assembly, fuzz_rays, k3_compare
+    _, md_table, _ = minidish_scene(dev)
+    sun = minidish_sun(MD_LANES, dev)
+    second, _, _ = _bounce_step(
+        md_table, sun, TraceAccum.zeros(md_table.num_rows, device=dev),
+        torch.Generator(device=dev).manual_seed(0), 1e-6, None, 1e-6, 64)
+    slab = nsttf_source.num_rays
+    helio = nsttf_source(torch.Generator(device=dev).manual_seed(7),
+                         device=dev)
+    fz_table, fz_meta = ptt.compile_scene(fuzz_assembly(ptt, 0), device=dev)
+    fz = [torch.as_tensor(a, device=dev) for a in fuzz_rays(fz_meta, slab, 5)]
+    # groups of ~500 rows: each spans two of the kernel's staged chunks
+    big_table, big_meta = ptt.compile_scene(
+        fuzz_assembly(ptt, 1, extra=2000), device=dev)
+    big = [torch.as_tensor(a, device=dev)
+           for a in fuzz_rays(big_meta, slab, 6)]
+    cases = (("MiniDish sun rays", md_table, sun.pos, sun.dir),
+             ("MiniDish second bounce", md_table, second.pos, second.dir),
+             ("NSTTF Buie rays", nsttf_table, helio.pos, helio.dir),
+             ("every class and aperture", fz_table, fz[0], fz[1]),
+             ("every class, 2,017 rows", big_table, big[0], big[1]))
+    out = None
+    for label, tab, pos, dirs in cases:
+        n = pos.shape[0]
+        rows = pack_rows(tab)
+        args = (rows, pos, dirs, tab.groups, F32_T_EPS)
+        kw = dict(need_local=True,
+                  backside_miss="bifacial" in tab.features)
+        got = kn.nearest_hit(*args, **kw)
+        want = kn.nearest_hit_ref(*args, **kw)
+        torch.cuda.synchronize()
+        ties, flips = k3_compare(got, want, kn.nearest_two_t(*args), pos,
+                                 dirs, rtol=1e-5,
+                                 max_flips=int(1e-5 * n) + 1)
+        hit = (want[1] >= 0) & (got[1] == want[1])
+        errs = {"t": float((got[0] - want[0]).abs()[hit].max())}
+        errs.update({k: float((got[2][k] - want[2][k]).abs()[hit].max())
+                     for k in ("normal", "local", "up_dot")})
+        err = max(errs.values())
+        del got, want
+        call_k = (lambda: kn.nearest_hit(*args, **kw))
+        call_p = (lambda: kn.nearest_hit_ref(*args, **kw))
+        p1 = time_cuda(call_p, 3)
+        k1 = time_cuda(call_k, 20)
+        k2 = time_cuda(call_k, 20)
+        p2 = time_cuda(call_p, 3)
+        ops = n * sum((g[1] - g[0]) * row_ops(g[3], g[2])
+                      for g in tab.groups)
+        bnd = bound(n * (24 + 52), ops)
+        log(f"K3 {label}: {n} lanes, {tab.num_rows} rows, hits "
+            f"{float((hit).float().mean()):.3f}, sid ties {ties}, edge "
+            f"flips {flips}, max abs err "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f"; kernel "
+            f"{min(k1, k2):.4f} ms, plain {min(p1, p2):.3f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}) ({card})")
+        if out is None:
+            out = kernel_entry(
+                "nearest_hit", "tracer_tpu_torch/kernels/csrc/nearest.cu",
+                "tracer_tpu/kernels/pallas_intersect.py:583", 0, err,
+                min(k1, k2), min(p1, p2), bnd)
+        elif tab is md_table:
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+    return out
+
+
+def minidish_phase(dev, card, kn, kb):
+    """ray_tracer and trace_fused on the MiniDish at the published size,
+    under the guards of the module docstring. Returns K3's launches on the
+    timed trace_fused runs."""
+    import math
+    import statistics
+    import torch
+    from tracer_tpu_torch.analysis.device_fluxmap import flux_plan
+    from tracer_tpu_torch.engine import (TraceOptions, TracerEngine,
+                                         trace_fused)
+    asm, table, meta = minidish_scene(dev)
+    names = meta.names
+    rec_i = names.index("receiver")
+    sun = minidish_sun(MD_LANES, dev)
+
+    # the float64 CPU reference on the first rays, with float32's
+    # self-hit guard so that only rounding differs
+    asm64, _, _ = minidish_scene("cpu", torch.float64)
+    t0 = time.perf_counter()
+    ref = TracerEngine(asm64, dtype=torch.float64, device="cpu").ray_tracer(
+        head(sun, MD_CPU, "cpu", torch.float64),
+        opts=TraceOptions(t_eps=F32_T_EPS, record=False))
+    ref_abs = ref.absorbed_by_logical()
+    ref_src = ref.energy_balance()["source"]
+    p_ref = ref_abs[rec_i] / ref_src
+    gpu_sub = TracerEngine(table, meta).ray_tracer(
+        head(sun, MD_CPU), opts=TraceOptions(record=False))
+    diff = abs(gpu_sub.absorbed_by_logical() - ref_abs).max() / ref_src
+    log(f"MiniDish CPU float64 reference: {MD_CPU} rays in "
+        f"{time.perf_counter() - t0:.1f} s, receiver fraction {p_ref:.5f};"
+        f" the card's float32 run on the same rays: largest per-surface "
+        f"difference {diff:.2e} of the source")
+    check(diff < 1e-4, f"MiniDish per-surface absorbed differs by {diff}")
+
+    def guards(label, src, absorbed, escaped, culled, residual, n):
+        closure = (src - absorbed.sum() - escaped - culled - residual) / src
+        p = absorbed[rec_i] / src
+        sig = math.sqrt(p_ref * (1 - p_ref) * (1.0 / MD_CPU + 1.0 / n))
+        check(abs(closure) < 1e-4, f"{label}: closure {closure}")
+        check(abs(p - p_ref) < 3 * sig,
+              f"{label}: receiver fraction {p} vs {p_ref} +- {sig}")
+        return p, closure
+
+    # ray_tracer with full records
+    bundle = head(sun, MD_RECORDED)
+    engine = TracerEngine(table, meta)
+    reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
+                   kn.nearest_hit)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.ray_tracer(bundle, reps=100)
+    wall = time.perf_counter() - t0
+    launches = kn.nearest_hit.launches
+    check(launches == len(res.records) > 0,
+          f"ray_tracer: {launches} K3 launches for {len(res.records)} "
+          "bounces")
+    check(kb.bounce_reflect_culled.launches == kb.bounce_reflect.launches
+          == 0, "K1/K2 launched on the MiniDish path")
+    bal = res.energy_balance()
+    absorbed = res.absorbed_by_logical()
+    check(all(math.isfinite(v) for v in bal.values()), f"balance {bal}")
+    p, closure = guards("ray_tracer", bal["source"], absorbed,
+                        bal["escaped"], bal["culled"], bal["residual"],
+                        MD_RECORDED)
+    H, xb, yb = asm.histogram_hits(res, bins=50)
+    check(H.shape == (50, 50) and abs(H.sum() - absorbed[rec_i])
+          < 1e-3 * absorbed[rec_i], f"histogram {H.sum()} vs receiver "
+          f"{absorbed[rec_i]}")
+    conc = H / ((xb[1] - xb[0]) * (yb[1] - yb[0])) / 1000.0
+    log(f"MiniDish ray_tracer: {MD_RECORDED} rays, {len(res.records)} "
+        f"bounces, K3 launches {launches}, receiver fraction {p:.5f}, "
+        f"closure {closure:.2e}, receiver histogram {H.sum():.1f} W (peak "
+        f"{conc.max():.1f} suns), wall {wall:.3f} s ({card})")
+    log("  absorbed W: " + ", ".join(f"{nm} {a:.2f}"
+                                     for nm, a in zip(names, absorbed)))
+    del res, bundle
+
+    # trace_fused: one warm-up, three timed runs
+    spec = flux_plan(meta, "receiver", resolution=50)
+
+    def fused(max_bounces=20):
+        return trace_fused(table, sun, max_bounces=max_bounces,
+                           fluxspecs=(spec,))
+    fused()
+    reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
+                   kn.nearest_hit)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, acc = fused()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = kn.nearest_hit.launches
+    check(launches % 3 == 0, f"trace_fused: {launches} K3 launches")
+    bounces = launches // 3
+    check(kb.bounce_reflect_culled.launches == kb.bounce_reflect.launches
+          == 0, "K1/K2 launched on the MiniDish path")
+    # K3 ran once per bounce: one bounce fewer leaves rays alive
+    check(not bool(final.alive.any())
+          and bool(fused(bounces - 1)[0].alive.any()),
+          f"trace_fused: {bounces} bounces do not end the trace")
+    src = float(sun.total_energy())
+    ab = acc.absorbed.double().cpu().numpy()
+    p, closure = guards("trace_fused", src, ab, float(acc.escaped),
+                        float(acc.culled), float(final.total_energy()),
+                        MD_LANES)
+    fsum = float(acc.flux[0].double().sum())
+    check(acc.flux[0].shape == (50, 50)
+          and bool(torch.isfinite(acc.flux[0]).all())
+          and abs(fsum - ab[rec_i]) < 1e-3 * ab[rec_i],
+          f"flux map {fsum} vs receiver {ab[rec_i]}")
+    wall = statistics.median(walls)
+    log(f"MiniDish trace_fused: {MD_LANES} rays, {bounces} bounces, K3 "
+        f"launches {launches} in 3 runs, receiver fraction {p:.5f}, "
+        f"closure {closure:.2e}, flux/receiver {fsum / ab[rec_i]:.6f}; "
+        f"wall median {wall:.3f} s of "
+        f"{', '.join(f'{w:.3f}' for w in walls)}, "
+        f"{MD_LANES / wall / 1e6:.1f} Mrays/s ({card})")
+    profile_fused(fused, card)
+    return launches
+
+
+def profile_fused(fused, card):
+    """K3's share of device time in one profiled trace_fused."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fused()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in dev)
+    k3_us = sum(e.self_device_time_total for e in dev
+                if "nearest_kernel" in e.key)
+    check(dev_us > 0 and k3_us > 0, "profile: no device time for K3")
+    log(f"MiniDish trace_fused profile: wall {wall * 1e3:.1f} ms under the "
+        f"profiler, device busy {dev_us / 1e3:.1f} ms in "
+        f"{sum(e.count for e in dev)} device events, K3 {k3_us / 1e3:.2f} "
+        f"ms = {100 * k3_us / dev_us:.1f}% of device time ({card})")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:9.2f} ms "
+            f"({100 * e.self_device_time_total / dev_us:4.1f}%) "
+            f"{e.count:6d}x {e.key[:80]}")
 
 
 def check_trace(label, accum, emitted, source_e, total, energy_closure):

@@ -52,7 +52,7 @@ def _setup(sigma):
     if sigma not in _CACHE:
         slab = 2 * ((1 << 20) // kb.TILE * kb.TILE + kb.TILE)
         jt, _, _ = jax_nsttf.build_scene(sigma=sigma, dtype=jnp.float32)
-        pt, pm, pinfo = nsttf.build_scene(sigma=sigma)
+        pt, pm, pinfo = nsttf.build_scene(sigma=sigma, device="cpu")
         spec = nsttf.make_source_fn(pinfo, slab).pallas_spec
         _CACHE[sigma] = (jt, pt, pm, build_block_culling(pt, pm, spec, slab),
                          spec, pinfo)

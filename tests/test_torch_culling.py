@@ -19,7 +19,7 @@ ARRAYS = ("lists", "counts", "cell_bounds", "age_caps", "cell_of_block")
 @pytest.fixture(scope="module")
 def scenes():
     jt, jm, jinfo = jax_nsttf.build_scene(dtype=jnp.float32)
-    pt, pm, pinfo = nsttf.build_scene(dtype=torch.float32)
+    pt, pm, pinfo = nsttf.build_scene(dtype=torch.float32, device="cpu")
     return jt, jm, jinfo, pt, pm, pinfo
 
 

@@ -5,15 +5,17 @@ machine has no jax, so run it without the suite's jax-based conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_gpu.py
 
-The ray helpers here also feed the CPU parity tests of
-tests/test_torch_bounce.py.
+The ray helpers and the fuzzed scene here also feed the CPU parity tests
+of tests/test_torch_bounce.py and tests/test_torch_intersect.py.
 """
 import numpy as np
 import pytest
 import torch
 
+import tracer_tpu_torch as ptt
 from tracer_tpu_torch.culling import build_block_culling
 from tracer_tpu_torch.kernels import bounce as kb
+from tracer_tpu_torch.kernels import nearest as kn
 from tracer_tpu_torch.models import nsttf
 
 # the suite runs several test processes at once: one torch thread each
@@ -55,6 +57,105 @@ def aimed_rays(meta, culling, sun, seed=0):
             e.astype(np.float32))
 
 
+# aperture kind -> its parameters in a surface's local frame (kinds that
+# leave the surface unbounded get a RECT bound beside them). No boundary
+# may run along a surface: a radial bound of 0.8 on the 0.8 m sphere
+# would hold with equality along its whole equator.
+AP_PARAMS = {1: (0.6, 0.4), 2: (0.2, 0.7), 3: (-0.5, 0.5), 4: (0.3, 4.0),
+             5: (0.3,), 6: (0.8,), 7: (-0.7, -0.5, 0.8, -0.4, 0.0, 0.9),
+             8: (0.1, 0.0, 0.3, 0.2), 9: (0.0, 0.1, 0.3),
+             10: (0.1, -0.1, 0.7), 11: (0.0, 0.0, 0.0, 0.9),
+             12: (0.6, 0.8, 0.4), 13: (-0.3, -0.2, 0.3, -0.2, 0.0, 0.3)}
+UNBOUNDED = (3, 4, 5, 8, 9, 12, 13)
+CLASSES = ("flat", "parab", "sphere", "quadric")
+
+
+def fuzz_assembly(pkg, seed: int, extra: int = 0):
+    """A scene with every quadric class and every aperture kind, built
+    with the package ``pkg`` (tracer_tpu or tracer_tpu_torch, which share
+    the host API): one K_REFLECT row per aperture kind on a rotating
+    class, plus one more row of each class, plus ``extra`` rect rows of
+    random classes (groups of hundreds of rows), each at a random pose."""
+    G, M, sp, sc = pkg.geometry, pkg.materials, pkg.spatial, pkg.scene
+    rng = np.random.default_rng(seed)
+    base = {"flat": G.flat, "parab": lambda: G.paraboloid(1.2, 0.9),
+            "sphere": lambda: G.sphere(0.8),
+            "quadric": lambda: G.ellipsoid(0.9, 0.6, 0.7)}
+    cases = [(k, CLASSES[(k + seed) % 4]) for k in AP_PARAMS]
+    cases += [(int(rng.integers(1, 14)), c) for c in CLASSES]
+    cases += [(G.AP_RECT, CLASSES[int(c)])
+              for c in rng.integers(0, 4, extra)]
+    surfs = []
+    for i, (k, cls) in enumerate(cases):
+        aps = [G._c(k, *AP_PARAMS[k])]
+        if k in UNBOUNDED and cls in ("flat", "parab"):
+            aps.append(G._c(G.AP_RECT, 1.0, 1.0))
+        geom = base[cls]().with_aperture(*aps)
+        rot = (sp.rotx(rng.uniform(0, 2 * np.pi))[:3, :3]
+               @ sp.roty(rng.uniform(0, np.pi))[:3, :3])
+        spread = 2.0 + 0.04 * extra ** 0.5          # a few rows per m^3
+        surfs.append(sc.Surface(geom, M.reflective(rng.uniform(0.0, 0.3)),
+                                location=rng.uniform(-spread, spread,
+                                                     3).tolist(),
+                                rotation=rot, name=f"s{i}"))
+    return sc.Assembly([sc.AssembledObject(surfs)])
+
+
+def fuzz_rays(meta, n: int, seed: int):
+    """n float32 rays, each aimed from 1-5 m away, from a random direction,
+    at a random point within 1 m of a random row's origin."""
+    rng = np.random.default_rng(seed)
+    fr = meta.frames[rng.integers(0, len(meta.frames), n)]
+    local = rng.uniform(-1.0, 1.0, (n, 3)) * [1.0, 1.0, 0.3]
+    pts = np.einsum("nij,nj->ni", fr[:, :3, :3], local) + fr[:, :3, 3]
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pos = pts - d * rng.uniform(1.0, 5.0, (n, 1))
+    return pos.astype(np.float32), d.astype(np.float32)
+
+
+def k3_compare(got, want, t12, pos, dirs, rtol=1e-5, max_flips=0):
+    """K3 results (t, sid, aux) against another version's (``want``).
+
+    Two float32 versions of the same arithmetic round differently: by a
+    few ulps of the ray's scale L = 1 + max|pos| and of t, amplified near
+    tangency by the discriminant's conditioning, 1 / cos^2 of the angle of
+    incidence (cos^2 floored at 1e-4). So on lanes that hit, t and each
+    aux vector component must agree within rtol * (L + t) / cos^2, the
+    aux relative to 1 + the lane's largest component; kind and flags
+    exactly. Ties are lanes whose best and second-best t lie within 1e-5
+    (L + t) of each other: either row may win there. Flips are the other
+    lanes where the versions disagree on sid or on t: a hit point within
+    rounding of an aperture edge or of the self-hit guard, which FMA
+    contraction may decide (the other root of the same row, or another
+    row). At most ``max_flips`` are allowed. Returns (ties, flips)."""
+    t1, t2 = t12
+    scale = 1.0 + pos.abs().amax(dim=1)
+    tie = (t2 - t1) <= 1e-5 * (scale + t1)
+    n = want[2]["normal"]
+    cos2 = ((dirs * n).sum(1) ** 2
+            / (n * n).sum(1).clamp(min=1e-30)).clamp(min=1e-4)
+    base = (scale + torch.where(want[1] >= 0, want[0], 0.0)) / cos2
+    t_ok = ((got[0] - want[0]).abs() <= rtol * base) | (
+        torch.isinf(got[0]) & torch.isinf(want[0]))
+    agree = (got[1] == want[1]) & t_ok
+    flips = int((~agree & ~tie).sum())
+    assert flips <= max_flips, (flips, torch.nonzero(~agree & ~tie)[:5])
+    hit = (want[1] >= 0) & agree & ~tie
+    base = base[hit]
+    for k in ("normal", "local", "up_dot", "p0", "p1"):
+        g, w = got[2][k][hit], want[2][k][hit]
+        if w.ndim == 2:
+            err = (g - w).abs().amax(dim=1)
+            w = w.abs().amax(dim=1)
+        else:
+            err = (g - w).abs()
+        assert (err <= rtol * (1.0 + w.abs()) * base).all(), k
+    for k in ("kind", "flags"):
+        assert torch.equal(got[2][k][hit], want[2][k][hit]), k
+    return int(tie.sum()), flips
+
+
 def tile_args(culling):
     """(lists, counts, cells, cell_bounds) of the TILES, as numpy."""
     idx = np.asarray(TILES)
@@ -78,7 +179,7 @@ def test_kernels_match_plain_on_gpu(cuda_device):
     within 1e-5, energy within 1e-5 relative."""
     dev = cuda_device
     slab = 2 * ((1 << 20) // kb.TILE * kb.TILE + kb.TILE)
-    table, meta, info = nsttf.build_scene()
+    table, meta, info = nsttf.build_scene(device="cpu")
     spec = nsttf.make_source_fn(info, slab).pallas_spec
     culling = build_block_culling(table, meta, spec, slab)
     pos, dirs, e = (torch.tensor(a, device=dev) for a in
@@ -117,7 +218,7 @@ def test_kernels_match_plain_on_gpu(cuda_device):
 def test_cpu_tensors_take_the_plain_version():
     """On CPU tensors the wrappers run the plain versions (no launch)."""
     slab = 2 * ((1 << 20) // kb.TILE * kb.TILE + kb.TILE)
-    table, meta, info = nsttf.build_scene()
+    table, meta, info = nsttf.build_scene(device="cpu")
     spec = nsttf.make_source_fn(info, slab).pallas_spec
     culling = build_block_culling(table, meta, spec, slab)
     pos, dirs, e = (torch.tensor(a) for a in
@@ -139,3 +240,35 @@ def test_cpu_tensors_take_the_plain_version():
         assert torch.equal(g, w)
     assert (kb.bounce_reflect_culled.launches, kb.bounce_reflect.launches) \
         == (n1, n2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_local", (True, False))
+def test_nearest_hit_matches_plain_on_gpu(cuda_device, need_local):
+    """K3 against its plain version on the card, on a table with every
+    quadric class and aperture kind, on the same with 2,000 more rows
+    (groups that span several of the kernel's staged chunks) and on the
+    NSTTF table: sid equal off ties, t and aux within 1e-5 of their scale
+    (k3_compare); one launch per call."""
+    dev = cuda_device
+    table, meta = ptt.compile_scene(fuzz_assembly(ptt, 0), device=dev)
+    big, big_meta = ptt.compile_scene(fuzz_assembly(ptt, 1, extra=2000),
+                                      device=dev)
+    chunk = kn.STAGE_FLOATS // kb.row_width(big)
+    assert max(g[1] - g[0] for g in big.groups) > chunk
+    nsttf_table, nsttf_meta, _ = nsttf.build_scene(device=dev)
+    for tab, met, n in ((table, meta, 1 << 18), (big, big_meta, 1 << 16),
+                        (nsttf_table, nsttf_meta, 1 << 16)):
+        rows = kb.pack_rows(tab)
+        pos, dirs = (torch.tensor(a, device=dev)
+                     for a in fuzz_rays(met, n, seed=5))
+        args = (rows, pos, dirs, tab.groups, T_EPS)
+        n0 = kn.nearest_hit.launches
+        got = kn.nearest_hit(*args, need_local=need_local)
+        assert kn.nearest_hit.launches == n0 + 1
+        want = kn.nearest_hit_ref(*args, need_local=need_local)
+        torch.cuda.synchronize()
+        assert (want[1] >= 0).float().mean() > 0.3
+        ties, flips = k3_compare(got, want, kn.nearest_two_t(*args), pos,
+                                 dirs, max_flips=int(1e-5 * n) + 1)
+        assert ties <= 1e-4 * n

@@ -33,4 +33,12 @@ def test_no_jax_import_in_source(module):
 
 
 def test_kernel_sources_are_package_data():
-    assert (PKG / "kernels" / "csrc" / "bounce.cu").is_file()
+    for name in ("bounce.cu", "nearest.cu"):
+        assert (PKG / "kernels" / "csrc" / name).is_file()
+    assert (PKG / "data" / "sandia_nsttf_field.npz").is_file()
+
+
+def test_no_file_of_the_jax_package_is_read():
+    """No port module names the JAX package's folder in a path."""
+    for p in PKG.rglob("*.py"):
+        assert '"tracer_tpu"' not in p.read_text(), p

@@ -23,7 +23,7 @@ def scenes(request):
     jt, jm, jinfo = jax_nsttf.build_scene(sigma=request.param,
                                           dtype=jnp.float32)
     pt, pm, pinfo = nsttf.build_scene(sigma=request.param,
-                                      dtype=torch.float32)
+                                      dtype=torch.float32, device="cpu")
     return jt, jm, pt, pm
 
 
@@ -69,10 +69,56 @@ def test_scene_from_jax_reproduces_port_build(scenes):
     jt, _, pt, _ = scenes
     table_np = {f: np.asarray(getattr(jt, f)) for f in FIELDS}
     table_np.update({f: getattr(jt, f) for f in STATIC})
-    carried = scene_from_jax(table_np)
+    carried = scene_from_jax(table_np, device="cpu")
     for f in FIELDS:
         a, b = getattr(carried, f), getattr(pt, f)
         assert a.dtype == b.dtype, f
         assert torch.equal(a, b), f
     for f in STATIC:
         assert getattr(carried, f) == getattr(pt, f), f
+
+
+def test_nsttf_positions_file_equals_jax_package():
+    """The port reads its own copy of the NSTTF pad coordinates."""
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1]
+    mine = np.load(root / "tracer_tpu_torch" / "data"
+                   / "sandia_nsttf_field.npz")
+    theirs = np.load(root / "tracer_tpu" / "data" / "sandia_nsttf_field.npz")
+    assert sorted(mine.files) == sorted(theirs.files)
+    for k in theirs.files:
+        np.testing.assert_array_equal(mine[k], theirs[k])
+    from tracer_tpu_torch.models.heliostat_field import \
+        load_heliostat_positions
+    np.testing.assert_array_equal(load_heliostat_positions(),
+                                  theirs["positions"])
+
+
+@pytest.mark.parametrize("entry", ("compile_scene", "build_scene",
+                                   "disk_bundle", "TracerEngine",
+                                   "TraceAccum"))
+def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch,
+                                                          entry):
+    """With no GPU and no device given, every entry point raises, naming
+    device="cpu"; with device="cpu" it runs on the CPU."""
+    import tracer_tpu_torch as ptt
+    from tracer_tpu_torch.engine import TraceAccum, TracerEngine
+    from tracer_tpu_torch.sources import disk_bundle
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def plate():
+        G, M, sc = ptt.geometry, ptt.materials, ptt.scene
+        return sc.Assembly([sc.AssembledObject([sc.Surface(
+            G.rect_plate(1.0, 1.0), M.reflective(0.1))])])
+
+    calls = {
+        "compile_scene": lambda **kw: ptt.compile_scene(plate(), **kw),
+        "build_scene": lambda **kw: nsttf.build_scene(n_heliostats=3, **kw),
+        "disk_bundle": lambda **kw: disk_bundle(
+            torch.Generator(), 8, [0, 0, 1], [0, 0, -1], 1.0, 0.0, **kw),
+        "TracerEngine": lambda **kw: TracerEngine(plate(), **kw),
+        "TraceAccum": lambda **kw: TraceAccum.zeros(3, **kw),
+    }
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        calls[entry]()
+    calls[entry](device="cpu")

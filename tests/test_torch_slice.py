@@ -56,7 +56,7 @@ _PORT = {}
 
 def _port_run(age_cap: int):
     if age_cap not in _PORT:
-        table, meta, info = nsttf.build_scene()
+        table, meta, info = nsttf.build_scene(device="cpu")
         source_fn = nsttf.make_source_fn(info, SLAB)
         culling = build_block_culling(table, meta, source_fn.pallas_spec,
                                       SLAB, age_cap=age_cap)
@@ -125,7 +125,7 @@ def test_flux_map_carries_receiver_energy(port_run, jax_run):
 
 
 def test_unported_dispatch_raises():
-    table, meta, info = nsttf.build_scene()
+    table, meta, info = nsttf.build_scene(device="cpu")
     source_fn = nsttf.make_source_fn(info, SLAB)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trace_streaming(table, source_fn, torch.Generator(), TOTAL)
@@ -143,7 +143,7 @@ def test_chunked_drain_visits_every_live_lane():
         seen.append(cfields[0][ce > 0])
         return 0.5 * ce
 
-    accum = TraceAccum.zeros(3)
+    accum = TraceAccum.zeros(3, device="cpu")
     out = _chunked_drain(e, (torch.arange(1000),), drain_fn, 64, accum)
     assert (out == 0).all() and len(seen) == -(-int((e > 0).sum()) // 64)
     visited = torch.cat(seen)
@@ -154,8 +154,8 @@ def test_chunked_drain_visits_every_live_lane():
 
 
 def test_culling_of_another_scene_is_refused():
-    table, meta, info = nsttf.build_scene()
-    small, _, _ = nsttf.build_scene(n_heliostats=50)
+    table, meta, info = nsttf.build_scene(device="cpu")
+    small, _, _ = nsttf.build_scene(n_heliostats=50, device="cpu")
     source_fn = nsttf.make_source_fn(info, SLAB)
     culling = build_block_culling(table, meta, source_fn.pallas_spec, SLAB)
     with pytest.raises(ValueError, match="this scene"):

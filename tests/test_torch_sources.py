@@ -40,7 +40,8 @@ def test_buie_polar_angles_match_jax():
     every bin agrees within 3 sigma of the two-sample count difference."""
     n = 200_000
     pb = psrc.buie_sunshape(torch.Generator().manual_seed(0), n, CENTER,
-                            DIRECTION, 120.0, 0.02, flux=1000.0)
+                            DIRECTION, 120.0, 0.02, flux=1000.0,
+                            device="cpu")
     jb = jsrc.buie_sunshape(jax.random.PRNGKey(0), n, CENTER, DIRECTION,
                             120.0, 0.02, flux=1000.0)
     axis = DIRECTION / np.linalg.norm(DIRECTION)

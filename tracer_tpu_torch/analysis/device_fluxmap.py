@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve
 from .fluxmap import _CARTESIAN, areas_of, edges_of
 
 
@@ -81,7 +82,9 @@ def spread_misses(valid, index, n_bins: int):
 
 
 def zeros_for(fluxspecs, dtype=torch.float32, device=None) -> tuple:
-    """Fresh (nu, nv) histograms for a tuple of specs."""
+    """Fresh (nu, nv) histograms for a tuple of specs on ``device`` (None
+    means the GPU, device.default_device)."""
+    device = resolve(device)
     return tuple(torch.zeros((s.nu, s.nv), dtype=dtype, device=device)
                  for s in fluxspecs)
 

@@ -4,7 +4,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+from .device import resolve
 
 
 @dataclasses.dataclass
@@ -29,7 +32,9 @@ class RayBundle:
     def create(cls, pos, dir, energy=None, wavelength=None, ref_index=None,
                att_coeff=None, scat_coeff=None, scat_g=None, alive=None,
                parent=None, dtype=None, device=None) -> "RayBundle":
-        pos = torch.as_tensor(pos, dtype=dtype, device=device)
+        """A bundle on ``device`` (None means the GPU,
+        device.default_device)."""
+        pos = torch.as_tensor(pos, dtype=dtype, device=resolve(device))
         dir = torch.as_tensor(dir, dtype=pos.dtype, device=pos.device)
         if pos.ndim != 2 or pos.shape[1] != 3:
             raise ValueError(f"pos must be (N,3), got {tuple(pos.shape)}")
@@ -57,3 +62,30 @@ class RayBundle:
     @property
     def num_rays(self) -> int:
         return self.pos.shape[0]
+
+    def total_energy(self) -> torch.Tensor:
+        """Sum of the energy carried by live rays."""
+        return torch.where(self.alive, self.energy, 0.0).sum()
+
+    def replace(self, **changes) -> "RayBundle":
+        return dataclasses.replace(self, **changes)
+
+
+FIELDS = tuple(f.name for f in dataclasses.fields(RayBundle))
+
+
+def bundle_from_jax(numpy_fields: dict, device=None,
+                    dtype=None) -> RayBundle:
+    """Carry a tracer_tpu RayBundle across: ``numpy_fields`` maps each
+    field name to ``np.asarray`` of the JAX field (float fields keep their
+    dtype unless ``dtype`` is given). ``device`` None means the GPU."""
+    device = resolve(device)
+    out = {}
+    for name in FIELDS:
+        a = np.asarray(numpy_fields[name])
+        dt = (dtype if dtype is not None and a.dtype.kind == "f"
+              else None)
+        out[name] = torch.tensor(a, device=device, dtype=dt)
+    out["alive"] = out["alive"].to(torch.bool)
+    out["parent"] = out["parent"].to(torch.int32)
+    return RayBundle(**out)

@@ -1,32 +1,45 @@
-"""Trace engine: the relevancy-culled streaming Monte-Carlo trace (the
-PyTorch port of tracer_tpu/engine.py's culled megakernel path).
+"""Trace engines (the PyTorch port of tracer_tpu/engine.py).
 
-The ray population lives in a fixed slab of nb tiles of TILE lanes, one
-tile per equal-area source cell (culling.py). Each round one culled bounce
-kernel regenerates every tile's dead lanes up to its exact emission quota,
-intersects the tile's candidate rows and shades the hits; accounting adds
-each round's absorbed energy per surface row. Rays that survive a demoted
-surface or reach their tile's corridor depth are *parked* and re-traced
-against the full scene in a drain phase, so culling changes the cost,
-never the physics.
+* :func:`trace_streaming` -- the relevancy-culled streaming Monte-Carlo
+  trace of the NSTTF field. The ray population lives in a fixed slab of nb
+  tiles of TILE lanes, one tile per equal-area source cell (culling.py).
+  Each round one culled bounce kernel regenerates every tile's dead lanes
+  up to its exact emission quota, intersects the tile's candidate rows and
+  shades the hits; accounting adds each round's absorbed energy per
+  surface row. Rays that survive a demoted surface or reach their tile's
+  corridor depth are *parked* and re-traced against the full scene in a
+  drain phase, so culling changes the cost, never the physics.
+* :meth:`TracerEngine.ray_tracer` -- the host-stepped bounce loop with
+  per-bounce records, stopping when the bundle dies.
+* :func:`trace_fused` -- the same bounce without records, accumulators and
+  device flux maps only.
 
-The loop runs on the host and reads one flag from the device per round.
+Both bundle traces run :func:`_bounce_step`: nearest hit (K3 for float32,
+the float64 oracle on CPU tensors), shade, account. Every loop runs on the
+host and reads one value from the device per bounce or round.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from . import materials as _M
 from .analysis import device_fluxmap as _dfm
+from .bundle import RayBundle
+from .device import resolve
 from .kernels.bounce import (TILE, bounce_reflect, bounce_reflect_culled,
                              pack_rows)
-from .scene import SceneTable
+from .kernels.intersect import nearest_hit_aux
+from .kernels.shade import check_supported, shade
+from .scene import Assembly, SceneMeta, SceneTable, compile_scene
 
 _NOT_PORTED = "not yet ported, see ROADMAP A8/A10"
+log = logging.getLogger("tracer_tpu_torch")
 
 
 @dataclasses.dataclass
@@ -44,12 +57,23 @@ class TraceAccum:
     @classmethod
     def zeros(cls, n_rows: int, dtype=torch.float32, device=None,
               fluxspecs: tuple = ()) -> "TraceAccum":
+        """Zeroed accumulators on ``device`` (None means the GPU,
+        device.default_device)."""
+        device = resolve(device)
+
         def z(*shape):
             return torch.zeros(shape, dtype=dtype, device=device)
         return cls(absorbed=z(n_rows), hits=z(n_rows), escaped=z(),
                    culled=z(), medium=z(), residual=z(),
                    flux=_dfm.zeros_for(fluxspecs, dtype=dtype,
                                        device=device))
+
+    def to(self, device) -> "TraceAccum":
+        return TraceAccum(**{
+            f.name: (tuple(h.to(device) for h in v) if f.name == "flux"
+                     else v.to(device))
+            for f in dataclasses.fields(self)
+            for v in (getattr(self, f.name),)})
 
 
 def _bivar_mode(scene: SceneTable):
@@ -63,19 +87,33 @@ def _bivar_mode(scene: SceneTable):
 
 
 def _row_sums(sid, values, n_rows: int):
-    """(S,) per-row sums of ``values`` over the lanes with sid >= 0, in a
-    fresh float32 buffer: adding a round's sum to the running total keeps
-    each atomic add small next to the bin it lands in."""
+    """(S,) per-row sums of ``values`` over the lanes with sid >= 0.
+
+    Up to 64 rows (tracer_tpu's small-scene threshold): one masked
+    reduction per row, which sums in a tree, so a row that takes millions
+    of small values in one bounce keeps float32 accuracy. More rows: an
+    index_add_ into a fresh buffer, so adding a round's sum to the running
+    total keeps each atomic add small next to the bin it lands in."""
+    if n_rows <= 64:
+        rows = torch.arange(n_rows, device=sid.device, dtype=sid.dtype)
+        return torch.where(sid[None, :] == rows[:, None], values,
+                           0.0).sum(1)
     idx = _dfm.spread_misses(sid >= 0, sid, n_rows)
     out = torch.zeros(n_rows + _dfm.N_SPILL, dtype=values.dtype,
                       device=values.device)
     return out.index_add_(0, idx, values)[:n_rows]
 
 
-def _account(accum: TraceAccum, sid, escaped, absorbed_ray, energy) -> None:
-    """Per-surface energy accounting for one bounce, in place."""
+def _account(accum: TraceAccum, sid, escaped, absorbed_ray, energy,
+             count_hits: bool = False) -> None:
+    """Per-surface energy accounting for one bounce, in place; with
+    ``count_hits`` also the number of hits per row."""
+    n_rows = accum.absorbed.shape[0]
     accum.escaped += torch.where(escaped, energy, 0.0).sum()
-    accum.absorbed += _row_sums(sid, absorbed_ray, accum.absorbed.shape[0])
+    accum.absorbed += _row_sums(sid, absorbed_ray, n_rows)
+    if count_hits:
+        accum.hits += _row_sums(sid, (sid >= 0).to(accum.hits.dtype),
+                                n_rows)
 
 
 def _chunked_drain(e, fields, drain_fn, cap: int, accum):
@@ -307,3 +345,334 @@ def energy_closure(accum: TraceAccum, source_e) -> float:
            + float(accum.culled) + float(accum.medium)
            + float(accum.residual))
     return (se - tot) / se if se else math.nan
+
+
+# ---------------------------------------------------------------------------
+# bundle traces: host-stepped ray_tracer and trace_fused
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BounceRecord:
+    """Per-bounce, per-ray-slot record (genealogy and accounting data).
+    Slot i in bounce b descends from slot i in bounce b-1 (fixed slab)."""
+
+    sid: torch.Tensor        # (N,) hit surface row, -1 = escaped/dead
+    t: torch.Tensor          # (N,) hit distance
+    hit: torch.Tensor        # (N,3) global hit point
+    local: torch.Tensor      # (N,3) local-frame hit point
+    dir_in: torch.Tensor     # (N,3)
+    dir_out: torch.Tensor    # (N,3)
+    e_in: torch.Tensor       # (N,)
+    e_out: torch.Tensor      # (N,)
+    absorbed: torch.Tensor   # (N,)
+    backside: torch.Tensor   # (N,) bool
+    alive_in: torch.Tensor   # (N,) bool: slot carried a live ray
+    wavelength: Optional[torch.Tensor] = None   # (N,) per-hit wavelength
+    normal: Optional[torch.Tensor] = None       # (N,3) shading normal
+    spectra: Optional[torch.Tensor] = None      # not ported (A10)
+    split: Optional[tuple] = None               # not ported (A9)
+    bounce: Optional[int] = None    # bounce index
+    slot: Optional[torch.Tensor] = None  # (K,) slab slot of each entry of
+    #   a compacted (record="tags") record
+
+    def replace(self, **changes) -> "BounceRecord":
+        return dataclasses.replace(self, **changes)
+
+    def to(self, device) -> "BounceRecord":
+        return self.replace(**{
+            f.name: v.to(device) for f in dataclasses.fields(self)
+            for v in (getattr(self, f.name),) if torch.is_tensor(v)})
+
+
+@dataclasses.dataclass
+class TraceOptions:
+    max_bounces: int = 100
+    min_energy: float = 1e-6
+    t_eps: float = None   # None -> kernels.intersect.default_t_eps(dtype)
+    disc_eps: float = 1e-6
+    block: int = 64       # rows per step of the float64 oracle
+    # True: full per-bounce records; "tags": only hits on surfaces whose
+    # OpticsSpec carries record tags (materials.receiver / detector), and
+    # no device-to-host copy in bounces that hit none; False: no records
+    record: object = True
+
+
+def _refuse_unported(scene, bundle: RayBundle) -> None:
+    check_supported(scene)
+    if bundle.pos.device != scene.device:
+        raise ValueError(f"the bundle is on {bundle.pos.device}, the scene "
+                         f"on {scene.device}")
+
+
+def _bounce_step(scene: SceneTable, bundle: RayBundle, accum: TraceAccum,
+                 generator: torch.Generator, min_energy: float, t_eps,
+                 disc_eps: float, block: int, count_hits: bool = True,
+                 need_local: bool = True, split_mode: bool = False,
+                 cand=None, force_jnp: bool = False, spectral_alpha=None):
+    """One bounce: nearest hit, shade, account (``accum`` in place).
+    Returns (bundle', accum, record). tracer_tpu's fused K2 branch, its
+    volumetric media, polychromatic spectra and Kd candidates are not
+    ported (ROADMAP A8, A9, A10) and raise."""
+    if cand is not None or spectral_alpha is not None or split_mode:
+        raise NotImplementedError("Kd candidates, polychromatic spectra "
+                                  "and energy splitting are not ported yet "
+                                  "(ROADMAP A9/A10)")
+    alive = bundle.alive & (bundle.energy > 0.0)
+    t, sid, aux = nearest_hit_aux(scene, bundle.pos, bundle.dir,
+                                  t_eps=t_eps, disc_eps=disc_eps,
+                                  block=block, need_local=need_local,
+                                  force_jnp=force_jnp)
+    sid = torch.where(alive, sid, -1)
+    hit = sid >= 0
+    escaped = alive & ~hit
+    res = shade(scene, sid, t, bundle.pos, bundle.dir, bundle.energy,
+                bundle.wavelength, bundle.ref_index, generator,
+                medium=(bundle.att_coeff, bundle.scat_coeff, bundle.scat_g),
+                aux=aux)
+    e_in = torch.where(hit, bundle.energy, 0.0)
+    e_out = torch.where(hit, res.out_energy, 0.0)
+    absorbed_ray = torch.where(hit, res.absorbed, 0.0)
+    _account(accum, sid, escaped, absorbed_ray, bundle.energy, count_hits)
+    low = hit & (e_out <= min_energy)
+    accum.culled += torch.where(low, e_out, 0.0).sum()
+    alive_next = hit & ~low
+    out_att, out_scat, out_g = res.out_medium
+    h3 = hit[:, None]
+    new_bundle = bundle.replace(
+        pos=torch.where(h3, res.out_pos, bundle.pos),
+        dir=torch.where(h3, res.out_dir, bundle.dir),
+        energy=torch.where(alive_next, e_out, 0.0),
+        ref_index=torch.where(hit, res.out_ref_index, bundle.ref_index),
+        att_coeff=torch.where(hit, out_att, bundle.att_coeff),
+        scat_coeff=torch.where(hit, out_scat, bundle.scat_coeff),
+        scat_g=torch.where(hit, out_g, bundle.scat_g),
+        alive=alive_next)
+    rec = BounceRecord(
+        sid=sid, t=t, hit=res.out_pos, local=res.local_pt,
+        dir_in=bundle.dir, dir_out=res.out_dir, e_in=e_in, e_out=e_out,
+        absorbed=absorbed_ray, backside=res.backside & hit, alive_in=alive,
+        wavelength=bundle.wavelength, normal=res.normal)
+    return new_bundle, accum, rec
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+@dataclasses.dataclass
+class TraceResult:
+    """Host-side result: final bundle, accumulators (on the CPU),
+    per-bounce records (on the CPU)."""
+
+    scene: SceneTable
+    meta: Optional[SceneMeta]
+    final: RayBundle
+    accum: TraceAccum
+    records: List[BounceRecord]
+    source: RayBundle
+
+    def _rows_of(self, surface) -> np.ndarray:
+        """Scene-table row ids of a logical surface (index or name)."""
+        if self.meta is None:
+            raise ValueError("no SceneMeta attached")
+        if isinstance(surface, str):
+            surface = self.meta.index_of(surface)
+        return np.nonzero(self.meta.row_logical == surface)[0]
+
+    def hits_of(self, surface) -> dict:
+        """Every hit on a logical surface across bounces as numpy arrays:
+        global and local hit points, absorbed, incident and outgoing
+        energy, incoming direction, backside flag, wavelength, shading
+        normal and bounce index (the reference's accountant queries)."""
+        rows = list(self._rows_of(surface))
+        keys = ("hit", "local", "absorbed", "e_in", "e_out", "dir_in",
+                "backside", "wavelength", "normal")
+        out = {k: [] for k in keys + ("bounce",)}
+        for b, rec in enumerate(self.records):
+            mask = np.isin(_np(rec.sid), rows) & _np(rec.alive_in)
+            if not mask.any():
+                continue
+            for k in keys:
+                out[k].append(_np(getattr(rec, k))[mask])
+            out["bounce"].append(np.full(
+                mask.sum(), b if rec.bounce is None else int(rec.bounce)))
+        vec3 = ("hit", "local", "dir_in", "normal")
+        return {k: (np.concatenate(v) if v
+                    else np.empty((0, 3) if k in vec3 else (0,)))
+                for k, v in out.items()}
+
+    def absorbed_by_logical(self) -> np.ndarray:
+        """Absorbed energy aggregated to logical surfaces."""
+        rows = _np(self.accum.absorbed).astype(np.float64)
+        if self.meta is None:
+            return rows
+        out = np.zeros(self.meta.row_logical.max() + 1)
+        np.add.at(out, self.meta.row_logical, rows)
+        return out
+
+    def energy_balance(self) -> dict:
+        src = float(self.source.total_energy())
+        absorbed = float(self.accum.absorbed.double().sum())
+        escaped = float(self.accum.escaped)
+        culled = float(self.accum.culled)
+        residual = (float(self.final.total_energy())
+                    + float(self.accum.residual))
+        medium = float(self.accum.medium)
+        return dict(source=src, absorbed=absorbed, escaped=escaped,
+                    culled=culled, medium=medium, residual=residual,
+                    closure=src - absorbed - escaped - culled - medium
+                    - residual)
+
+    def ray_history(self, slot: int) -> list:
+        """One ray slot through the bounces: the full path with full
+        records, only its recorded hits with record="tags"."""
+        hist = []
+        for b, rec in enumerate(self.records):
+            alive = _np(rec.alive_in)
+            if rec.slot is not None:
+                pos = [p for p in np.nonzero(_np(rec.slot) == slot)[0]
+                       if alive[p]]
+                if not pos:
+                    continue
+                i = int(pos[0])
+            else:
+                if not alive[slot]:
+                    break
+                i = slot
+            hist.append(dict(
+                bounce=b if rec.bounce is None else int(rec.bounce),
+                sid=int(rec.sid[i]), hit=_np(rec.hit[i]),
+                e_in=float(rec.e_in[i]), e_out=float(rec.e_out[i])))
+        return hist
+
+
+def _compact_record(rec: BounceRecord, mask, n_hits: int,
+                    bounce: int) -> BounceRecord:
+    """The ``mask``-selected slots of a record gathered on the device into
+    a buffer of the next power of two >= n_hits entries (padding: sid -1,
+    alive_in False); ``slot`` keeps each entry's slab index."""
+    n = mask.shape[0]
+    k = min(1 << max(n_hits - 1, 0).bit_length(), n)
+    idx = torch.zeros(k, dtype=torch.int64, device=mask.device)
+    idx[:n_hits] = torch.nonzero(mask).flatten()[:k]
+    valid = torch.arange(k, device=mask.device) < n_hits
+
+    def take(a):
+        return None if a is None else a[idx]
+    return BounceRecord(
+        sid=torch.where(valid, rec.sid[idx], -1), t=take(rec.t),
+        hit=take(rec.hit), local=take(rec.local), dir_in=take(rec.dir_in),
+        dir_out=take(rec.dir_out),
+        e_in=torch.where(valid, rec.e_in[idx], 0.0),
+        e_out=torch.where(valid, rec.e_out[idx], 0.0),
+        absorbed=torch.where(valid, rec.absorbed[idx], 0.0),
+        backside=rec.backside[idx] & valid,
+        alive_in=rec.alive_in[idx] & valid,
+        wavelength=take(rec.wavelength), normal=take(rec.normal),
+        bounce=bounce, slot=idx.to(torch.int32))
+
+
+def _generator_for(scene, generator):
+    """``generator``, or one on the scene's device seeded with 0."""
+    if generator is None:
+        generator = torch.Generator(device=scene.device).manual_seed(0)
+    return generator
+
+
+class TracerEngine:
+    """Drives the host-stepped trace of a scene (the reference engine's
+    API: construct with an Assembly, then ray_tracer(bundle, reps,
+    min_energy)) on the compiled table."""
+
+    def __init__(self, assembly_or_table, meta: Optional[SceneMeta] = None,
+                 dtype=torch.float32, device=None):
+        """An Assembly is compiled on ``device`` (None means the GPU,
+        device.default_device); a SceneTable is used where it lies."""
+        if isinstance(assembly_or_table, Assembly):
+            self.scene, self.meta = compile_scene(assembly_or_table,
+                                                  dtype=dtype, device=device)
+        else:
+            self.scene = assembly_or_table
+            self.meta = meta
+        self.tree: Optional[TraceResult] = None
+
+    def ray_tracer(self, bundle: RayBundle, reps: int = 100,
+                   min_energy: float = 1e-6,
+                   generator: Optional[torch.Generator] = None,
+                   opts: Optional[TraceOptions] = None,
+                   accel=None) -> TraceResult:
+        """Host-stepped trace with per-bounce records; stops when the
+        bundle dies. ``generator`` (on the scene's device) draws the
+        shading randomness; None means one seeded with 0. ``accel`` (the
+        Kd-tree candidate mode) is not ported yet (ROADMAP A10)."""
+        if accel:
+            raise NotImplementedError("accel (Kd-tree candidates) is not "
+                                      "ported yet (ROADMAP A10)")
+        scene = self.scene
+        _refuse_unported(scene, bundle)
+        opts = opts or TraceOptions(max_bounces=reps, min_energy=min_energy)
+        generator = _generator_for(scene, generator)
+        accum = TraceAccum.zeros(scene.num_rows, dtype=bundle.pos.dtype,
+                                 device=scene.device)
+        records: List[BounceRecord] = []
+        source = bundle
+        recording_rows = None
+        if opts.record == "tags":
+            if self.meta is None:
+                raise ValueError("record='tags' needs a SceneMeta")
+            tagged = [r for r, lid in enumerate(self.meta.row_logical)
+                      if self.meta.surfaces[int(lid)].optics.record]
+            recording_rows = torch.tensor(tagged, dtype=torch.int32,
+                                          device=scene.device)
+        for b in range(opts.max_bounces):
+            bundle, accum, rec = _bounce_step(
+                scene, bundle, accum, generator,
+                min_energy=opts.min_energy, t_eps=opts.t_eps,
+                disc_eps=opts.disc_eps, block=opts.block)
+            if recording_rows is not None:
+                if len(recording_rows):
+                    mask = torch.isin(rec.sid, recording_rows)
+                    n_hits = int(mask.sum())
+                    if n_hits:
+                        records.append(_compact_record(
+                            rec, mask, n_hits, b).to("cpu"))
+            elif opts.record:
+                records.append(rec.replace(bounce=b).to("cpu"))
+            if not bool(bundle.alive.any()):
+                break
+        result = TraceResult(scene=scene, meta=self.meta, final=bundle,
+                             accum=accum.to("cpu"), records=records,
+                             source=source)
+        residual = float(result.final.total_energy())
+        if residual > 0.0:
+            log.warning("%.3g energy (%.2f%% of source) still alive after "
+                        "%d bounces", residual, 100.0 * residual
+                        / max(float(source.total_energy()), 1e-300),
+                        opts.max_bounces)
+        self.tree = result
+        return result
+
+
+def trace_fused(scene: SceneTable, bundle: RayBundle,
+                generator: Optional[torch.Generator] = None,
+                max_bounces: int = 100, min_energy: float = 1e-6,
+                t_eps=None, disc_eps: float = 1e-6, block: int = 64,
+                fluxspecs: tuple = ()):
+    """Trace without records: accumulators only, plus the device flux
+    histograms of ``fluxspecs`` (device_fluxmap.FluxSpec tuple) in
+    ``accum.flux``. A host loop of :func:`_bounce_step` that reads one
+    flag from the device per bounce (tracer_tpu runs the same loop as one
+    jitted while_loop). Returns (final bundle, accum)."""
+    _refuse_unported(scene, bundle)
+    generator = _generator_for(scene, generator)
+    accum = TraceAccum.zeros(scene.num_rows, dtype=bundle.pos.dtype,
+                             device=scene.device, fluxspecs=fluxspecs)
+    for _ in range(max_bounces):
+        if not bool(bundle.alive.any()):
+            break
+        bundle, accum, rec = _bounce_step(
+            scene, bundle, accum, generator, min_energy=min_energy,
+            t_eps=t_eps, disc_eps=disc_eps, block=block)
+        _dfm.accumulate(accum.flux, fluxspecs, scene, rec.sid, rec.hit,
+                        rec.absorbed)
+    return bundle, accum

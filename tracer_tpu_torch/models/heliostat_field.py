@@ -62,9 +62,7 @@ def load_heliostat_positions(path: Optional[str] = None) -> np.ndarray:
     if path is not None:
         return np.loadtxt(path, delimiter=",", dtype=float).reshape(-1, 3)
     import os
-    # the field data is read in place from the JAX package's data folder
-    data = np.load(os.path.join(os.path.dirname(__file__), "..", "..",
-                                "tracer_tpu", "data",
+    data = np.load(os.path.join(os.path.dirname(__file__), "..", "data",
                                 "sandia_nsttf_field.npz"))
     return data["positions"]
 

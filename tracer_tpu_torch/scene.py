@@ -20,6 +20,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .device import resolve
 from .geometry import Geometry, N_AP_PARAMS
 from .materials import OpticsSpec, N_OPT_PARAMS
 from . import spatial
@@ -224,6 +225,7 @@ _STATIC_FIELDS = ("groups", "kinds_present", "flags_present",
 
 
 def _table_from_numpy(arrays: dict, static: dict, dtype, device) -> SceneTable:
+    device = resolve(device)
     fields = {k: torch.tensor(np.asarray(arrays[k]), dtype=dtype,
                               device=device) for k in _FLOAT_FIELDS}
     fields.update({k: torch.tensor(np.asarray(arrays[k]), dtype=torch.int32,
@@ -235,7 +237,8 @@ def scene_from_jax(table_np: dict, device=None,
                    dtype=torch.float32) -> SceneTable:
     """Carry a tracer_tpu SceneTable across: ``table_np`` maps every field
     name to a numpy array (``np.asarray`` of the JAX field) and every
-    static field name (groups, kinds_present, ...) to its tuple."""
+    static field name (groups, kinds_present, ...) to its tuple. ``device``
+    None means the GPU (device.default_device)."""
     static = {k: table_np[k] for k in _STATIC_FIELDS if k in table_np}
     return _table_from_numpy(table_np, static, dtype, device)
 
@@ -267,13 +270,15 @@ class SceneMeta:
 def compile_scene(assembly: Assembly, dtype=torch.float32,
                   max_constraints: Optional[int] = None,
                   extra_features: Sequence[str] = (), device=None):
-    """Flatten an Assembly into (SceneTable, SceneMeta).
+    """Flatten an Assembly into (SceneTable, SceneMeta) on ``device`` (None
+    means the GPU, device.default_device).
 
     extra_features: additional static feature tags to compile in. The main
     use is ("volumetric",) for scenes traced in an ambient participating
     medium set on the ray bundle (att_coeff/scat_coeff) rather than entered
     through a refractive/absorbant interface — without the tag the engine
     prunes the volumetric code path."""
+    device = resolve(device)
     pairs = list(assembly._walk(np.eye(4)))
     if not pairs:
         raise ValueError("empty scene")

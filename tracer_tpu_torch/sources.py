@@ -1,8 +1,10 @@
-"""Light sources of the NSTTF trace: the Buie-sunshape disk and the pillbox
-disk (the PyTorch port of the matching parts of tracer_tpu/sources.py).
+"""Light sources of the NSTTF and MiniDish traces: the Buie-sunshape disk
+and the pillbox disk (the PyTorch port of the matching parts of
+tracer_tpu/sources.py).
 
 Every sampler takes an explicit ``torch.Generator`` and returns a
-:class:`RayBundle` on ``device`` (default: the generator's device). Energy
+:class:`RayBundle` on ``device`` (None means the GPU,
+device.default_device; the generator may live elsewhere). Energy
 conventions and the host-side Buie tables are those of tracer_tpu; the
 same seed gives other numbers than jax.random, so comparisons with the JAX
 package are statistical.
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from .bundle import RayBundle
+from .device import resolve
 from . import spatial
 
 
@@ -42,7 +45,7 @@ def _uniform(generator, n: int, dtype, device, lo: float = 0.0,
 def lambertian_directions(generator, num_rays: int, ang_range: float,
                           dtype=torch.float32, device=None) -> torch.Tensor:
     """Cosine-weighted directions about +Z within ``ang_range``."""
-    device = device or generator.device
+    device = resolve(device)
     phi = _uniform(generator, num_rays, dtype, device, 0.0, 2.0 * np.pi)
     if ang_range == 0.0:
         return torch.tensor([0.0, 0.0, 1.0], dtype=dtype,
@@ -140,7 +143,7 @@ def buie_directions(generator, num_rays: int, CSR: float,
     """Sample ray directions from the Buie sunshape about +Z: the
     host-fitted polynomial inverse CDF of the solar disc plus the analytic
     circumsolar aureole (tracer_tpu/sources.py:149)."""
-    device = device or generator.device
+    device = resolve(device)
     tb = _buie_tables(CSR, pre_process_CSR)
     coeffs = _buie_inverse_poly(tb)
     disc_end = float(tb["cdf"][-1])
@@ -210,7 +213,7 @@ def disk_bundle(generator, num_rays: int, center, direction,
     """Uniform disk (or annular wedge) source with pillbox divergence
     (tracer_tpu/sources.py:432 without the chord cut). Energy per ray =
     flux * pi (R^2 - Ri^2) / n * cos(2 arcsin(|rays_dir - dir|/2))."""
-    device = device or generator.device
+    device = resolve(device)
     center = _as_row3(center)
     direction = _as_row3(direction)
     rays_direction = (direction if rays_direction is None
@@ -233,7 +236,8 @@ def disk_bundle(generator, num_rays: int, center, direction,
         e = 1.0 / num_rays / procs
     return RayBundle.create(pos=verts, dir=directions,
                             energy=torch.full((num_rays,), float(e),
-                                              dtype=dtype, device=device))
+                                              dtype=dtype, device=device),
+                            device=device)
 
 
 def buie_sunshape(generator, num_rays: int, center, direction,
@@ -242,7 +246,7 @@ def buie_sunshape(generator, num_rays: int, center, direction,
                   dtype=torch.float32, device=None) -> RayBundle:
     """Disk source with Buie sunshape directions
     (tracer_tpu/sources.py:588)."""
-    device = device or generator.device
+    device = resolve(device)
     center = _as_row3(center)
     direction = _as_row3(direction)
     rays_direction = (direction if rays_direction is None
@@ -265,4 +269,9 @@ def buie_sunshape(generator, num_rays: int, center, direction,
                                                / num_rays
                                                * np.cos(cosangle)),
                             dtype=dtype, device=device)
-    return RayBundle.create(pos=verts, dir=directions, energy=energy)
+    return RayBundle.create(pos=verts, dir=directions, energy=energy,
+                            device=device)
+
+
+# The reference examples call this source by its older name.
+solar_disk_bundle = disk_bundle
