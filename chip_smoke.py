@@ -42,7 +42,27 @@ Phases, each printing its lines:
    K3 launched once per bounce, and against the port's float64 CPU
    ray_tracer on the first 65,536 rays (same float32 self-hit guard):
    receiver fraction within 3 binomial sigma, every surface's absorbed
-   energy on those rays within 1e-4 of their source energy.
+   energy on those rays within 1e-4 of their source energy;
+7. bench configs 1-3 (benchmarks/suite.py: the MiniDish under a pillbox
+   sun; a slope-error dish over a Lambertian absorber; a spectral silver
+   mirror under a Buie sun with a wavelength band, in an attenuating
+   medium) on the plain streaming megakernel: K2 (bounce_reflect) against
+   its plain version at the suite's slab of 700,416 lanes in each mode the
+   path runs (regeneration over a half-dead slab, the MiniDish's
+   paraboloid and rect rows, the Lambertian lobe with bivariate slope
+   error, spectral absorptance with ambient attenuation), with ties and
+   edge flips at most 1e-5 of the lanes (tests/test_torch_gpu.k2_compare),
+   each timed beside its plain version; then each configuration through
+   trace_streaming(culling=None) at the suite's size (128 emission rounds,
+   89,653,248 rays, max_path 20, 20 and 8): one untimed short trace, three
+   timed (median and every wall time, rounds and K2 launches printed) and
+   one profiled for K2's share of device time. Guards: full emission,
+   closure below 1e-4, config 1's receiver fraction within 3 binomial
+   sigma of phase 6's float64 reference, configs 2 and 3's per-surface
+   fractions (and config 3's medium share) within 3 combined sigma of a
+   196,608-ray CPU trace through the plain version, and a medium loss in
+   config 3. The TPU's recorded physics values are printed beside the
+   port's for the reader.
 
 Every kernel's launch count is set to 0 just before a main path runs and
 read just after. The line before the last is the kernels' JSON record;
@@ -189,7 +209,8 @@ def main(argv) -> None:
                          "this script runs only on a CUDA card")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    # the K3 checks share the GPU test's fuzzed table and comparison
+    # the K2 and K3 checks share the GPU test's fuzzed table, lanes and
+    # comparisons
     sys.path.insert(1, os.path.join(root, "tests"))
     try:
         import tracer_tpu_torch  # noqa: F401
@@ -327,19 +348,23 @@ def main(argv) -> None:
     for k, (t_k, t_p) in times.items():
         log(f"{k} at {nbb * kb.TILE} lanes: kernel {t_k:.3f} ms, plain "
             f"{t_p:.3f} ms ({card})")
-    # the bounds of the timed calls: each lane's state read once (28 B)
-    # and written once (36 B); K1 tests its tile's candidates, shades its
-    # live lanes and samples its regenerated ones, K2 tests every row
-    # (only lanes that carry a ray after regeneration need the work)
+    # the bounds of the timed calls: every lane's results written once
+    # (36 B); a lane that carries its ray in reads it once (28 B), a lane
+    # that K1 regenerates reads only its energy (4 B); each input table is
+    # read once. K1 tests its tile's candidates, shades its live lanes and
+    # samples its regenerated ones; K2 (regeneration off) tests every row
+    # (only lanes with energy need the work)
     n_lanes = nbb * kb.TILE
     live_b = (e > 0.0).view(nbb, kb.TILE).sum(1).cpu()
     regen_b = torch.minimum(kb.TILE - live_b, rem.cpu().to(live_b.dtype))
     n_live, n_regen = int(live_b.sum()), int(regen_b.sum())
     cand = int(((live_b + regen_b)
                 * torch.as_tensor(culling.counts.sum(1))).sum())
-    k1_bound = bound(64 * n_lanes, cand * row_ops("flat", (1,))
+    tables = 4 * (rows.numel() + sum(a.numel() for a in args[1:]) + 2 * nbb)
+    k1_bound = bound(36 * n_lanes + 28 * (n_lanes - n_regen) + 4 * n_regen
+                     + tables, cand * row_ops("flat", (1,))
                      + (n_live + n_regen) * SHADE_OPS + n_regen * REGEN_OPS)
-    k2_bound = bound(64 * n_lanes, n_live * (sum(
+    k2_bound = bound(64 * n_lanes + 4 * rows.numel(), n_live * (sum(
         (g[1] - g[0]) * row_ops(g[3], g[2]) for g in table.groups)
         + SHADE_OPS))
     for k, bnd in (("K1", k1_bound), ("K2", k2_bound)):
@@ -405,7 +430,16 @@ def main(argv) -> None:
     check(kn.nearest_hit.launches == 0, "K3 launched on the NSTTF path")
 
     # ---- phase 6: the MiniDish main paths
-    record["kernels"][2]["launches"] = minidish_phase(dev, card, kn, kb)
+    record["kernels"][2]["launches"], p_ref = minidish_phase(dev, card, kn,
+                                                             kb)
+
+    # ---- phase 7: bench configs 1-3 on the plain megakernel
+    k2 = bench_phase(dev, card, kb, kn, p_ref)
+    entry = record["kernels"][1]
+    entry["launches"] += k2["launches"]
+    entry["max_abs_err"] = max(entry["max_abs_err"], k2["max_abs_err"])
+    entry.update({k: k2[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by")})
     for k in record["kernels"]:
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
     print(json.dumps(record))
@@ -658,12 +692,15 @@ def minidish_phase(dev, card, kn, kb):
         f"wall median {wall:.3f} s of "
         f"{', '.join(f'{w:.3f}' for w in walls)}, "
         f"{MD_LANES / wall / 1e6:.1f} Mrays/s ({card})")
-    profile_fused(fused, card)
-    return launches
+    profile_path("MiniDish trace_fused", fused, "K3", "nearest_kernel",
+                 card)
+    return launches, p_ref
 
 
-def profile_fused(fused, card):
-    """K3's share of device time in one profiled trace_fused."""
+def profile_path(label, run, name, kernel_key, card, top=8):
+    """One profiled run: device busy time (summed over device events
+    only) and the share of kernel ``name`` (events whose key holds
+    ``kernel_key``), then the largest device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -672,23 +709,218 @@ def profile_fused(fused, card):
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fused()
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in dev)
-    k3_us = sum(e.self_device_time_total for e in dev
-                if "nearest_kernel" in e.key)
-    check(dev_us > 0 and k3_us > 0, "profile: no device time for K3")
-    log(f"MiniDish trace_fused profile: wall {wall * 1e3:.1f} ms under the "
-        f"profiler, device busy {dev_us / 1e3:.1f} ms in "
-        f"{sum(e.count for e in dev)} device events, K3 {k3_us / 1e3:.2f} "
-        f"ms = {100 * k3_us / dev_us:.1f}% of device time ({card})")
-    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
+    k_us = sum(e.self_device_time_total for e in dev if kernel_key in e.key)
+    check(dev_us > 0 and k_us > 0, f"profile: no device time for {name}")
+    log(f"{label} profile: wall {wall * 1e3:.1f} ms under the profiler, "
+        f"device busy {dev_us / 1e3:.1f} ms in {sum(e.count for e in dev)}"
+        f" device events, {name} {k_us / 1e3:.2f} ms = "
+        f"{100 * k_us / dev_us:.1f}% of device time ({card})")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms "
             f"({100 * e.self_device_time_total / dev_us:4.1f}%) "
             f"{e.count:6d}x {e.key[:80]}")
+
+
+BENCH_SLAB = 228 * 3072       # the suite's slab: 228 tiles of 3072 lanes
+BENCH_ROUNDS = 128            # emission rounds of one bench call
+BENCH_SMALL = 4 * 3072        # the plain version's small CPU trace
+# the recorded TPU physics of bench configs 1 and 3 (BENCHMARKS.md:69-71),
+# printed beside the port's for the reader only
+TPU_PHYSICS = {1: ("receiver fraction", 0.6008),
+               3: ("medium / source", 0.5101)}
+# float32 operations of K2's epilogue branches, counted from its source
+SLOPE_OPS = 90                # of SHADE_OPS: the slope error
+LAMBERT_OPS = 45              # the Lambertian lobe
+ATT_OPS = 25                  # Beer-Lambert attenuation
+SEG_OPS = 6                   # per spectral-table segment scanned
+BAND_OPS = 5                  # a wavelength drawn in the band
+
+
+def k2_bound(table, rows, kw, pos, dirs, energy, want, regen):
+    """(ms, what sets it) of one K2 call on these inputs. Bytes: every
+    lane's results written once (36 B, 4 B more with a wavelength); a lane
+    that carries its ray in reads it once (28 B, 4 B more with a
+    wavelength), a regenerated lane only its energy (4 B, and its
+    wavelength when the source has no band to draw one); the rows and the
+    spectral table read once. Operations, as its data needs them: every
+    row for each lane that carries a ray after regeneration, the
+    epilogue's branches for those lanes, the sample for each regenerated
+    lane, and the table segments each spectral hit scans."""
+    import torch
+    n = pos.shape[0]
+    spectral = kw.get("wavelength") is not None
+    dead = energy <= 0.0
+    n_regen = int(dead.sum()) if regen else 0
+    n_traced = n - int(dead.sum()) + n_regen
+    band = bool(kw["source_spec"][13]) if regen else False
+    nbytes = (n * (36 + (4 if spectral else 0))
+              + (n - n_regen) * (28 + (4 if spectral else 0))
+              + n_regen * (4 + (4 if spectral and not band else 0))
+              + 4 * rows.numel()
+              + (4 * kw["spectral_tab"].numel() if spectral else 0))
+    per_lane = (sum((g[1] - g[0]) * row_ops(g[3], g[2])
+                    for g in table.groups)
+                + SHADE_OPS - (0 if kw["slope"] else SLOPE_OPS)
+                + (LAMBERT_OPS if kw["lambertian"] else 0)
+                + (ATT_OPS if kw["ambient_att"] > 0.0 else 0))
+    nops = n_traced * per_lane + n_regen * (
+        REGEN_OPS + (BAND_OPS if spectral else 0))
+    if spectral:
+        kinds = table.opt_kind[want[3].clamp(min=0).long()]
+        on = (want[3] >= 0) & (kinds == 5)
+        x = kw["spectral_tab"][:, 0].contiguous()
+        seg = torch.searchsorted(x, want[5][on].contiguous())
+        nops += int((seg + 1).sum()) * SEG_OPS
+    return bound(nbytes, nops)
+
+
+def bench_phase(dev, card, kb, kn, p_ref):
+    """Bench configs 1-3 (benchmarks/suite.py) on the plain megakernel:
+    K2 against its plain version in each of the path's modes at the
+    suite's slab, then each configuration's trace_streaming(culling=None)
+    at full size under its guards. Returns K2's numbers for the record:
+    its launches on this path and, from the regeneration mode at the
+    suite's slab, its time, its plain version's and its bound."""
+    import math
+    import statistics
+    import torch
+    from test_torch_gpu import (bench_lanes, bench_modes, k2_compare,
+                                traced_rays)
+    from tracer_tpu_torch.models.bench_configs import BENCH, bench_scene
+    from tracer_tpu_torch.engine import energy_closure, trace_streaming
+    n = BENCH_SLAB
+    out = {"max_abs_err": 0.0}
+    modes = (("regeneration over a half-dead slab", 1, 0.5, True),
+             ("MiniDish rows", 1, 0.0, False),
+             ("Lambertian + bivariate slope (config 2)", 2, 0.5, True),
+             ("spectral + ambient (config 3)", 3, 0.5, True))
+    for label, cfg, dead, regen in modes:
+        table, meta, source_fn = bench_scene(cfg, n, dev)
+        spec = source_fn.pallas_spec
+        pos, dirs, e, wl = bench_lanes(table, spec, n, dead, 23, dev)
+        rows = kb.pack_rows(table)
+        kw = dict(regen=regen, wavelength=wl, **bench_modes(table, spec))
+        args = (rows, 29, pos, dirs, e, table.groups, F32_T_EPS)
+        got = kb.bounce_reflect(*args, **kw)
+        want = kb.bounce_reflect_ref(*args, **kw)
+        torch.cuda.synchronize()
+        tp, td = traced_rays(spec, 29, pos, dirs, e, regen)
+        live = (e > 0.0) | ((e <= 0.0) & regen)
+        max_flips = int(1e-5 * n) + 1
+        ties, flips, err = k2_compare(
+            got, want, kn.nearest_two_t(rows, tp, td, table.groups,
+                                        F32_T_EPS),
+            tp, td, live, att=kw["ambient_att"], max_flips=max_flips)
+        check(ties <= max_flips, f"K2 {label}: {ties} ties")
+        hits = float((want[3][live] >= 0).float().mean())
+        bnd = k2_bound(table, rows, kw, pos, dirs, e, want, regen)
+        del got
+        call_k = (lambda: kb.bounce_reflect(*args, **kw))
+        call_p = (lambda: kb.bounce_reflect_ref(*args, **kw))
+        p1 = time_cuda(call_p, 3)
+        k1 = time_cuda(call_k, 20)
+        k2 = time_cuda(call_k, 20)
+        p2 = time_cuda(call_p, 3)
+        ms, plain_ms = min(k1, k2), min(p1, p2)
+        log(f"K2 {label}: {n} lanes ({int(live.sum())} traced, hit share "
+            f"{hits:.3f}), rows {table.num_rows} in groups "
+            f"{[(g[3], g[2]) for g in table.groups]}, sid ties {ties}, "
+            f"edge flips {flips}, max abs err {err:.2e}; kernel {ms:.4f} ms"
+            f", plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) "
+            f"({card})")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if "ms" not in out:
+            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+                       bound_by=bnd[1])
+        del want, pos, dirs, e, wl, tp, td
+
+    # each configuration through the plain megakernel at the suite's size
+    total = BENCH_ROUNDS * n
+    out["launches"] = 0
+    for cfg in (1, 2, 3):
+        table, meta, source_fn = bench_scene(cfg, n, dev)
+        max_path = BENCH[cfg]["max_path"]
+
+        def run(seed, total=total):
+            return trace_streaming(
+                table, source_fn, torch.Generator().manual_seed(seed),
+                total, max_rounds=4 * BENCH_ROUNDS + 80, max_path=max_path)
+        run(100 + cfg, 4 * n)           # untimed: first-use costs
+        reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
+                       kn.nearest_hit)
+        walls, results = [], []
+        for rep in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results.append(run(10 * cfg + rep))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches = kb.bounce_reflect.launches
+        check(kb.bounce_reflect_culled.launches == kn.nearest_hit.launches
+              == 0, f"config {cfg}: K1 or K3 launched on the path")
+        check(launches > 3 * BENCH_ROUNDS, f"config {cfg}: {launches} K2 "
+              f"launches in 3 calls of {BENCH_ROUNDS}+ rounds")
+        out["launches"] += launches
+        # the plain version's small trace of the same configuration
+        if cfg != 1:
+            s_table, _, s_source = bench_scene(cfg, BENCH_SMALL, "cpu")
+            acc_s, em_s, se_s = trace_streaming(
+                s_table, s_source, torch.Generator().manual_seed(7),
+                16 * BENCH_SMALL, max_rounds=16 * 4 + 80, max_path=max_path)
+            q = (list(acc_s.absorbed.double().numpy() / float(se_s))
+                 + [float(acc_s.medium) / float(se_s)])
+        for rep, (accum, emitted, source_e) in enumerate(results):
+            em, se = int(emitted), float(source_e)
+            check(total <= em <= total + n,
+                  f"config {cfg}: emitted {em} of {total}")
+            closure = energy_closure(accum, source_e)
+            check(abs(closure) < 1e-4, f"config {cfg}: closure {closure}")
+            for name in ("absorbed", "escaped", "culled", "medium",
+                         "residual"):
+                check(bool(torch.isfinite(getattr(accum, name)).all()),
+                      f"config {cfg}: {name} not finite")
+            p = (list(accum.absorbed.double().cpu().numpy() / se)
+                 + [float(accum.medium) / se])
+            if cfg == 1:
+                rec = p[int((meta.row_logical
+                             == meta.index_of("receiver")).nonzero()[0][0])]
+                sig = math.sqrt(p_ref * (1 - p_ref) * (1 / MD_CPU + 1 / em))
+                check(abs(rec - p_ref) < 3 * sig, f"config 1: receiver "
+                      f"fraction {rec} vs {p_ref} +- {sig}")
+                physics = rec
+            else:
+                n_s = int(em_s)
+                for i, (a, b) in enumerate(zip(p, q)):
+                    sig = math.sqrt(max(b * (1 - b), 1e-12)
+                                    * (1 / n_s + 1 / em))
+                    check(abs(a - b) < 3 * sig, f"config {cfg}: fraction "
+                          f"{i} {a} vs the plain version's {b} +- {sig}")
+                physics = p[-1] if cfg == 3 else max(p[:-1])
+            if cfg == 3:
+                check(float(accum.medium) > 0.0, "config 3: no medium loss")
+        shown = ", ".join(f"{nm} {x:.5f}" for nm, x in zip(
+            [meta.names[int(r)] for r in meta.row_logical] + ["medium"], p))
+        wall = statistics.median(walls)
+        what, tpu = TPU_PHYSICS.get(cfg, ("largest surface fraction", None))
+        log(f"config {cfg}: {em} rays emitted per call, {launches / 3:.0f} "
+            f"rounds (K2 launches) per call, closure {closure:.2e}, {what} "
+            f"{physics:.5f}" + (f" (TPU recorded {tpu})" if tpu else "")
+            + f"; wall median {wall:.3f} s of "
+            f"{', '.join(f'{w:.3f}' for w in walls)}, "
+            f"{em / wall / 1e6:.1f} Mrays/s ({card})")
+        log(f"  fractions of the source (the last call): {shown}")
+        if cfg != 1:
+            log(f"  the plain version's {int(em_s)}-ray CPU trace: "
+                + ", ".join(f"{x:.5f}" for x in q))
+        profile_path(f"config {cfg} trace", lambda: run(200 + cfg),
+                     "K2", "bounce_kernel", card)
+    return out
 
 
 def check_trace(label, accum, emitted, source_e, total, energy_closure):

@@ -5,8 +5,10 @@ machine has no jax, so run it without the suite's jax-based conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_gpu.py
 
-The ray helpers and the fuzzed scene here also feed the CPU parity tests
-of tests/test_torch_bounce.py and tests/test_torch_intersect.py.
+The ray helpers, the fuzzed scene and the comparisons here also feed the
+CPU parity tests (tests/test_torch_bounce.py, tests/test_torch_intersect.py,
+tests/test_torch_megakernel.py, tests/test_torch_emulated.py) and
+chip_smoke.py.
 """
 import numpy as np
 import pytest
@@ -14,9 +16,11 @@ import torch
 
 import tracer_tpu_torch as ptt
 from tracer_tpu_torch.culling import build_block_culling
+from tracer_tpu_torch.engine import energy_closure, trace_streaming
 from tracer_tpu_torch.kernels import bounce as kb
 from tracer_tpu_torch.kernels import nearest as kn
 from tracer_tpu_torch.models import nsttf
+from tracer_tpu_torch.models.bench_configs import bench_scene
 
 # the suite runs several test processes at once: one torch thread each
 # keeps them from oversubscribing the cores
@@ -156,6 +160,105 @@ def k3_compare(got, want, t12, pos, dirs, rtol=1e-5, max_flips=0):
     return int(tie.sum()), flips
 
 
+def bench_modes(table, spec):
+    """K2's keyword arguments for a bench scene's trace (its static modes,
+    the spectral table and the source's attenuation; no pose: the
+    wrappers take the spec's own)."""
+    spectral = "spectral" in table.features
+    tab = (torch.stack([table.spectral_wl, table.spectral_ab], dim=1)
+           .contiguous() if spectral else None)
+    return dict(bivar=ptt.engine._bivar_mode(table),
+                one_sided="one_sided" in table.features,
+                slope="slope_error" in table.features,
+                lambertian=ptt.materials.K_LAMBERTIAN in table.kinds_present,
+                source_spec=spec, spectral_tab=tab,
+                ambient_att=float(spec[14]))
+
+
+def bench_lanes(table, spec, n: int, dead: float, seed: int, device):
+    """n lanes of K2 input: rays drawn from the source, a random half of
+    them carried through one bounce of the plain version (so the lanes
+    hit the scene's rows from the source and from its first bounce; rays
+    that missed there keep their state), then a ``dead`` share of all
+    lanes without energy. Wavelengths come with the source's band.
+    Returns (pos, dirs, energy, wavelength or None)."""
+    modes = bench_modes(table, spec)
+    idx = torch.arange(n, device=device)
+    f = kb._sample_disk(spec, kb.source_pose(spec), seed, idx // kb.TILE,
+                        idx % kb.TILE)
+    pos, dirs = torch.stack(f[0:3], dim=1), torch.stack(f[3:6], dim=1)
+    e = torch.full((n,), float(kb.source_params(spec)[kb.SP_ERAY]),
+                   device=device)
+    wl = f[6] if modes["spectral_tab"] is not None else None
+    out = kb.bounce_reflect_ref(kb.pack_rows(table), seed + 1, pos, dirs, e,
+                                table.groups, T_EPS, wavelength=wl, **modes)
+    g = torch.Generator().manual_seed(seed)
+    moved = (torch.rand(n, generator=g) < 0.5).to(device)
+    pos = torch.where(moved[:, None], out[0], pos)
+    dirs = torch.where(moved[:, None], out[1], dirs)
+    e = torch.where(moved & (out[3] >= 0), out[2], e)
+    e = torch.where((torch.rand(n, generator=g) < dead).to(device), 0.0, e)
+    return pos, dirs, e, wl
+
+
+def traced_rays(spec, seed: int, pos, dirs, energy, regen: bool):
+    """The rays K2 traces: with regen, the dead lanes' fresh ones."""
+    if not regen:
+        return pos, dirs
+    idx = torch.arange(pos.shape[0], device=pos.device)
+    f = kb._sample_disk(spec, kb.source_pose(spec), seed, idx // kb.TILE,
+                        idx % kb.TILE)
+    reborn = (energy <= 0.0)[:, None]
+    return (torch.where(reborn, torch.stack(f[0:3], 1), pos),
+            torch.where(reborn, torch.stack(f[3:6], 1), dirs))
+
+
+def k2_compare(got, want, t12, pos, dirs, live, att=0.0, rtol=1e-5,
+               max_flips=0):
+    """K2 results (pos, dir, energy, sid, absorbed[, wavelength]) against
+    another version's on the ``live`` lanes (``pos``/``dirs`` the rays
+    each traced after regeneration, traced_rays; ``t12`` their two nearest
+    hit distances, kn.nearest_two_t). Ties (best and second-best t within
+    1e-5 of the scale) may pick either row; flips are other lanes whose
+    sid differs (a hit within rounding of an aperture edge or the self-hit
+    guard), at most ``max_flips``. On the other lanes, hit points agree
+    within rtol * (L + t) / cos^2 (k3_compare's scale, L = 1 + max|pos|),
+    directions within 10 rtol / cos^2 (slope error and Lambertian lobes
+    turn about that normal), energies and absorbed energies within
+    10 rtol relative plus what the hit point's rounding moves through an
+    ambient attenuation ``att``, wavelengths within 1e-6 relative (FMA
+    contraction). Returns (ties, flips, max abs error)."""
+    t1, t2 = t12
+    scale = 1.0 + pos.abs().amax(dim=1)
+    tie = live & ((t2 - t1) <= 1e-5 * (scale + t1))
+    same = got[3] == want[3]
+    flips = int((live & ~same & ~tie).sum())
+    assert flips <= max_flips, (flips, torch.nonzero(live & ~same & ~tie)[:5])
+    ok = live & same & ~tie
+    hit = ok & (want[3] >= 0)
+    # cos^2 of the incidence angle from the reflected direction (1 on
+    # misses); the Lambertian rows' lobes only get a looser scale
+    turn = want[1] - dirs
+    cos2 = torch.where(
+        want[3] >= 0, (dirs * turn).sum(1) ** 2
+        / (turn * turn).sum(1).clamp(min=1e-30), 1.0).clamp(min=1e-4)
+    base = (scale + torch.where(want[3] >= 0, t1, 0.0)) / cos2
+    d_pos = (got[0] - want[0]).abs().amax(dim=1)
+    d_dir = (got[1] - want[1]).abs().amax(dim=1)
+    assert (d_pos[hit] <= rtol * base[hit]).all(), "pos"
+    assert (d_dir[ok] <= 10 * rtol / cos2[ok]).all(), "dir"
+    for k, name in ((2, "energy"), (4, "absorbed")):
+        g, w = got[k][ok], want[k][ok]
+        tol = (10 * rtol + att * rtol * base[ok]) * w.abs()
+        assert ((g - w).abs() <= tol).all(), name
+    if len(got) > 5:
+        w = want[5][live]
+        assert ((got[5][live] - w).abs() <= 1e-6 * w.abs()).all(), "wl"
+    big = [float((got[k][ok] - want[k][ok]).abs().max()) if ok.any() else 0.0
+           for k in (0, 1, 2, 4)]
+    return int(tie.sum()), flips, max(big)
+
+
 def tile_args(culling):
     """(lists, counts, cells, cell_bounds) of the TILES, as numpy."""
     idx = np.asarray(TILES)
@@ -272,3 +375,54 @@ def test_nearest_hit_matches_plain_on_gpu(cuda_device, need_local):
         ties, flips = k3_compare(got, want, kn.nearest_two_t(*args), pos,
                                  dirs, max_flips=int(1e-5 * n) + 1)
         assert ties <= 1e-4 * n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,dead,regen", [(1, 0.5, True), (1, 0.0, False),
+                                            (2, 0.5, True), (3, 0.5, True)],
+                         ids=["regen", "minidish", "lambertian", "spectral"])
+def test_k2_modes_match_plain_on_gpu(cuda_device, cfg, dead, regen):
+    """K2 in each mode the plain megakernel runs against its plain version
+    on the card, same inputs and random streams: regeneration over a
+    half-dead slab, the MiniDish's paraboloid and rect rows, config 2's
+    Lambertian absorber and bivariate slope error, config 3's spectral
+    mirror in an attenuating medium (k2_compare: ties and edge flips at
+    most 1e-5 of the lanes); one launch per call."""
+    dev = cuda_device
+    n = 64 * kb.TILE
+    table, _, source_fn = bench_scene(cfg, n, dev)
+    spec = source_fn.pallas_spec
+    pos, dirs, e, wl = bench_lanes(table, spec, n, dead, 3, dev)
+    rows = kb.pack_rows(table)
+    kw = dict(regen=regen, wavelength=wl, **bench_modes(table, spec))
+    n0 = kb.bounce_reflect.launches
+    got = kb.bounce_reflect(rows, 17, pos, dirs, e, table.groups, T_EPS,
+                            **kw)
+    assert kb.bounce_reflect.launches == n0 + 1
+    want = kb.bounce_reflect_ref(rows, 17, pos, dirs, e, table.groups,
+                                 T_EPS, **kw)
+    torch.cuda.synchronize()
+    tp, td = traced_rays(spec, 17, pos, dirs, e, regen)
+    live = (e > 0.0) | (e <= 0.0) & regen
+    ties, flips, _ = k2_compare(
+        got, want, kn.nearest_two_t(rows, tp, td, table.groups, T_EPS), tp,
+        td, live, att=kw["ambient_att"], max_flips=int(1e-5 * n) + 1)
+    assert ties <= int(1e-5 * n) + 1
+    assert (want[3][live] >= 0).float().mean() > 0.2
+
+
+@pytest.mark.cuda
+def test_plain_megakernel_trace_closes_on_gpu(cuda_device):
+    """A small plain-megakernel trace of config 3 (every K2 mode but the
+    Lambertian) on the card emits its rays, closes its energy balance to
+    1e-5 and puts energy into the medium; one K2 launch per round."""
+    slab = 8 * kb.TILE
+    table, _, source_fn = bench_scene(3, slab, cuda_device)
+    n0 = kb.bounce_reflect.launches
+    accum, emitted, source_e = trace_streaming(
+        table, source_fn, torch.Generator().manual_seed(0), 4 * slab,
+        max_rounds=96, max_path=8)
+    assert 4 * slab <= int(emitted) <= 5 * slab
+    assert abs(energy_closure(accum, source_e)) < 1e-5
+    assert float(accum.medium) > 0.0
+    assert kb.bounce_reflect.launches > n0 + 4

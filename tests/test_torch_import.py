@@ -33,9 +33,10 @@ def test_no_jax_import_in_source(module):
 
 
 def test_kernel_sources_are_package_data():
-    for name in ("bounce.cu", "nearest.cu"):
+    for name in ("bounce.cu", "nearest.cu", "rows.cuh"):
         assert (PKG / "kernels" / "csrc" / name).is_file()
     assert (PKG / "data" / "sandia_nsttf_field.npz").is_file()
+    assert (PKG / "data" / "nk" / "AG.txt").is_file()
 
 
 def test_no_file_of_the_jax_package_is_read():

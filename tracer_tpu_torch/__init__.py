@@ -1,6 +1,6 @@
 """tracer_tpu_torch: the PyTorch / CUDA port of tracer_tpu.
 
-Two slices run end to end:
+Three slices run end to end:
 
 * the NSTTF heliostat-field trace: scene build (scene, models.nsttf),
   per-tile relevancy culling (culling), the culled streaming trace
@@ -10,7 +10,12 @@ Two slices run end to end:
 * the TAU MiniDish (models.tau_minidish) through the host-stepped
   engine.TracerEngine.ray_tracer, with per-bounce records, and
   engine.trace_fused, on the nearest-hit kernel (kernels/csrc/nearest.cu)
-  and the shade pass (kernels/shade.py).
+  and the shade pass (kernels/shade.py);
+* bench configurations 1-3 (the MiniDish, a slope-error dish over a
+  Lambertian absorber, a spectral mirror in an attenuating medium)
+  through the plain streaming megakernel, engine.trace_streaming without
+  culling, on the brute-force bounce kernel with in-kernel regeneration
+  (kernels/csrc/bounce.cu).
 
 Entry points put their tensors on the GPU (device.default_device) and
 raise without one unless given ``device="cpu"``. On CPU tensors every

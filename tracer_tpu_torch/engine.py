@@ -1,14 +1,22 @@
 """Trace engines (the PyTorch port of tracer_tpu/engine.py).
 
-* :func:`trace_streaming` -- the relevancy-culled streaming Monte-Carlo
-  trace of the NSTTF field. The ray population lives in a fixed slab of nb
-  tiles of TILE lanes, one tile per equal-area source cell (culling.py).
-  Each round one culled bounce kernel regenerates every tile's dead lanes
-  up to its exact emission quota, intersects the tile's candidate rows and
-  shades the hits; accounting adds each round's absorbed energy per
-  surface row. Rays that survive a demoted surface or reach their tile's
-  corridor depth are *parked* and re-traced against the full scene in a
-  drain phase, so culling changes the cost, never the physics.
+* :func:`trace_streaming` -- the streaming Monte-Carlo trace with
+  in-kernel ray regeneration. The ray population lives in a fixed slab of
+  lanes; each round one fused bounce kernel refills the dead lanes from
+  the source, intersects, shades, and the engine accounts the round's
+  absorbed energy per surface row. Two dispatches are ported:
+
+  - with ``culling`` (the NSTTF field), the relevancy-culled trace: one
+    tile of TILE lanes per equal-area source cell (culling.py), each
+    tile's dead lanes regenerated up to its exact emission quota and
+    tested against the tile's candidate rows only (K1). Rays that survive
+    a demoted surface or reach their tile's corridor depth are *parked*
+    and re-traced against the full scene in a drain phase (K2), so
+    culling changes the cost, never the physics;
+  - without it, the plain megakernel (bench configs 1-3): every round K2
+    regenerates every dead lane and tests every row; the emission loop
+    stops once ``total_rays`` are emitted and a compacted tail drains
+    the survivors.
 * :meth:`TracerEngine.ray_tracer` -- the host-stepped bounce loop with
   per-bounce records, stopping when the bundle dies.
 * :func:`trace_fused` -- the same bounce without records, accumulators and
@@ -33,12 +41,11 @@ from .analysis import device_fluxmap as _dfm
 from .bundle import RayBundle
 from .device import resolve
 from .kernels.bounce import (TILE, bounce_reflect, bounce_reflect_culled,
-                             pack_rows)
+                             pack_rows, source_params, source_pose)
 from .kernels.intersect import nearest_hit_aux
 from .kernels.shade import check_supported, shade
 from .scene import Assembly, SceneMeta, SceneTable, compile_scene
 
-_NOT_PORTED = "not yet ported, see ROADMAP A8/A10"
 log = logging.getLogger("tracer_tpu_torch")
 
 
@@ -118,10 +125,11 @@ def _account(accum: TraceAccum, sid, escaped, absorbed_ray, energy,
 
 def _chunked_drain(e, fields, drain_fn, cap: int, accum):
     """Drain the sparse survivors of a slab to death in compacted chunks:
-    top-k the ``cap`` highest-energy lanes, gather their ``fields``, zero
-    them in the slab, and hand the chunk to ``drain_fn(ce, cfields,
-    accum)`` (which returns the energy its round budget left alive, added
-    to ``accum.residual``). Repeats until the slab is dead."""
+    top-k the ``cap`` highest-energy lanes, gather their ``fields`` (None
+    stays None), zero them in the slab, and hand the chunk to
+    ``drain_fn(ce, cfields, accum)`` (which returns the energy its round
+    budget left alive, added to ``accum.residual``). Repeats until the
+    slab is dead."""
     if cap >= e.shape[0]:
         ce = drain_fn(e, fields, accum)
         accum.residual += ce.sum()
@@ -129,7 +137,7 @@ def _chunked_drain(e, fields, drain_fn, cap: int, accum):
     e = e.clone()
     while bool((e > 0.0).any()):
         ce, idx = torch.topk(e, cap)
-        cfields = tuple(f[idx] for f in fields)
+        cfields = tuple(None if f is None else f[idx] for f in fields)
         e[idx] = 0.0
         ce = drain_fn(ce, cfields, accum)
         accum.residual += ce.sum()
@@ -138,6 +146,101 @@ def _chunked_drain(e, fields, drain_fn, cap: int, accum):
 
 def _seed(generator) -> int:
     return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator))
+
+
+def _drain_cap(slab: int) -> int:
+    """Chunk capacity of the plain megakernel's compacted tail: slab // 8,
+    rounded up to whole tiles (tracer_tpu/engine.py:878)."""
+    return max(TILE, -(-(slab // 8) // TILE) * TILE)
+
+
+def _trace_streaming_megakernel(
+        scene: SceneTable, source_spec, src_frame, generator,
+        total_rays: int, slab: int, max_rounds: int, max_path: int,
+        min_energy: float, t_eps: float, disc_eps: float, bivar,
+        one_sided: bool, slope: bool, lambertian: bool, spectral: bool,
+        fluxspecs: tuple = ()):
+    """Plain streaming megakernel (tracer_tpu/engine.py:957): each round
+    K2 refills every dead lane of the slab from the source (pose
+    ``src_frame``), intersects every row and shades. The emission loop
+    reads the dead count once per round and stops once ``total_rays`` are
+    emitted (the last round may overshoot by up to one slab; ``emitted``
+    is exact); the survivors then drain in compacted chunks of
+    _drain_cap(slab) lanes, each for at most max_path + 1 rounds. Rays
+    older than ``max_path`` bounces, and hits that leave less than
+    ``min_energy``, are culled with their energy accounted. Returns
+    (accum, rays emitted, source energy)."""
+    dev = scene.device
+    e_ray = float(source_spec[5])
+    ambient_att = float(source_spec[14]) if len(source_spec) > 14 else 0.0
+    rows = pack_rows(scene)
+    tab = (torch.stack([scene.spectral_wl, scene.spectral_ab], dim=1)
+           .to(torch.float32).contiguous() if spectral else None)
+    f32 = dict(dtype=torch.float32, device=dev)
+    pos = torch.zeros((slab, 3), **f32)
+    dirs = torch.zeros((slab, 3), **f32)
+    dirs[:, 2] = 1.0
+    e = torch.zeros((slab,), **f32)
+    wl = torch.zeros((slab,), **f32) if spectral else None
+    age = torch.zeros((slab,), dtype=torch.int32, device=dev)
+    accum = TraceAccum.zeros(scene.num_rows, device=dev, fluxspecs=fluxspecs)
+    kernel_args = dict(disc_eps=disc_eps, bivar=bivar, one_sided=one_sided,
+                       slope=slope, lambertian=lambertian,
+                       source_spec=source_spec, spectral_tab=tab,
+                       ambient_att=ambient_att, src_frame=src_frame)
+
+    def one_round(pos, dirs, e, e_before, wl, age, regen: bool):
+        """One K2 round and its accounting, any number of lanes (the
+        emission loop and the compacted tail share it)."""
+        outs = bounce_reflect(rows, _seed(generator), pos, dirs, e,
+                              scene.groups, t_eps, regen=regen,
+                              wavelength=wl, **kernel_args)
+        pos, dirs, e_new, sid, absorbed = outs[:5]
+        if wl is not None:
+            wl = outs[5]
+        hit = sid >= 0
+        _account(accum, sid, (e_before > 0.0) & ~hit, absorbed, e_before)
+        _dfm.accumulate(accum.flux, fluxspecs, scene, sid, pos, absorbed)
+        if ambient_att > 0.0:
+            # the kernel reports surface absorption only: the medium took
+            # the rest of each hit segment's loss
+            accum.medium += torch.where(hit, e_before - absorbed - e_new,
+                                        0.0).sum()
+        low = hit & (e_new <= min_energy)
+        accum.culled += torch.where(low, e_new, 0.0).sum()
+        e_new = torch.where(hit & ~low, e_new, 0.0)
+        # the per-ray bounce budget
+        age = torch.where(e_before > 0.0, age + 1, 0)
+        over = (e_new > 0.0) & (age >= max_path)
+        accum.culled += torch.where(over, e_new, 0.0).sum()
+        return pos, dirs, torch.where(over, 0.0, e_new), wl, age
+
+    emitted = 0
+    i = 0
+    while i < max_rounds and emitted < total_rays:
+        reborn = e <= 0.0
+        emitted += int(reborn.sum())
+        e_before = torch.where(reborn, e_ray, e)
+        age = torch.where(reborn, 0, age)      # fresh rays restart their age
+        pos, dirs, e, wl, age = one_round(pos, dirs, e, e_before, wl, age,
+                                          True)
+        i += 1
+
+    def drain_fn(ce, cfields, accum):
+        cpos, cdirs, cwl, cage = cfields
+        for _ in range(max_path + 1):
+            if not bool((ce > 0.0).any()):
+                break
+            cpos, cdirs, ce, cwl, cage = one_round(cpos, cdirs, ce, ce, cwl,
+                                                   cage, False)
+        return ce
+
+    e = _chunked_drain(e, (pos, dirs, wl, age), drain_fn, _drain_cap(slab),
+                       accum)
+    # exact closure on any exit: energy still alive is accounted
+    accum.residual += e.sum()
+    return (accum, torch.tensor(emitted, dtype=torch.int64),
+            torch.tensor(emitted * e_ray, dtype=torch.float64))
 
 
 def _trace_streaming_megakernel_culled(
@@ -263,48 +366,108 @@ def _trace_streaming_megakernel_culled(
     return accum, emitted, emitted.to(torch.float64) * e_ray
 
 
+# optics kinds the plain megakernel's K2 shades (ROADMAP B2 stage b); the
+# rest wait for their stages
+_K2_KINDS = {_M.K_REFLECT, _M.K_LAMBERTIAN, _M.K_REFLECT_SPECTRAL}
+_K2_LATER = {_M.K_REFRACTIVE: "B2 stage c", _M.K_COOK_TORRANCE: "B2 stage d",
+             _M.K_LAMBERTIAN_SPECULAR: "B2 stage d",
+             _M.K_SEMI_LAMBERTIAN: "B2 stage d",
+             _M.K_TRANSPARENT: "B2 stage d",
+             _M.K_FRESNEL_CONDUCTOR: "B2 stage e", _M.K_PERIODIC: "B2 stage e",
+             _M.K_LAMBERTIAN_PIECEWISE: "B2 stage e"}
+# scene features whose kernel modes wait for a later K2 stage
+_FEATURES_LATER = {"iam": "B2 stage e", "iam_nonmirror": "A10",
+                   "fresnel_conductor": "B2 stage e",
+                   "conductor_dispersive": "B2 stage e",
+                   "lambertian_piecewise": "B2 stage e",
+                   "dispersive": "B2 stage c", "refractive_slope": "B2 stage c",
+                   "split": "A10", "bifacial": "C"}
+
+
 def trace_streaming(scene: SceneTable, source_fn, generator: torch.Generator,
                     total_rays: int, max_rounds: int = 10_000,
                     max_path: int = 100, min_energy: float = 1e-6,
-                    t_eps=None, culling=None, fluxspecs: tuple = ()):
+                    t_eps=None, disc_eps: float = 1e-6, culling=None,
+                    fluxspecs: tuple = ()):
     """Streaming wavefront trace with in-kernel ray regeneration
     (tracer_tpu/engine.py:1625), on the device that holds ``scene``.
 
     ``source_fn(generator, device=None)`` returns a float32 RayBundle of
     the slab size and carries the static ``pallas_spec`` the kernels
     regenerate from and ``num_rays``, the slab size; ``generator`` (a CPU
-    torch.Generator) draws every round's kernel seed. ``total_rays`` caps how many source rays are emitted;
-    ``max_path`` is the per-ray bounce budget of the drain. ``fluxspecs``
-    (device_fluxmap.FluxSpec tuple) accumulates receiver flux maps into
-    ``accum.flux``.
+    torch.Generator) draws every round's kernel seed. ``total_rays`` caps
+    how many source rays are emitted; ``max_path`` is the per-ray bounce
+    budget. ``fluxspecs`` (device_fluxmap.FluxSpec tuple) accumulates
+    receiver flux maps into ``accum.flux``.
 
     Returns (accum, emitted, source_e): energy accumulators, rays
     emitted, total energy emitted, with source_e == absorbed + escaped +
     culled + medium + residual to float32 tolerance.
 
-    Only the culled dispatch is ported: a scene of K_REFLECT rows with a
-    bakeable source spec and a ``culling`` (culling.BlockCulling built for
-    this scene, source and slab). Every other dispatch raises
-    NotImplementedError."""
+    Two dispatches are ported, both for a bakeable source spec (a disk
+    source, with an optional wavelength band and ambient attenuation):
+
+    * ``culling`` given (culling.BlockCulling built for this scene, source
+      and slab): the relevancy-culled trace, for K_REFLECT rows without a
+      band or an ambient medium;
+    * ``culling`` None: the plain megakernel, for K_REFLECT, K_LAMBERTIAN
+      and K_REFLECT_SPECTRAL rows (spectral rows need the source's band),
+      with the spec's ambient attenuation (a "volumetric" scene needs it).
+
+    Everything else raises NotImplementedError naming its ROADMAP item."""
     spec = getattr(source_fn, "pallas_spec", None)
     if getattr(scene, "ambient_medium", ()):
-        raise NotImplementedError(f"scene-declared ambient media are "
-                                  f"{_NOT_PORTED}")
+        raise NotImplementedError("scene-declared ambient media are not "
+                                  "ported yet (ROADMAP A8)")
     if spec is None:
-        raise NotImplementedError(f"sources without a bakeable spec are "
-                                  f"{_NOT_PORTED}")
-    if scene.frame.dtype != torch.float32:
-        raise NotImplementedError(f"float64 traces are {_NOT_PORTED}")
-    n = source_fn.num_rays
-    if set(scene.kinds_present) != {_M.K_REFLECT}:
         raise NotImplementedError(
-            f"optics kinds {scene.kinds_present} are {_NOT_PORTED} "
-            "(only K_REFLECT rows run on the port)")
-    if {"iam", "bifacial"} & set(scene.features):
-        raise NotImplementedError(f"IAM and bifacial rows are {_NOT_PORTED}")
+            "sources without a bakeable spec need the general streaming "
+            "path, not ported yet (ROADMAP A10)")
+    if scene.frame.dtype != torch.float32:
+        raise NotImplementedError("float64 traces are not ported yet "
+                                  "(ROADMAP A4)")
+    n = source_fn.num_rays
+    kinds = set(scene.kinds_present)
+    later = sorted(kinds - _K2_KINDS)
+    if later:
+        raise NotImplementedError(
+            f"optics kind {later[0]} in the streaming kernels is not ported "
+            f"yet (ROADMAP {_K2_LATER.get(later[0], 'A9')})")
+    later = sorted(set(scene.features) & set(_FEATURES_LATER))
+    if later:
+        raise NotImplementedError(
+            f"scene feature {later[0]!r} in the streaming kernels is not "
+            f"ported yet (ROADMAP {_FEATURES_LATER[later[0]]})")
+    source_params(spec)              # refuses rect sources and scattering
+    band = spec[13] if len(spec) > 13 else None
+    att = float(spec[14]) if len(spec) > 14 else 0.0
+    spectral = _M.K_REFLECT_SPECTRAL in kinds
+    if spectral and band is None:
+        raise NotImplementedError(
+            "spectral rows without a source band need the general streaming "
+            "path, not ported yet (ROADMAP A10)")
+    if "volumetric" in scene.features and att <= 0.0:
+        raise NotImplementedError(
+            "volumetric scenes without the spec's ambient attenuation need "
+            "the general streaming path, not ported yet (ROADMAP A10)")
+    te = 3e-4 if t_eps is None else t_eps   # float32 default_t_eps
+    common = dict(max_rounds=max_rounds, max_path=max_path,
+                  min_energy=min_energy, t_eps=te, bivar=_bivar_mode(scene),
+                  one_sided="one_sided" in scene.features,
+                  slope="slope_error" in scene.features,
+                  fluxspecs=fluxspecs)
     if culling is None:
-        raise NotImplementedError(f"the unculled streaming paths are "
-                                  f"{_NOT_PORTED}")
+        spec_c, frame = _spec_frame_split(spec)
+        return _trace_streaming_megakernel(
+            scene, spec_c, torch.as_tensor(frame, device=scene.device),
+            generator, total_rays, n, disc_eps=disc_eps,
+            lambertian=_M.K_LAMBERTIAN in kinds, spectral=spectral,
+            **common)
+    if kinds != {_M.K_REFLECT} or band is not None or att:
+        raise NotImplementedError(
+            "the culled kernel takes K_REFLECT rows without a wavelength "
+            "band or an ambient medium; its other modes are not ported yet "
+            "(ROADMAP B1)")
     nb = culling.nb
     if n != nb * TILE:
         raise ValueError(
@@ -322,7 +485,6 @@ def trace_streaming(scene: SceneTable, source_fn, generator: torch.Generator,
     def dev_i32(a):
         return torch.as_tensor(a, dtype=torch.int32, device=dev)
 
-    te = 3e-4 if t_eps is None else t_eps   # float32 default_t_eps
     return _trace_streaming_megakernel_culled(
         scene, generator, dev_i32(culling.lists), dev_i32(culling.counts),
         torch.arange(nb, dtype=torch.int32, device=dev),
@@ -330,11 +492,20 @@ def trace_streaming(scene: SceneTable, source_fn, generator: torch.Generator,
                         device=dev),
         dev_i32(culling.block_quota(total_rays)), dev_i32(culling.age_caps),
         source_spec=spec, group_offsets=culling.group_offsets, slab=n,
-        max_rounds=max_rounds, max_path=max_path, min_energy=min_energy,
-        t_eps=te, bivar=_bivar_mode(scene),
-        one_sided="one_sided" in scene.features,
-        slope="slope_error" in scene.features,
-        demote_rows=culling.demote_rows, fluxspecs=fluxspecs)
+        demote_rows=culling.demote_rows, **common)
+
+
+def _spec_frame_split(spec):
+    """Split a bakeable disk spec into (canonical static spec, (21,)
+    float32 pose: centre xyz, row-major position rotation, row-major
+    direction rotation) (tracer_tpu/engine.py:1892; rect sources, whose
+    pose carries its own direction frame, wait for ROADMAP A3). The pose
+    is K2's operand instead of a constant, so traces that differ only by
+    the source's aim share the same spec; the spec's pose slots hold
+    None."""
+    spec_c = list(spec)
+    spec_c[0] = spec_c[1] = spec_c[2] = spec_c[3] = None
+    return tuple(spec_c), source_pose(spec)
 
 
 def energy_closure(accum: TraceAccum, source_e) -> float:

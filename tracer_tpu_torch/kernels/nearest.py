@@ -27,8 +27,7 @@ import math
 import torch
 
 from .. import geometry as G
-from .bounce import (ROW_AP, ROW_KIND, ROW_P0, _check, _check_device,
-                     _rows_t)
+from .rows import ROW_AP, ROW_KIND, ROW_P0, _check, _check_device, _rows_t
 
 CLASSES = {"flat": 0, "parab": 1, "sphere": 2, "quadric": 3}
 MAX_C = 8                  # aperture slots per row the kernel takes

@@ -8,9 +8,11 @@ whose bits cannot be reproduced here.
 
 Keying used by the bounce kernels: key = (round seed, stream), counter =
 (lane within the tile, draw call, 0, 0). Each call yields four 32-bit
-words; call 0 feeds the source regeneration (four uniforms), call 1 the
-slope-error epilogue. The arithmetic runs in int64 so every product of two
-32-bit words stays exact.
+words: call 0 feeds the source regeneration (four uniforms), call 1 the
+slope-error epilogue, call 2 the Lambertian lobe and call 3 the
+wavelength drawn from a source band. Each draw has its own call, so adding
+one never shifts another. The arithmetic runs in int64 so every product
+of two 32-bit words stays exact.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ _MASK32 = 0xFFFFFFFF
 # draw-call indices of the bounce kernels
 CALL_REGEN = 0
 CALL_SLOPE = 1
+CALL_LAMBERT = 2
+CALL_BAND = 3
 
 
 def _mulhilo(m: int, x: torch.Tensor):

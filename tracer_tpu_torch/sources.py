@@ -1,5 +1,6 @@
-"""Light sources of the NSTTF and MiniDish traces: the Buie-sunshape disk
-and the pillbox disk (the PyTorch port of the matching parts of
+"""Light sources of the NSTTF, MiniDish and bench traces: the
+Buie-sunshape disk and the pillbox disk, and their static specs for
+in-kernel regeneration (the PyTorch port of the matching parts of
 tracer_tpu/sources.py).
 
 Every sampler takes an explicit ``torch.Generator`` and returns a
@@ -173,8 +174,8 @@ def buie_sunshape_pallas_spec(num_rays: int, center, direction,
                               ambient_scat: float = 0.0,
                               ambient_g: float = 0.0) -> tuple:
     """Static (hashable) parameter tuple describing a buie_sunshape source
-    for in-kernel regeneration by the culled bounce kernel
-    (kernels/bounce.py); the same 17-field tuple as tracer_tpu's. Energies
+    for in-kernel regeneration by the bounce kernels (kernels/bounce.py);
+    the same 17-field tuple as tracer_tpu's. Energies
     and geometry match buie_sunshape with rays_direction == direction.
 
     wl_band - optional (wl_lo, wl_hi): fresh rays get uniformly sampled
@@ -200,6 +201,34 @@ def buie_sunshape_pallas_spec(num_rays: int, center, direction,
             tuple(float(r) for r in rot), float(radius), e_ray, coeffs,
             float(tb["cdf"][-1]), gamma, float(tb["kappa"]),
             float(tb["integ_sum"]), float(_THETA_TOT), float(_THETA_DNI),
+            band, float(ambient_att), None,
+            (float(ambient_scat), float(ambient_g)))
+
+
+def disk_pillbox_pallas_spec(num_rays: int, center, direction,
+                             radius: float, ang_range: float,
+                             flux: float, wl_band=None,
+                             ambient_att: float = 0.0,
+                             ambient_scat: float = 0.0,
+                             ambient_g: float = 0.0) -> tuple:
+    """Static spec for in-kernel regeneration of a plain pillbox disk
+    source (disk_bundle with default options; tracer_tpu/sources.py:222).
+    Reuses the Buie sampler's polynomial-inverse-CDF slot: for a pillbox,
+    theta(u) = arcsin(sin(ang_range) * sqrt(u)), so theta/sqrt(u) is
+    fitted the same way (max error ~1e-8 rad); there is no aureole
+    (gamma=None), so the kernel's Buie branch reduces to exactly this
+    sampling."""
+    u = np.linspace(1e-9, 1.0, 4097)
+    f = np.arcsin(np.sin(ang_range) * np.sqrt(u)) / np.sqrt(u)
+    coeffs = tuple(float(c) for c in np.polyfit(u, f, _BUIE_POLY_DEG))
+    center = _as_row3(center)
+    rot = spatial.rotation_to_z(_as_row3(direction)).reshape(-1)
+    e_ray = float(flux * np.pi * radius**2 / num_rays)
+    band = (None if wl_band is None
+            else (float(wl_band[0]), float(wl_band[1])))
+    return (float(center[0]), float(center[1]), float(center[2]),
+            tuple(float(r) for r in rot), float(radius), e_ray, coeffs,
+            1.0, None, 0.0, 0.0, float(ang_range), float(ang_range),
             band, float(ambient_att), None,
             (float(ambient_scat), float(ambient_g)))
 
