@@ -62,7 +62,22 @@ Phases, each printing its lines:
    fractions (and config 3's medium share) within 3 combined sigma of a
    196,608-ray CPU trace through the plain version, and a medium loss in
    config 3. The TPU's recorded physics values are printed beside the
-   port's for the reader.
+   port's for the reader;
+8. bench configs 6, 8 and 8b (benchmarks/suite.py:267, :432, :517: a
+   spherical glass lens over a focal-plane receiver; a closed box of
+   Lambertian walls in an ambient Henyey-Greenstein medium; the same box
+   with the medium bounded by two index-matched scattering sheets) in the
+   same way: K2 against its plain version at 700,416 lanes in each new
+   mode (the lens's Fresnel roulette, the ambient HG medium, the media
+   ids, and the instances these configurations leave out: the lens in
+   config 8's HG medium, absorbing media without scattering; a uniform
+   within rounding of R may flip the roulette, counted with the edge
+   flips; ties only on the lens's seam), then each configuration at
+   89,653,248 rays
+   (max_path 20, 24, 24). Guards: full emission, closure below 1e-4,
+   config 6's receiver fraction in (0.75, 0.98), the medium's share above
+   0.1 (8) and 0.05 (8b), and every fraction within 3 combined sigma of
+   the plain version's 196,608-ray CPU trace.
 
 Every kernel's launch count is set to 0 just before a main path runs and
 read just after. The line before the last is the kernels' JSON record;
@@ -96,19 +111,29 @@ def card_line() -> str:
 
 
 def time_cuda(fn, reps: int) -> float:
-    """Mean milliseconds per call over ``reps`` calls, after one warm-up,
-    between CUDA events."""
+    """Mean device milliseconds per call over ``reps`` calls, after one
+    warm-up, between CUDA events. A spin kernel queued first holds the
+    stream while the host issues the calls, so the events time the calls'
+    device work rather than the host's rate of issuing them (a wrapper's
+    checks and ctypes call can take longer than a kernel); the spin grows
+    until it outlasts the issuing."""
     import torch
     fn()
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    spin = 2_000_000                # ~1 ms of a 2 GHz clock per call
+    while True:
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin * reps)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        ahead = not t0.query()      # the spin still held the stream
+        t1.record()
+        torch.cuda.synchronize()
+        if ahead or spin > 100_000_000:
+            return t0.elapsed_time(t1) / reps
+        spin *= 8
 
 
 # one NVIDIA H100 SXM (NVIDIA's data sheet): HBM3 bytes per second and
@@ -433,13 +458,18 @@ def main(argv) -> None:
     record["kernels"][2]["launches"], p_ref = minidish_phase(dev, card, kn,
                                                              kb)
 
-    # ---- phase 7: bench configs 1-3 on the plain megakernel
-    k2 = bench_phase(dev, card, kb, kn, p_ref)
+    # ---- phases 7 and 8: bench configs 1-3, then 6, 8 and 8b, on the
+    # plain megakernel
     entry = record["kernels"][1]
-    entry["launches"] += k2["launches"]
-    entry["max_abs_err"] = max(entry["max_abs_err"], k2["max_abs_err"])
-    entry.update({k: k2[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by")})
+    for modes, cfgs in ((BENCH_MODES, (1, 2, 3)),
+                        (STAGE_C_MODES, (6, 8, "8b"))):
+        k2 = bench_phase(dev, card, kb, kn, p_ref, modes, cfgs)
+        entry["launches"] += k2["launches"]
+        entry["max_abs_err"] = max(entry["max_abs_err"], k2["max_abs_err"])
+        if cfgs[0] == 1:
+            # the record keeps config 1's regeneration mode
+            entry.update({k: k2[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by")})
     for k in record["kernels"]:
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
     print(json.dumps(record))
@@ -730,49 +760,85 @@ def profile_path(label, run, name, kernel_key, card, top=8):
 BENCH_SLAB = 228 * 3072       # the suite's slab: 228 tiles of 3072 lanes
 BENCH_ROUNDS = 128            # emission rounds of one bench call
 BENCH_SMALL = 4 * 3072        # the plain version's small CPU trace
-# the recorded TPU physics of bench configs 1 and 3 (BENCHMARKS.md:69-71),
-# printed beside the port's for the reader only
+# the recorded TPU physics of bench configs 1, 3, 6 and 8
+# (BENCHMARKS.md, benchmarks/suite.py), printed beside the port's for the
+# reader only
 TPU_PHYSICS = {1: ("receiver fraction", 0.6008),
-               3: ("medium / source", 0.5101)}
+               3: ("medium / source", 0.5101),
+               6: ("receiver fraction", 0.9213),
+               8: ("medium / source", 0.555),
+               "8b": ("medium / source", 0.363)}
+# K2's modes: (label, scene (test_torch_gpu.k2_scene), dead share,
+# regeneration)
+BENCH_MODES = (("regeneration over a half-dead slab", 1, 0.5, True),
+               ("MiniDish rows", 1, 0.0, False),
+               ("Lambertian + bivariate slope (config 2)", 2, 0.5, True),
+               ("spectral + ambient (config 3)", 3, 0.5, True))
+STAGE_C_MODES = (("lens, Fresnel roulette (config 6)", 6, 0.5, True),
+                 ("ambient HG medium (config 8)", 8, 0.5, True),
+                 ("media ids (config 8b)", "8b", 0.5, True),
+                 ("lens in the HG medium", "lens_hg", 0.5, True),
+                 ("absorbing media, no scattering", "slab_media", 0.5, True))
 # float32 operations of K2's epilogue branches, counted from its source
 SLOPE_OPS = 90                # of SHADE_OPS: the slope error
 LAMBERT_OPS = 45              # the Lambertian lobe
 ATT_OPS = 25                  # Beer-Lambert attenuation
 SEG_OPS = 6                   # per spectral-table segment scanned
 BAND_OPS = 5                  # a wavelength drawn in the band
+REFR_OPS = 60                 # Snell and Fresnel on a refractive hit
+FREE_OPS = 10                 # a free path drawn in a scattering medium
+HG_OPS = 45                   # an HG direction on a scattered lane
+MEDIA_OPS = 6                 # a lane's medium and the winner's side ids
 
 
 def k2_bound(table, rows, kw, pos, dirs, energy, want, regen):
     """(ms, what sets it) of one K2 call on these inputs. Bytes: every
-    lane's results written once (36 B, 4 B more with a wavelength); a lane
-    that carries its ray in reads it once (28 B, 4 B more with a
-    wavelength), a regenerated lane only its energy (4 B, and its
-    wavelength when the source has no band to draw one); the rows and the
-    spectral table read once. Operations, as its data needs them: every
-    row for each lane that carries a ray after regeneration, the
-    epilogue's branches for those lanes, the sample for each regenerated
-    lane, and the table segments each spectral hit scans."""
+    lane's results written once (36 B, 4 B more for each of the
+    wavelength, index and medium id lanes it threads); a lane that carries
+    its ray in reads it once (28 B, 4 B more for each of those lanes), a
+    regenerated lane only its energy (4 B, and its wavelength when the
+    source has no band to draw one); the rows, the spectral table and the
+    media tables read once. Operations, as its data needs them: every row
+    for each lane that carries a ray after regeneration, the epilogue's
+    branches for those lanes (the free path in a scattering medium, the
+    medium lookup), Snell and Fresnel on each refractive hit and the HG
+    direction on each scattered lane, the sample for each regenerated lane,
+    and the table segments each spectral hit scans."""
     import torch
+    from tracer_tpu_torch.kernels.bounce import media_flags
     n = pos.shape[0]
     spectral = kw.get("wavelength") is not None
+    media = kw.get("media")
+    n_lanes = sum(kw.get(k) is not None
+                  for k in ("wavelength", "ref_index", "medium_id"))
     dead = energy <= 0.0
     n_regen = int(dead.sum()) if regen else 0
     n_traced = n - int(dead.sum()) + n_regen
     band = bool(kw["source_spec"][13]) if regen else False
-    nbytes = (n * (36 + (4 if spectral else 0))
-              + (n - n_regen) * (28 + (4 if spectral else 0))
+    nbytes = (n * (36 + 4 * n_lanes)
+              + (n - n_regen) * (28 + 4 * n_lanes)
               + n_regen * (4 + (4 if spectral and not band else 0))
               + 4 * rows.numel()
-              + (4 * kw["spectral_tab"].numel() if spectral else 0))
+              + (4 * kw["spectral_tab"].numel() if spectral else 0)
+              + (4 * (3 * len(media[0]) + 2 * rows.shape[0]) if media
+                 else 0))
+    att_on, scat_on = (media_flags(media) if media is not None
+                       else (kw["ambient_att"] > 0.0,
+                             kw.get("ambient_scat", 0.0) > 0.0))
     per_lane = (sum((g[1] - g[0]) * row_ops(g[3], g[2])
                     for g in table.groups)
                 + SHADE_OPS - (0 if kw["slope"] else SLOPE_OPS)
                 + (LAMBERT_OPS if kw["lambertian"] else 0)
-                + (ATT_OPS if kw["ambient_att"] > 0.0 else 0))
+                + (ATT_OPS if att_on else 0)
+                + (FREE_OPS if scat_on else 0)
+                + (MEDIA_OPS if media is not None else 0))
     nops = n_traced * per_lane + n_regen * (
         REGEN_OPS + (BAND_OPS if spectral else 0))
+    kinds = table.opt_kind[want[3].clamp(min=0).long()]
+    if kw.get("ref_index") is not None:
+        nops += int(((want[3] >= 0) & (kinds == 6)).sum()) * REFR_OPS
+    nops += int((want[3] == -2).sum()) * HG_OPS
     if spectral:
-        kinds = table.opt_kind[want[3].clamp(min=0).long()]
         on = (want[3] >= 0) & (kinds == 5)
         x = kw["spectral_tab"][:, 0].contiguous()
         seg = torch.searchsorted(x, want[5][on].contiguous())
@@ -780,32 +846,28 @@ def k2_bound(table, rows, kw, pos, dirs, energy, want, regen):
     return bound(nbytes, nops)
 
 
-def bench_phase(dev, card, kb, kn, p_ref):
-    """Bench configs 1-3 (benchmarks/suite.py) on the plain megakernel:
-    K2 against its plain version in each of the path's modes at the
+def bench_phase(dev, card, kb, kn, p_ref, modes, cfgs):
+    """Bench configurations ``cfgs`` (benchmarks/suite.py) on the plain
+    megakernel: K2 against its plain version in each of ``modes`` at the
     suite's slab, then each configuration's trace_streaming(culling=None)
     at full size under its guards. Returns K2's numbers for the record:
-    its launches on this path and, from the regeneration mode at the
-    suite's slab, its time, its plain version's and its bound."""
+    its launches on these paths and, from the first mode, its time, its
+    plain version's and its bound."""
     import math
     import statistics
     import torch
     from test_torch_gpu import (bench_lanes, bench_modes, k2_compare,
-                                traced_rays)
-    from tracer_tpu_torch.models.bench_configs import BENCH, bench_scene
+                                k2_near, k2_scene, medium_att, traced_rays)
+    from tracer_tpu_torch.models.bench_configs import (BENCH, bench_scene,
+                                                       max_rounds)
     from tracer_tpu_torch.engine import energy_closure, trace_streaming
     n = BENCH_SLAB
     out = {"max_abs_err": 0.0}
-    modes = (("regeneration over a half-dead slab", 1, 0.5, True),
-             ("MiniDish rows", 1, 0.0, False),
-             ("Lambertian + bivariate slope (config 2)", 2, 0.5, True),
-             ("spectral + ambient (config 3)", 3, 0.5, True))
-    for label, cfg, dead, regen in modes:
-        table, meta, source_fn = bench_scene(cfg, n, dev)
-        spec = source_fn.pallas_spec
-        pos, dirs, e, wl = bench_lanes(table, spec, n, dead, 23, dev)
+    for label, scene, dead, regen in modes:
+        table, spec = k2_scene(scene, n, dev)
+        pos, dirs, e, lanes = bench_lanes(table, spec, n, dead, 23, dev)
         rows = kb.pack_rows(table)
-        kw = dict(regen=regen, wavelength=wl, **bench_modes(table, spec))
+        kw = dict(regen=regen, **lanes, **bench_modes(table, spec))
         args = (rows, 29, pos, dirs, e, table.groups, F32_T_EPS)
         got = kb.bounce_reflect(*args, **kw)
         want = kb.bounce_reflect_ref(*args, **kw)
@@ -814,11 +876,11 @@ def bench_phase(dev, card, kb, kn, p_ref):
         live = (e > 0.0) | ((e <= 0.0) & regen)
         max_flips = int(1e-5 * n) + 1
         ties, flips, err = k2_compare(
-            got, want, kn.nearest_two_t(rows, tp, td, table.groups,
-                                        F32_T_EPS),
-            tp, td, live, att=kw["ambient_att"], max_flips=max_flips)
-        check(ties <= max_flips, f"K2 {label}: {ties} ties")
+            got, want, k2_near(rows, tp, td, table.groups, F32_T_EPS), tp,
+            td, live, att=medium_att(kw), max_flips=max_flips,
+            decisions=lanes["ref_index"] is not None)
         hits = float((want[3][live] >= 0).float().mean())
+        scat = float((want[3][live] == -2).float().mean())
         bnd = k2_bound(table, rows, kw, pos, dirs, e, want, regen)
         del got
         call_k = (lambda: kb.bounce_reflect(*args, **kw))
@@ -829,36 +891,38 @@ def bench_phase(dev, card, kb, kn, p_ref):
         p2 = time_cuda(call_p, 3)
         ms, plain_ms = min(k1, k2), min(p1, p2)
         log(f"K2 {label}: {n} lanes ({int(live.sum())} traced, hit share "
-            f"{hits:.3f}), rows {table.num_rows} in groups "
-            f"{[(g[3], g[2]) for g in table.groups]}, sid ties {ties}, "
-            f"edge flips {flips}, max abs err {err:.2e}; kernel {ms:.4f} ms"
-            f", plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) "
-            f"({card})")
+            f"{hits:.3f}, scattered {scat:.3f}), rows {table.num_rows} in "
+            f"groups {[(g[3], g[2]) for g in table.groups]}, sid ties "
+            f"{ties}, flips {flips}, max abs err {err:.2e}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}) ({card})")
         out["max_abs_err"] = max(out["max_abs_err"], err)
         if "ms" not in out:
             out.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
                        bound_by=bnd[1])
-        del want, pos, dirs, e, wl, tp, td
+        del want, pos, dirs, e, lanes, tp, td
 
     # each configuration through the plain megakernel at the suite's size
     total = BENCH_ROUNDS * n
     out["launches"] = 0
-    for cfg in (1, 2, 3):
+    for cfg in cfgs:
         table, meta, source_fn = bench_scene(cfg, n, dev)
         max_path = BENCH[cfg]["max_path"]
+        seed0 = {"8b": 9}.get(cfg, cfg)
 
         def run(seed, total=total):
             return trace_streaming(
                 table, source_fn, torch.Generator().manual_seed(seed),
-                total, max_rounds=4 * BENCH_ROUNDS + 80, max_path=max_path)
-        run(100 + cfg, 4 * n)           # untimed: first-use costs
+                total, max_rounds=max_rounds(cfg, BENCH_ROUNDS),
+                max_path=max_path)
+        run(100 + seed0, 4 * n)         # untimed: first-use costs
         reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
                        kn.nearest_hit)
         walls, results = [], []
         for rep in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            results.append(run(10 * cfg + rep))
+            results.append(run(10 * seed0 + rep))
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         launches = kb.bounce_reflect.launches
@@ -872,7 +936,8 @@ def bench_phase(dev, card, kb, kn, p_ref):
             s_table, _, s_source = bench_scene(cfg, BENCH_SMALL, "cpu")
             acc_s, em_s, se_s = trace_streaming(
                 s_table, s_source, torch.Generator().manual_seed(7),
-                16 * BENCH_SMALL, max_rounds=16 * 4 + 80, max_path=max_path)
+                16 * BENCH_SMALL, max_rounds=max_rounds(cfg, 16),
+                max_path=max_path)
             q = (list(acc_s.absorbed.double().numpy() / float(se_s))
                  + [float(acc_s.medium) / float(se_s)])
         for rep, (accum, emitted, source_e) in enumerate(results):
@@ -887,6 +952,7 @@ def bench_phase(dev, card, kb, kn, p_ref):
                       f"config {cfg}: {name} not finite")
             p = (list(accum.absorbed.double().cpu().numpy() / se)
                  + [float(accum.medium) / se])
+            physics = max(p[:-1])
             if cfg == 1:
                 rec = p[int((meta.row_logical
                              == meta.index_of("receiver")).nonzero()[0][0])]
@@ -901,9 +967,15 @@ def bench_phase(dev, card, kb, kn, p_ref):
                                     * (1 / n_s + 1 / em))
                     check(abs(a - b) < 3 * sig, f"config {cfg}: fraction "
                           f"{i} {a} vs the plain version's {b} +- {sig}")
-                physics = p[-1] if cfg == 3 else max(p[:-1])
-            if cfg == 3:
-                check(float(accum.medium) > 0.0, "config 3: no medium loss")
+            if cfg == 6:
+                physics = sum(p[int(r)] for r in (
+                    meta.row_logical == meta.index_of("rec")).nonzero()[0])
+                check(0.75 < physics < 0.98,
+                      f"config 6: receiver fraction {physics}")
+            if cfg in (3, 8, "8b"):
+                physics = p[-1]
+                check(physics > {3: 0.0, 8: 0.1, "8b": 0.05}[cfg],
+                      f"config {cfg}: medium share {physics}")
         shown = ", ".join(f"{nm} {x:.5f}" for nm, x in zip(
             [meta.names[int(r)] for r in meta.row_logical] + ["medium"], p))
         wall = statistics.median(walls)
@@ -918,7 +990,7 @@ def bench_phase(dev, card, kb, kn, p_ref):
         if cfg != 1:
             log(f"  the plain version's {int(em_s)}-ray CPU trace: "
                 + ", ".join(f"{x:.5f}" for x in q))
-        profile_path(f"config {cfg} trace", lambda: run(200 + cfg),
+        profile_path(f"config {cfg} trace", lambda: run(200 + seed0),
                      "K2", "bounce_kernel", card)
     return out
 

@@ -11,7 +11,9 @@ arithmetic step for step, so the comparison is exact apart from the
 libm calls. What the emulation cannot show: the device compiler's own
 output, warp-level intrinsics (K1's ballot is stubbed, so K1 is not run)
 and speed. tests/test_torch_gpu.py and chip_smoke.py hold the built
-kernels against the same plain versions on the card.
+kernels against the same plain versions on the card. A second build of
+K2 with a planted error in Snell's law shows that the comparison rejects
+a refraction that is slightly wrong.
 """
 import ctypes
 import re
@@ -25,9 +27,10 @@ import tracer_tpu_torch as ptt
 from tracer_tpu_torch.kernels import bounce as kb
 from tracer_tpu_torch.kernels import build
 from tracer_tpu_torch.kernels import nearest as kn
-from tracer_tpu_torch.models.bench_configs import bench_scene
-from test_torch_gpu import (T_EPS, bench_lanes, bench_modes, fuzz_assembly,
-                            fuzz_rays, k2_compare, k3_compare, traced_rays)
+from test_torch_gpu import (K2_MODES, T_EPS, bench_lanes, bench_modes,
+                            fuzz_assembly, fuzz_rays, k2_compare, k2_instance,
+                            k2_near, k2_scene, k3_compare, medium_att,
+                            traced_rays)
 
 # the suite runs several test processes at once: one torch thread each
 # keeps them from oversubscribing the cores
@@ -101,87 +104,123 @@ def _emulable(source: str) -> str:
     return source.replace("__shared__ ", "static ")
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+# a K2 with Snell's law 0.1% off (the ratio of indices that turns the
+# direction; the index the lane takes is right): k2_compare must reject it
+_PLANTED = ("const float inv_nr = 1.0f / nrat;",
+            "const float inv_nr = 1.001f / nrat;")
+
+
+def _compile(d, names, planted=None):
+    """Start g++ on the emulable sources ``names`` (csrc/*.cu stems) in
+    directory ``d``, with the ``planted`` (old, new) text swap. Returns
+    (process, library path)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the CUDA sources for the CPU")
-    d = tmp_path_factory.mktemp("emulated")
     (d / "cuda_runtime.h").write_text(_RUNTIME)
     srcs = []
     for p in sorted(build._CSRC.iterdir()):
         text = p.read_text()
-        if p.suffix == ".cu":
-            text = _emulable(text)
-            srcs.append(str(d / (p.stem + ".cpp")))
-            (d / (p.stem + ".cpp")).write_text(text)
-        else:
+        if p.suffix != ".cu":
             (d / p.name).write_text(text)
+        elif p.stem in names:
+            if planted is not None:
+                assert planted[0] in text
+                text = text.replace(*planted)
+            srcs.append(str(d / (p.stem + ".cpp")))
+            (d / (p.stem + ".cpp")).write_text(_emulable(text))
     so = d / "libemulated.so"
-    r = subprocess.run([gxx, "-std=c++20", "-O1", "-fPIC", "-shared",
-                        "-pthread", "-ffp-contract=off", f"-I{d}", "-o",
-                        str(so), *srcs], capture_output=True, text=True,
-                       timeout=600)
-    assert r.returncode == 0, r.stderr[-3000:]
+    proc = subprocess.Popen(
+        [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
+         "-ffp-contract=off", f"-I{d}", "-o", str(so), *srcs],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, so
+
+
+def _load(proc, so):
+    err = proc.communicate(timeout=600)[1]
+    assert proc.returncode == 0, err[-3000:]
     out = ctypes.CDLL(str(so))
     for name, args in build._SIGNATURES.items():
-        getattr(out, name).argtypes = args
-        getattr(out, name).restype = ctypes.c_int
+        if hasattr(out, name):
+            getattr(out, name).argtypes = args
+            getattr(out, name).restype = ctypes.c_int
     return out
 
 
-def _k2(lib, rows, seed, pos, dirs, energy, groups, *, disc_eps=1e-6,
-        bivar=True, one_sided=True, slope=True, lambertian=False,
-        source_spec=None, regen=False, wavelength=None, spectral_tab=None,
-        ambient_att=0.0):
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    """The emulated kernels, and K2 with _PLANTED, built side by side."""
+    jobs = (_compile(tmp_path_factory.mktemp("emulated"),
+                     ("bounce", "nearest")),
+            _compile(tmp_path_factory.mktemp("planted"), ("bounce",),
+                     _PLANTED))
+    return tuple(_load(*job) for job in jobs)
+
+
+@pytest.fixture
+def lib(libs):
+    return libs[0]
+
+
+def _k2(lib, rows, seed, pos, dirs, energy, groups, **kw):
     """tt_bounce on CPU tensors, marshalled as kb.bounce_reflect does."""
-    n = pos.shape[0]
-    S, K = rows.shape
-    gmeta = kn._group_meta(tuple(groups), pos.device)
-    srcp = kb._source_tensor(source_spec, pos.device) if regen else None
-    pose = torch.as_tensor(kb.source_pose(source_spec)) if regen else None
-    outs = kb._ray_outputs(n, pos.device)
-    nwl = torch.empty_like(wavelength) if wavelength is not None else None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-    rc = lib.tt_bounce(
-        rows.data_ptr(), S, K, len(groups), gmeta.data_ptr(), kn.MAX_C,
-        int(seed), pos.data_ptr(), dirs.data_ptr(), energy.data_ptr(),
-        ptr(wavelength), *(o.data_ptr() for o in outs[:3]), ptr(nwl),
-        outs[3].data_ptr(), outs[4].data_ptr(), n, float(T_EPS),
-        float(disc_eps), int(regen), ptr(srcp), ptr(pose),
-        ptr(spectral_tab), spectral_tab.shape[0] if nwl is not None else 0,
-        kb._BIVAR_MODE[bivar], int(one_sided), int(slope), int(lambertian),
-        float(ambient_att), None)
+    rc, out = kb.launch_k2(lib, rows, seed, pos, dirs, energy, groups,
+                           T_EPS, None, **kw)
     assert rc == 0, rc
-    return outs if nwl is None else outs + (nwl,)
+    return out
 
 
-@pytest.mark.parametrize("cfg,dead,regen", [(1, 0.5, True), (1, 0.0, False),
-                                            (2, 0.5, True), (3, 0.5, True)],
-                         ids=["regen", "minidish", "lambertian", "spectral"])
-def test_k2_source_matches_plain(lib, cfg, dead, regen):
-    """K2's CUDA source in each mode of the plain megakernel (regeneration
-    over a half-dead slab, the MiniDish's rows, the Lambertian lobe with
-    bivariate slope error, spectral rows in an attenuating medium) on two
-    tiles: no ties, no flips, every lane within k2_compare's tolerance."""
+def _k2_mode(lib, mode):
+    """K2 through ``lib`` against its plain version in K2_MODES[mode] on
+    two tiles: (k2_compare's results, kw, got, want, live)."""
+    scene, dead, regen = K2_MODES[mode]
     n = 2 * kb.TILE
-    table, _, source_fn = bench_scene(cfg, n, "cpu")
-    spec = source_fn.pallas_spec
-    pos, dirs, e, wl = bench_lanes(table, spec, n, dead, 3, "cpu")
+    table, spec = k2_scene(scene, n, "cpu")
+    pos, dirs, e, lanes = bench_lanes(table, spec, n, dead, 3, "cpu")
     rows = kb.pack_rows(table)
-    kw = dict(regen=regen, wavelength=wl, **bench_modes(table, spec))
+    kw = dict(regen=regen, **lanes, **bench_modes(table, spec))
     got = _k2(lib, rows, 17, pos, dirs, e, table.groups, **kw)
     want = kb.bounce_reflect_ref(rows, 17, pos, dirs, e, table.groups,
                                  T_EPS, **kw)
     tp, td = traced_rays(spec, 17, pos, dirs, e, regen)
     live = (e > 0.0) | ((e <= 0.0) & regen)
-    ties, flips, _ = k2_compare(
-        got, want, kn.nearest_two_t(rows, tp, td, table.groups, T_EPS), tp,
-        td, live, att=kw["ambient_att"])
-    assert (ties, flips) == (0, 0)
-    assert (want[3][live] >= 0).float().mean() > 0.5
+    res = k2_compare(got, want, k2_near(rows, tp, td, table.groups), tp,
+                     td, live, att=medium_att(kw),
+                     decisions=lanes["ref_index"] is not None)
+    return res, kw, got, want, live
+
+
+@pytest.mark.parametrize("mode", K2_MODES)
+def test_k2_source_matches_plain(lib, mode):
+    """K2's CUDA source in each of its instances (regeneration over a
+    half-dead slab, the MiniDish's rows, the Lambertian lobe with
+    bivariate slope error, spectral rows in an attenuating medium, the
+    lens's Fresnel roulette, the ambient HG medium, the media ids, the
+    lens in that medium and absorbing media without scattering) on two
+    tiles: no flips, every lane within k2_compare's tolerance, and no ties
+    but on the lens's seam (its 2 cm centre is thinner than the sag of two
+    0.3 m caps at r = 0.077 m, so lanes there meet both rows at one
+    point)."""
+    (_, flips, _), kw, got, want, live = _k2_mode(lib, mode)
+    assert flips == 0
+    assert (want[3][live] != -1).float().mean() > 0.5
+    refr, scat, media = k2_instance(kw)
+    if scat:
+        assert (want[3][live] == -2).float().mean() > 0.05
+    if refr:
+        # lanes cross refractive rows: their index or their medium changes
+        assert (got[5] != kw["ref_index"]).any() or (
+            media and (got[6] != kw["medium_id"]).any())
+
+
+def test_k2_compare_rejects_planted_snell(libs):
+    """The lens through a K2 whose Snell's law is 0.1% off (_PLANTED)
+    fails k2_compare: its refracted directions miss the plain version's by
+    up to 8e-4, far outside the rounding that the cosines of incidence
+    and refraction excuse."""
+    with pytest.raises(AssertionError):
+        _k2_mode(libs[1], "lens")
 
 
 def test_k3_source_matches_plain(lib):

@@ -20,7 +20,9 @@ from tracer_tpu_torch.engine import energy_closure, trace_streaming
 from tracer_tpu_torch.kernels import bounce as kb
 from tracer_tpu_torch.kernels import nearest as kn
 from tracer_tpu_torch.models import nsttf
-from tracer_tpu_torch.models.bench_configs import bench_scene
+from tracer_tpu_torch.models.bench_configs import (BENCH, BENCH_FLUX,
+                                                   bench_assembly,
+                                                   bench_scene)
 
 # the suite runs several test processes at once: one torch thread each
 # keeps them from oversubscribing the cores
@@ -162,17 +164,22 @@ def k3_compare(got, want, t12, pos, dirs, rtol=1e-5, max_flips=0):
 
 def bench_modes(table, spec):
     """K2's keyword arguments for a bench scene's trace (its static modes,
-    the spectral table and the source's attenuation; no pose: the
-    wrappers take the spec's own)."""
-    spectral = "spectral" in table.features
+    the spectral table, the source's ambient medium and the media pair; no
+    pose: the wrappers take the spec's own)."""
+    feats = set(table.features)
+    refr = ptt.materials.K_REFRACTIVE in table.kinds_present
     tab = (torch.stack([table.spectral_wl, table.spectral_ab], dim=1)
-           .contiguous() if spectral else None)
+           .contiguous() if feats & {"spectral", "dispersive"} else None)
+    att, scat, g = ptt.engine._spec_medium(spec)
     return dict(bivar=ptt.engine._bivar_mode(table),
-                one_sided="one_sided" in table.features,
-                slope="slope_error" in table.features,
+                one_sided="one_sided" in feats,
+                slope="slope_error" in feats,
                 lambertian=ptt.materials.K_LAMBERTIAN in table.kinds_present,
-                source_spec=spec, spectral_tab=tab,
-                ambient_att=float(spec[14]))
+                source_spec=spec, spectral_tab=tab, ambient_att=att,
+                ambient_scat=scat, ambient_g=g,
+                refr_frost=refr and "refractive_slope" in feats,
+                refr_disp=refr and "dispersive" in feats,
+                media=ptt.engine._media_for(table, spec))
 
 
 def bench_lanes(table, spec, n: int, dead: float, seed: int, device):
@@ -180,8 +187,10 @@ def bench_lanes(table, spec, n: int, dead: float, seed: int, device):
     them carried through one bounce of the plain version (so the lanes
     hit the scene's rows from the source and from its first bounce; rays
     that missed there keep their state), then a ``dead`` share of all
-    lanes without energy. Wavelengths come with the source's band.
-    Returns (pos, dirs, energy, wavelength or None)."""
+    lanes without energy. Wavelengths come with the source's band, indices
+    with refractive rows and medium ids with the media mode. Returns (pos,
+    dirs, energy, lanes): ``lanes`` the wavelength, ref_index and
+    medium_id keywords (None where the mode is off)."""
     modes = bench_modes(table, spec)
     idx = torch.arange(n, device=device)
     f = kb._sample_disk(spec, kb.source_pose(spec), seed, idx // kb.TILE,
@@ -189,16 +198,25 @@ def bench_lanes(table, spec, n: int, dead: float, seed: int, device):
     pos, dirs = torch.stack(f[0:3], dim=1), torch.stack(f[3:6], dim=1)
     e = torch.full((n,), float(kb.source_params(spec)[kb.SP_ERAY]),
                    device=device)
-    wl = f[6] if modes["spectral_tab"] is not None else None
+    refr = ptt.materials.K_REFRACTIVE in table.kinds_present
+    lanes = dict(
+        wavelength=f[6] if modes["spectral_tab"] is not None else None,
+        ref_index=torch.ones(n, device=device) if refr else None,
+        medium_id=(torch.zeros(n, device=device)
+                   if modes["media"] is not None else None))
     out = kb.bounce_reflect_ref(kb.pack_rows(table), seed + 1, pos, dirs, e,
-                                table.groups, T_EPS, wavelength=wl, **modes)
+                                table.groups, T_EPS, **lanes, **modes)
     g = torch.Generator().manual_seed(seed)
     moved = (torch.rand(n, generator=g) < 0.5).to(device)
     pos = torch.where(moved[:, None], out[0], pos)
     dirs = torch.where(moved[:, None], out[1], dirs)
-    e = torch.where(moved & (out[3] >= 0), out[2], e)
+    e = torch.where(moved & (out[3] != -1), out[2], e)
+    rest = iter(out[5:])
+    for k, v in lanes.items():
+        if v is not None:
+            lanes[k] = torch.where(moved, next(rest), v)
     e = torch.where((torch.rand(n, generator=g) < dead).to(device), 0.0, e)
-    return pos, dirs, e, wl
+    return pos, dirs, e, lanes
 
 
 def traced_rays(spec, seed: int, pos, dirs, energy, regen: bool):
@@ -213,47 +231,98 @@ def traced_rays(spec, seed: int, pos, dirs, energy, regen: bool):
             torch.where(reborn, torch.stack(f[3:6], 1), dirs))
 
 
-def k2_compare(got, want, t12, pos, dirs, live, att=0.0, rtol=1e-5,
-               max_flips=0):
-    """K2 results (pos, dir, energy, sid, absorbed[, wavelength]) against
-    another version's on the ``live`` lanes (``pos``/``dirs`` the rays
-    each traced after regeneration, traced_rays; ``t12`` their two nearest
-    hit distances, kn.nearest_two_t). Ties (best and second-best t within
-    1e-5 of the scale) may pick either row; flips are other lanes whose
-    sid differs (a hit within rounding of an aperture edge or the self-hit
-    guard), at most ``max_flips``. On the other lanes, hit points agree
-    within rtol * (L + t) / cos^2 (k3_compare's scale, L = 1 + max|pos|),
-    directions within 10 rtol / cos^2 (slope error and Lambertian lobes
-    turn about that normal), energies and absorbed energies within
-    10 rtol relative plus what the hit point's rounding moves through an
-    ambient attenuation ``att``, wavelengths within 1e-6 relative (FMA
-    contraction). Returns (ties, flips, max abs error)."""
-    t1, t2 = t12
+def medium_att(kw) -> float:
+    """The largest attenuation coefficient a lane of K2's call ``kw`` can
+    travel in."""
+    if kw.get("media") is not None:
+        return max(a for a, _, _ in kw["media"][0])
+    return kw["ambient_att"]
+
+
+def k2_near(rows, pos, dirs, groups, t_eps: float = T_EPS):
+    """What k2_compare needs of the rays K2 traced: their two nearest hit
+    distances (kn.nearest_two_t), and their winner row's unnormalised
+    normal and optical kind (the plain version's, kn.nearest_hit_ref)."""
+    t1, t2 = kn.nearest_two_t(rows, pos, dirs, groups, t_eps)
+    aux = kn.nearest_hit_ref(rows, pos, dirs, groups, t_eps,
+                             need_local=False)[2]
+    return t1, t2, aux["normal"], aux["kind"]
+
+
+def k2_compare(got, want, near, pos, dirs, live, att=0.0, rtol=1e-5,
+               max_flips=0, decisions=False):
+    """K2 results (pos, dir, energy, sid, absorbed[, wavelength][, index]
+    [, medium id]) against another version's on the ``live`` lanes
+    (``pos``/``dirs`` the rays each traced after regeneration,
+    traced_rays; ``near`` their k2_near). Ties (best and second-best t
+    within 1e-5 of the scale) may pick either row; at most ``max_flips``
+    of them, but where the winner is refractive: a lens's two caps meet
+    along a seam, where lanes hit both at one point (at most 1% of the
+    lanes). Flips are other lanes whose sid differs (a hit within rounding
+    of an aperture edge or the self-hit guard, or a free path within
+    rounding of the hit distance), at most ``max_flips``. With
+    ``decisions`` (the Fresnel roulette's u <= R) lanes whose sid agrees
+    but whose index or medium id does not count as flips too: a uniform
+    within rounding of R went the other way. On the other lanes,
+    moved points agree within rtol * (L + d) / cos^2 (k3_compare's scale,
+    L = 1 + max|pos|, d the distance moved; cos^2 is 1 on scattered
+    lanes), directions within 10 rtol / cos^2 (slope error and Lambertian
+    lobes turn about that normal) or, on a scattered lane, 10 rtol / sin
+    of its scattering angle, energies and absorbed energies within 10 rtol
+    relative plus what the moved point's rounding moves through an
+    attenuation ``att``, the other lanes within 1e-6 relative (FMA
+    contraction). On a refractive winner cos is the smaller of the
+    incident and the outgoing direction's against its normal (Snell's
+    conditioning); elsewhere it comes from the turned direction. Returns
+    (ties, flips, max abs error)."""
+    t1, t2, normal, kind = near
     scale = 1.0 + pos.abs().amax(dim=1)
     tie = live & ((t2 - t1) <= 1e-5 * (scale + t1))
+    refr = kind == ptt.materials.K_REFRACTIVE
+    n_tie = int((tie & ~refr).sum())
+    assert n_tie <= max_flips, ("ties", n_tie)
+    assert int((tie & refr).sum()) <= 0.01 * int(live.sum()), "seam ties"
     same = got[3] == want[3]
     flips = int((live & ~same & ~tie).sum())
-    assert flips <= max_flips, (flips, torch.nonzero(live & ~same & ~tie)[:5])
     ok = live & same & ~tie
-    hit = ok & (want[3] >= 0)
-    # cos^2 of the incidence angle from the reflected direction (1 on
-    # misses); the Lambertian rows' lobes only get a looser scale
+    moved = ok & (want[3] != -1)
+    # cos^2 of the incidence angle from the turned direction (1 on misses
+    # and scattered lanes); the Lambertian rows' lobes only get a looser
+    # scale. A refraction turns the direction by far less than a
+    # reflection: there both the incident and the outgoing direction are
+    # held against the winner's normal
     turn = want[1] - dirs
-    cos2 = torch.where(
-        want[3] >= 0, (dirs * turn).sum(1) ** 2
-        / (turn * turn).sum(1).clamp(min=1e-30), 1.0).clamp(min=1e-4)
-    base = (scale + torch.where(want[3] >= 0, t1, 0.0)) / cos2
+    cos2 = (dirs * turn).sum(1) ** 2 / (turn * turn).sum(1).clamp(min=1e-30)
+    n_hat = normal / normal.norm(dim=1, keepdim=True).clamp(min=1e-30)
+    cos_io = torch.minimum((dirs * n_hat).sum(1).abs(),
+                           (want[1] * n_hat).sum(1).abs())
+    cos2 = torch.where(refr, cos_io ** 2, cos2)
+    cos2 = torch.where(want[3] >= 0, cos2, 1.0).clamp(min=1e-4)
+    dist = (want[0] - pos).norm(dim=1)
+    base = (scale + torch.where(want[3] >= 0, t1, dist)) / cos2
     d_pos = (got[0] - want[0]).abs().amax(dim=1)
     d_dir = (got[1] - want[1]).abs().amax(dim=1)
-    assert (d_pos[hit] <= rtol * base[hit]).all(), "pos"
-    assert (d_dir[ok] <= 10 * rtol / cos2[ok]).all(), "dir"
+    # an HG direction leaves at sin = sqrt(1 - cos^2) of the scattering
+    # angle, whose rounding grows as 1 / sin near the travel direction
+    sin_sc = torch.sqrt((1.0 - (dirs * want[1]).sum(1) ** 2).clamp(min=0.0))
+    c_dir = torch.where(want[3] == -2, sin_sc.clamp(min=1e-4), cos2)
+    lane_bad = torch.zeros_like(ok)
+    for k in range(5, len(got)):
+        lane_bad |= (got[k] - want[k]).abs() > 1e-6 * want[k].abs()
+    if decisions:
+        # one version reflected, the other crossed: the index (or, at an
+        # index-matched interface, the medium id) tells them apart
+        bad = ok & lane_bad
+        flips += int(bad.sum())
+        ok, moved = ok & ~bad, moved & ~bad
+    assert flips <= max_flips, (flips, torch.nonzero(live & ~same & ~tie)[:5])
+    assert (d_pos[moved] <= rtol * base[moved]).all(), "pos"
+    assert (d_dir[ok] <= 10 * rtol / c_dir[ok]).all(), "dir"
     for k, name in ((2, "energy"), (4, "absorbed")):
         g, w = got[k][ok], want[k][ok]
         tol = (10 * rtol + att * rtol * base[ok]) * w.abs()
         assert ((g - w).abs() <= tol).all(), name
-    if len(got) > 5:
-        w = want[5][live]
-        assert ((got[5][live] - w).abs() <= 1e-6 * w.abs()).all(), "wl"
+    assert not lane_bad[ok if decisions else live].any(), "wl, ri or mid"
     big = [float((got[k][ok] - want[k][ok]).abs().max()) if ok.any() else 0.0
            for k in (0, 1, 2, 4)]
     return int(tie.sum()), flips, max(big)
@@ -377,24 +446,65 @@ def test_nearest_hit_matches_plain_on_gpu(cuda_device, need_local):
         assert ties <= 1e-4 * n
 
 
+def k2_scene(scene, n: int, device):
+    """(table, spec) of a K2 mode's scene: a bench configuration, or one of
+    the two that reach K2's other instances through trace_streaming:
+    "lens_hg", config 6's lens in config 8's ambient HG medium
+    (refraction and scattering), and "slab_media", an absorbing slab
+    between two index-matched absorbant_interface discs over an absorber
+    (media ids without scattering)."""
+    if scene in BENCH:
+        table, _, source_fn = bench_scene(scene, n, device)
+        return table, source_fn.pallas_spec
+    G, M, sc = ptt.geometry, ptt.materials, ptt.scene
+    if scene == "lens_hg":
+        asm, _ = bench_assembly(ptt, 6)
+        c, m = BENCH[6], BENCH[8]
+        spec = ptt.sources.disk_pillbox_pallas_spec(
+            n, c["center"], c["direction"], c["radius"], c["ang_range"],
+            BENCH_FLUX, ambient_att=m["att"], ambient_scat=m["scat"],
+            ambient_g=m["g"])
+    else:
+        surfs = [sc.Surface(G.round_plate(1.0), M.absorbant_interface(1.5),
+                            location=[0.0, 0.0, z], name=name)
+                 for z, name in ((0.6, "b1"), (0.2, "b2"))]
+        surfs.append(sc.Surface(G.round_plate(1.0),
+                                M.absorber(one_sided=False), name="plate"))
+        asm = sc.Assembly([sc.AssembledObject(surfs)])
+        spec = ptt.sources.disk_pillbox_pallas_spec(
+            n, [0.0, 0.0, 1.2], [0.0, 0.0, -1.0], 0.3, 0.3, BENCH_FLUX)
+    table, _ = ptt.compile_scene(asm, device=device)
+    return table, spec
+
+
+# K2's modes, one or more for each of its six instances <kRefr, kScat,
+# kMedia>: (scene of k2_scene, dead share, regen)
+K2_MODES = {"regen": (1, 0.5, True), "minidish": (1, 0.0, False),
+            "lambertian": (2, 0.5, True), "spectral": (3, 0.5, True),
+            "lens": (6, 0.5, True), "ambient_hg": (8, 0.5, True),
+            "media": ("8b", 0.5, True), "lens_hg": ("lens_hg", 0.5, True),
+            "slab_media": ("slab_media", 0.5, True)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("cfg,dead,regen", [(1, 0.5, True), (1, 0.0, False),
-                                            (2, 0.5, True), (3, 0.5, True)],
-                         ids=["regen", "minidish", "lambertian", "spectral"])
-def test_k2_modes_match_plain_on_gpu(cuda_device, cfg, dead, regen):
-    """K2 in each mode the plain megakernel runs against its plain version
-    on the card, same inputs and random streams: regeneration over a
-    half-dead slab, the MiniDish's paraboloid and rect rows, config 2's
-    Lambertian absorber and bivariate slope error, config 3's spectral
-    mirror in an attenuating medium (k2_compare: ties and edge flips at
-    most 1e-5 of the lanes); one launch per call."""
+@pytest.mark.parametrize("mode", K2_MODES)
+def test_k2_modes_match_plain_on_gpu(cuda_device, mode):
+    """K2 in each of its instances against its plain version on the card,
+    same inputs and random streams: regeneration over a half-dead slab,
+    the MiniDish's paraboloid and rect rows, config 2's Lambertian
+    absorber and bivariate slope error, config 3's spectral mirror in an
+    attenuating medium, config 6's lens (Fresnel roulette), config 8's
+    ambient HG medium, 8b's media ids, the lens in that HG medium and
+    absorbing media without scattering (k2_compare: edge flips and
+    roulette flips at most 1e-5 of the lanes, ties too but on the lens's
+    seam); one launch per call."""
     dev = cuda_device
+    cfg, dead, regen = K2_MODES[mode]
     n = 64 * kb.TILE
-    table, _, source_fn = bench_scene(cfg, n, dev)
-    spec = source_fn.pallas_spec
-    pos, dirs, e, wl = bench_lanes(table, spec, n, dead, 3, dev)
+    table, spec = k2_scene(cfg, n, dev)
+    pos, dirs, e, lanes = bench_lanes(table, spec, n, dead, 3, dev)
     rows = kb.pack_rows(table)
-    kw = dict(regen=regen, wavelength=wl, **bench_modes(table, spec))
+    kw = dict(regen=regen, **lanes, **bench_modes(table, spec))
     n0 = kb.bounce_reflect.launches
     got = kb.bounce_reflect(rows, 17, pos, dirs, e, table.groups, T_EPS,
                             **kw)
@@ -404,11 +514,33 @@ def test_k2_modes_match_plain_on_gpu(cuda_device, cfg, dead, regen):
     torch.cuda.synchronize()
     tp, td = traced_rays(spec, 17, pos, dirs, e, regen)
     live = (e > 0.0) | (e <= 0.0) & regen
-    ties, flips, _ = k2_compare(
-        got, want, kn.nearest_two_t(rows, tp, td, table.groups, T_EPS), tp,
-        td, live, att=kw["ambient_att"], max_flips=int(1e-5 * n) + 1)
-    assert ties <= int(1e-5 * n) + 1
-    assert (want[3][live] >= 0).float().mean() > 0.2
+    k2_compare(got, want, k2_near(rows, tp, td, table.groups), tp, td, live,
+               att=medium_att(kw), max_flips=int(1e-5 * n) + 1,
+               decisions=lanes["ref_index"] is not None)
+    assert (want[3][live] != -1).float().mean() > 0.2
+
+
+def k2_instance(kw):
+    """The template instance <kRefr, kScat, kMedia> K2's call ``kw`` runs
+    (tt_bounce's dispatch in csrc/bounce.cu)."""
+    scat = (kb.media_flags(kw["media"])[1] if kw["media"] is not None
+            else kw["ambient_scat"] > 0.0)
+    return (kw["ref_index"] is not None, scat, kw["media"] is not None)
+
+
+def test_k2_modes_cover_every_instance():
+    """K2_MODES runs each of K2's six template instances, so the emulated
+    and on-card comparisons hold every one against the plain version."""
+    seen = set()
+    for scene, _, _ in K2_MODES.values():
+        table, spec = k2_scene(scene, kb.TILE, "cpu")
+        refr = ptt.materials.K_REFRACTIVE in table.kinds_present
+        kw = dict(bench_modes(table, spec),
+                  ref_index=torch.ones(1) if refr else None)
+        seen.add(k2_instance(kw))
+    assert seen == {(False, False, False), (False, True, False),
+                    (True, False, False), (True, True, False),
+                    (True, False, True), (True, True, True)}
 
 
 @pytest.mark.cuda

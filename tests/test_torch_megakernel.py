@@ -79,7 +79,8 @@ def test_k2_plain_matches_tpu_kernel_interpret(monkeypatch, cfg):
     energies within 1e-6 of the lane's energy, wavelengths exact."""
     table, _, source_fn = bench_scene(cfg, kb.TILE, "cpu")
     spec = source_fn.pallas_spec
-    pos, dirs, e, wl = bench_lanes(table, spec, kb.TILE, 0.05, 5, "cpu")
+    pos, dirs, e, lanes = bench_lanes(table, spec, kb.TILE, 0.05, 5, "cpu")
+    wl = lanes["wavelength"]
     modes = bench_modes(table, spec)
     kw = dict(bivar=modes["bivar"], one_sided=modes["one_sided"],
               slope=False, lambertian=modes["lambertian"],
@@ -291,8 +292,9 @@ def test_trace_streaming_matches_jax(cfg):
 
 
 def test_unported_streaming_modes_raise():
-    """K1's modes beyond the NSTTF's, the later K2 stages and rect sources
-    raise naming their ROADMAP items."""
+    """K1's modes beyond the NSTTF's, energy-splitting refraction, the
+    later K2 stages and rect sources raise naming their ROADMAP items;
+    single-ray refraction and the spec's HG medium trace."""
     table, meta, source_fn = bench_scene(2, SLAB, "cpu")
     # the dispatch refuses the Lambertian rows before it reads the culling
     with pytest.raises(NotImplementedError, match="B1"):
@@ -303,11 +305,29 @@ def test_unported_streaming_modes_raise():
     with pytest.raises(NotImplementedError, match="A3"):
         kb.source_params(tuple(spec))
     G, M = ptt.geometry, ptt.materials
-    lens = ptt.Surface(G.round_plate(0.5), M.refractive_homogenous(1.0, 1.5))
-    t2, _ = ptt.compile_scene(ptt.Assembly([ptt.AssembledObject([lens])]),
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="B2 stage c"):
-        trace_streaming(t2, source_fn, torch.Generator(), TOTAL)
+
+    def scene(optics):
+        plate = ptt.Surface(G.round_plate(0.5), optics)
+        return ptt.compile_scene(
+            ptt.Assembly([ptt.AssembledObject([plate])]), device="cpu")[0]
+    split = scene(M.refractive_homogenous(1.0, 1.5, single_ray=False))
+    with pytest.raises(NotImplementedError, match="A10"):
+        trace_streaming(split, source_fn, torch.Generator(), TOTAL)
+    with pytest.raises(NotImplementedError, match="B2 stage d"):
+        trace_streaming(scene(M.bdrf_cook_torrance(0.3, 1.2, 7.0, 0.9)),
+                        source_fn, torch.Generator(), TOTAL)
+    # a refractive scene and config 8's HG spec take the plain megakernel
+    lens = scene(M.refractive_homogenous(1.0, 1.5))
+    acc, emitted, _ = trace_streaming(lens, source_fn, torch.Generator(),
+                                      SLAB, max_rounds=4, max_path=4)
+    assert int(emitted) == SLAB
+    _, _, hg_source = bench_scene(8, SLAB, "cpu")
+    kb.source_params(hg_source.pallas_spec)
+    # ... but not the culled kernel (ROADMAP B1)
+    mirror = scene(M.reflective(0.1))
+    with pytest.raises(NotImplementedError, match="B1"):
+        trace_streaming(mirror, hg_source, torch.Generator(), TOTAL,
+                        culling=object())
 
 
 # ---------------------------------------------------------------------------

@@ -125,16 +125,17 @@ def test_flux_map_carries_receiver_energy(port_run, jax_run):
 
 
 def test_unported_dispatch_raises():
-    """A source spec with an ambient scattering medium needs K2 stage (c);
-    without culling the NSTTF scene takes the plain megakernel
-    (tests/test_torch_megakernel.py)."""
+    """A source spec with an ambient scattering medium is not a mode of
+    the culled kernel (ROADMAP B1); without culling the NSTTF scene takes
+    the plain megakernel, which scatters (tests/test_torch_media.py)."""
     table, meta, info = nsttf.build_scene(device="cpu")
     source_fn = nsttf.make_source_fn(info, SLAB)
     spec = list(source_fn.pallas_spec)
     spec[16] = (0.1, 0.5)
     source_fn.pallas_spec = tuple(spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trace_streaming(table, source_fn, torch.Generator(), TOTAL)
+    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
+        trace_streaming(table, source_fn, torch.Generator(), TOTAL,
+                        culling=object())
 
 
 def test_chunked_drain_visits_every_live_lane():

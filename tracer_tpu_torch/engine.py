@@ -13,10 +13,11 @@
     a demoted surface or reach their tile's corridor depth are *parked*
     and re-traced against the full scene in a drain phase (K2), so
     culling changes the cost, never the physics;
-  - without it, the plain megakernel (bench configs 1-3): every round K2
-    regenerates every dead lane and tests every row; the emission loop
-    stops once ``total_rays`` are emitted and a compacted tail drains
-    the survivors.
+  - without it, the plain megakernel (bench configs 1-3, 6 and 8): every
+    round K2 regenerates every dead lane and tests every row, with a
+    per-lane refractive index and medium id where the scene's refractive
+    rows need them; the emission loop stops once ``total_rays`` are
+    emitted and a compacted tail drains the survivors.
 * :meth:`TracerEngine.ray_tracer` -- the host-stepped bounce loop with
   per-bounce records, stopping when the bundle dies.
 * :func:`trace_fused` -- the same bounce without records, accumulators and
@@ -41,7 +42,8 @@ from .analysis import device_fluxmap as _dfm
 from .bundle import RayBundle
 from .device import resolve
 from .kernels.bounce import (TILE, bounce_reflect, bounce_reflect_culled,
-                             pack_rows, source_params, source_pose)
+                             media_flags, pack_rows, source_params,
+                             source_pose)
 from .kernels.intersect import nearest_hit_aux
 from .kernels.shade import check_supported, shade
 from .scene import Assembly, SceneMeta, SceneTable, compile_scene
@@ -159,7 +161,8 @@ def _trace_streaming_megakernel(
         total_rays: int, slab: int, max_rounds: int, max_path: int,
         min_energy: float, t_eps: float, disc_eps: float, bivar,
         one_sided: bool, slope: bool, lambertian: bool, spectral: bool,
-        fluxspecs: tuple = ()):
+        fluxspecs: tuple = (), refractive: bool = False,
+        refr_disp: bool = False, refr_frost: bool = False, media=None):
     """Plain streaming megakernel (tracer_tpu/engine.py:957): each round
     K2 refills every dead lane of the slab from the source (pose
     ``src_frame``), intersects every row and shades. The emission loop
@@ -168,11 +171,17 @@ def _trace_streaming_megakernel(
     is exact); the survivors then drain in compacted chunks of
     _drain_cap(slab) lanes, each for at most max_path + 1 rounds. Rays
     older than ``max_path`` bounces, and hits that leave less than
-    ``min_energy``, are culled with their energy accounted. Returns
-    (accum, rays emitted, source energy)."""
+    ``min_energy``, are culled with their energy accounted. With
+    ``refractive`` a per-lane index threads through K2 (fresh rays start
+    at 1); with ``media`` (_bake_media's pair) a per-lane medium id too
+    (fresh rays start in medium 0, the ambient). A lane that scattered in
+    its medium (sid -2) lives on like a hit. Returns (accum, rays emitted,
+    source energy)."""
     dev = scene.device
     e_ray = float(source_spec[5])
-    ambient_att = float(source_spec[14]) if len(source_spec) > 14 else 0.0
+    ambient_att, ambient_scat, ambient_g = _spec_medium(source_spec)
+    att_on, scat_on = (media_flags(media) if media is not None
+                       else (ambient_att > 0.0, ambient_scat > 0.0))
     rows = pack_rows(scene)
     tab = (torch.stack([scene.spectral_wl, scene.spectral_ab], dim=1)
            .to(torch.float32).contiguous() if spectral else None)
@@ -182,39 +191,50 @@ def _trace_streaming_megakernel(
     dirs[:, 2] = 1.0
     e = torch.zeros((slab,), **f32)
     wl = torch.zeros((slab,), **f32) if spectral else None
+    ri = torch.ones((slab,), **f32) if refractive else None
+    mid = torch.zeros((slab,), **f32) if media is not None else None
     age = torch.zeros((slab,), dtype=torch.int32, device=dev)
     accum = TraceAccum.zeros(scene.num_rows, device=dev, fluxspecs=fluxspecs)
     kernel_args = dict(disc_eps=disc_eps, bivar=bivar, one_sided=one_sided,
                        slope=slope, lambertian=lambertian,
                        source_spec=source_spec, spectral_tab=tab,
-                       ambient_att=ambient_att, src_frame=src_frame)
+                       ambient_att=ambient_att, src_frame=src_frame,
+                       refr_frost=refr_frost, refr_disp=refr_disp,
+                       ambient_scat=ambient_scat, ambient_g=ambient_g,
+                       media=media)
 
-    def one_round(pos, dirs, e, e_before, wl, age, regen: bool):
+    def one_round(pos, dirs, e, e_before, lanes, age, regen: bool):
         """One K2 round and its accounting, any number of lanes (the
-        emission loop and the compacted tail share it)."""
+        emission loop and the compacted tail share it); ``lanes`` is the
+        (wavelength, index, medium id) triple, None where off."""
+        wl, ri, mid = lanes
         outs = bounce_reflect(rows, _seed(generator), pos, dirs, e,
                               scene.groups, t_eps, regen=regen,
-                              wavelength=wl, **kernel_args)
+                              wavelength=wl, ref_index=ri, medium_id=mid,
+                              **kernel_args)
         pos, dirs, e_new, sid, absorbed = outs[:5]
-        if wl is not None:
-            wl = outs[5]
-        hit = sid >= 0
-        _account(accum, sid, (e_before > 0.0) & ~hit, absorbed, e_before)
+        rest = iter(outs[5:])
+        lanes = tuple(None if x is None else next(rest) for x in lanes)
+        # a live lane that scattered (sid -2) is on no surface but alive
+        live_hit = (sid >= 0) | (sid == -2) if scat_on else sid >= 0
+        _account(accum, sid, (e_before > 0.0) & ~live_hit, absorbed,
+                 e_before)
         _dfm.accumulate(accum.flux, fluxspecs, scene, sid, pos, absorbed)
-        if ambient_att > 0.0:
+        if att_on:
             # the kernel reports surface absorption only: the medium took
-            # the rest of each hit segment's loss
-            accum.medium += torch.where(hit, e_before - absorbed - e_new,
+            # the rest of each hit or scattering segment's loss
+            accum.medium += torch.where(live_hit, e_before - absorbed - e_new,
                                         0.0).sum()
-        low = hit & (e_new <= min_energy)
+        low = live_hit & (e_new <= min_energy)
         accum.culled += torch.where(low, e_new, 0.0).sum()
-        e_new = torch.where(hit & ~low, e_new, 0.0)
+        e_new = torch.where(live_hit & ~low, e_new, 0.0)
         # the per-ray bounce budget
         age = torch.where(e_before > 0.0, age + 1, 0)
         over = (e_new > 0.0) & (age >= max_path)
         accum.culled += torch.where(over, e_new, 0.0).sum()
-        return pos, dirs, torch.where(over, 0.0, e_new), wl, age
+        return pos, dirs, torch.where(over, 0.0, e_new), lanes, age
 
+    lanes = (wl, ri, mid)
     emitted = 0
     i = 0
     while i < max_rounds and emitted < total_rays:
@@ -222,21 +242,22 @@ def _trace_streaming_megakernel(
         emitted += int(reborn.sum())
         e_before = torch.where(reborn, e_ray, e)
         age = torch.where(reborn, 0, age)      # fresh rays restart their age
-        pos, dirs, e, wl, age = one_round(pos, dirs, e, e_before, wl, age,
-                                          True)
+        pos, dirs, e, lanes, age = one_round(pos, dirs, e, e_before, lanes,
+                                             age, True)
         i += 1
 
     def drain_fn(ce, cfields, accum):
-        cpos, cdirs, cwl, cage = cfields
+        cpos, cdirs, cage, *clanes = cfields
+        clanes = tuple(clanes)
         for _ in range(max_path + 1):
             if not bool((ce > 0.0).any()):
                 break
-            cpos, cdirs, ce, cwl, cage = one_round(cpos, cdirs, ce, ce, cwl,
-                                                   cage, False)
+            cpos, cdirs, ce, clanes, cage = one_round(cpos, cdirs, ce, ce,
+                                                      clanes, cage, False)
         return ce
 
-    e = _chunked_drain(e, (pos, dirs, wl, age), drain_fn, _drain_cap(slab),
-                       accum)
+    e = _chunked_drain(e, (pos, dirs, age, *lanes), drain_fn,
+                       _drain_cap(slab), accum)
     # exact closure on any exit: energy still alive is accounted
     accum.residual += e.sum()
     return (accum, torch.tensor(emitted, dtype=torch.int64),
@@ -366,22 +387,69 @@ def _trace_streaming_megakernel_culled(
     return accum, emitted, emitted.to(torch.float64) * e_ray
 
 
-# optics kinds the plain megakernel's K2 shades (ROADMAP B2 stage b); the
-# rest wait for their stages
-_K2_KINDS = {_M.K_REFLECT, _M.K_LAMBERTIAN, _M.K_REFLECT_SPECTRAL}
-_K2_LATER = {_M.K_REFRACTIVE: "B2 stage c", _M.K_COOK_TORRANCE: "B2 stage d",
+# optics kinds the plain megakernel's K2 shades (ROADMAP B2 stages b and
+# c: reflect, Lambertian, spectral, refractive); the rest wait for their
+# stages
+_K2_KINDS = {_M.K_REFLECT, _M.K_LAMBERTIAN, _M.K_REFLECT_SPECTRAL,
+             _M.K_REFRACTIVE}
+_K2_LATER = {_M.K_COOK_TORRANCE: "B2 stage d",
              _M.K_LAMBERTIAN_SPECULAR: "B2 stage d",
              _M.K_SEMI_LAMBERTIAN: "B2 stage d",
              _M.K_TRANSPARENT: "B2 stage d",
              _M.K_FRESNEL_CONDUCTOR: "B2 stage e", _M.K_PERIODIC: "B2 stage e",
              _M.K_LAMBERTIAN_PIECEWISE: "B2 stage e"}
-# scene features whose kernel modes wait for a later K2 stage
+# scene features whose kernel modes wait for a later K2 stage or another
+# item ("dispersive" and "refractive_slope" run since stage c; energy
+# splitting serves the general streaming path)
 _FEATURES_LATER = {"iam": "B2 stage e", "iam_nonmirror": "A10",
                    "fresnel_conductor": "B2 stage e",
                    "conductor_dispersive": "B2 stage e",
                    "lambertian_piecewise": "B2 stage e",
-                   "dispersive": "B2 stage c", "refractive_slope": "B2 stage c",
                    "split": "A10", "bifacial": "C"}
+
+
+def _bake_media(scene, spec_att: float, spec_scat: float, spec_g: float):
+    """The static ``(media_tab, media_rows)`` pair of K2's media mode
+    (tracer_tpu/engine.py:1513): medium 0 is the ambient (the source
+    spec's coefficients); every K_REFRACTIVE row contributes its two side
+    media (opt_params 6..11: att, scat and g of sides 1 and 2),
+    deduplicated by value in the scene's dtype, so that a lane's id
+    compare mirrors the medium-tuple compare of the host-stepped shade.
+    ``media_rows`` holds (row, side-1 id, side-2 id) per refractive
+    row."""
+    okind = scene.opt_kind.cpu().numpy()
+    oprm = scene.opt_params.cpu().numpy()
+    tab = [tuple(float(np.asarray(v, dtype=oprm.dtype))
+                 for v in (spec_att, spec_scat, spec_g))]
+    rows_map = []
+    for s in np.nonzero(okind == _M.K_REFRACTIVE)[0]:
+        ids = []
+        for cols in ((6, 8, 10), (7, 9, 11)):
+            m = tuple(float(oprm[s, c]) for c in cols)
+            if m not in tab:
+                tab.append(m)
+            ids.append(tab.index(m))
+        rows_map.append((int(s), ids[0], ids[1]))
+    return tuple(tab), tuple(rows_map)
+
+
+def _spec_medium(spec):
+    """(attenuation, HG scattering coefficient, HG asymmetry) of a source
+    spec's ambient medium (slots 14 and 16)."""
+    att = float(spec[14]) if len(spec) > 14 else 0.0
+    med = spec[16] if len(spec) > 16 else None
+    return (att, float(med[0]) if med else 0.0,
+            float(med[1]) if med else 0.0)
+
+
+def _media_for(scene, spec):
+    """The media pair when the scene's refractive rows bound volumetric
+    media (tracer_tpu/engine.py:1607; energy-splitting scenes are refused
+    before), else None."""
+    if (_M.K_REFRACTIVE not in scene.kinds_present
+            or "volumetric" not in scene.features):
+        return None
+    return _bake_media(scene, *_spec_medium(spec))
 
 
 def trace_streaming(scene: SceneTable, source_fn, generator: torch.Generator,
@@ -405,14 +473,16 @@ def trace_streaming(scene: SceneTable, source_fn, generator: torch.Generator,
     culled + medium + residual to float32 tolerance.
 
     Two dispatches are ported, both for a bakeable source spec (a disk
-    source, with an optional wavelength band and ambient attenuation):
+    source, with an optional wavelength band and ambient medium):
 
     * ``culling`` given (culling.BlockCulling built for this scene, source
       and slab): the relevancy-culled trace, for K_REFLECT rows without a
       band or an ambient medium;
-    * ``culling`` None: the plain megakernel, for K_REFLECT, K_LAMBERTIAN
-      and K_REFLECT_SPECTRAL rows (spectral rows need the source's band),
-      with the spec's ambient attenuation (a "volumetric" scene needs it).
+    * ``culling`` None: the plain megakernel, for K_REFLECT, K_LAMBERTIAN,
+      K_REFLECT_SPECTRAL and single-ray K_REFRACTIVE rows (spectral and
+      dispersive rows need the source's band), with the spec's ambient
+      attenuation and HG scattering (a "volumetric" scene needs one of
+      them, unless its refractive rows bound the media).
 
     Everything else raises NotImplementedError naming its ROADMAP item."""
     spec = getattr(source_fn, "pallas_spec", None)
@@ -428,33 +498,42 @@ def trace_streaming(scene: SceneTable, source_fn, generator: torch.Generator,
                                   "(ROADMAP A4)")
     n = source_fn.num_rays
     kinds = set(scene.kinds_present)
+    features = set(scene.features)
     later = sorted(kinds - _K2_KINDS)
     if later:
         raise NotImplementedError(
             f"optics kind {later[0]} in the streaming kernels is not ported "
             f"yet (ROADMAP {_K2_LATER.get(later[0], 'A9')})")
-    later = sorted(set(scene.features) & set(_FEATURES_LATER))
+    later = sorted(features & set(_FEATURES_LATER))
     if later:
         raise NotImplementedError(
             f"scene feature {later[0]!r} in the streaming kernels is not "
             f"ported yet (ROADMAP {_FEATURES_LATER[later[0]]})")
-    source_params(spec)              # refuses rect sources and scattering
+    source_params(spec)              # refuses rect sources
     band = spec[13] if len(spec) > 13 else None
-    att = float(spec[14]) if len(spec) > 14 else 0.0
-    spectral = _M.K_REFLECT_SPECTRAL in kinds
+    att, scat, _ = _spec_medium(spec)
+    refractive = _M.K_REFRACTIVE in kinds
+    refr_disp = refractive and "dispersive" in features
+    spectral = _M.K_REFLECT_SPECTRAL in kinds or refr_disp
     if spectral and band is None:
         raise NotImplementedError(
-            "spectral rows without a source band need the general streaming "
-            "path, not ported yet (ROADMAP A10)")
-    if "volumetric" in scene.features and att <= 0.0:
+            "spectral or dispersive rows without a source band need the "
+            "general streaming path, not ported yet (ROADMAP A10)")
+    media = _media_for(scene, spec)
+    if "volumetric" in features and refr_disp:
         raise NotImplementedError(
-            "volumetric scenes without the spec's ambient attenuation need "
-            "the general streaming path, not ported yet (ROADMAP A10)")
+            "volumetric scenes with dispersive rows need the general "
+            "streaming path, not ported yet (ROADMAP A10)")
+    if "volumetric" in features and media is None and att <= 0.0 \
+            and scat <= 0.0:
+        raise NotImplementedError(
+            "volumetric scenes without the spec's ambient medium need the "
+            "general streaming path, not ported yet (ROADMAP A10)")
     te = 3e-4 if t_eps is None else t_eps   # float32 default_t_eps
     common = dict(max_rounds=max_rounds, max_path=max_path,
                   min_energy=min_energy, t_eps=te, bivar=_bivar_mode(scene),
-                  one_sided="one_sided" in scene.features,
-                  slope="slope_error" in scene.features,
+                  one_sided="one_sided" in features,
+                  slope="slope_error" in features,
                   fluxspecs=fluxspecs)
     if culling is None:
         spec_c, frame = _spec_frame_split(spec)
@@ -462,8 +541,10 @@ def trace_streaming(scene: SceneTable, source_fn, generator: torch.Generator,
             scene, spec_c, torch.as_tensor(frame, device=scene.device),
             generator, total_rays, n, disc_eps=disc_eps,
             lambertian=_M.K_LAMBERTIAN in kinds, spectral=spectral,
-            **common)
-    if kinds != {_M.K_REFLECT} or band is not None or att:
+            refractive=refractive, refr_disp=refr_disp,
+            refr_frost=refractive and "refractive_slope" in features,
+            media=media, **common)
+    if kinds != {_M.K_REFLECT} or band is not None or att or scat:
         raise NotImplementedError(
             "the culled kernel takes K_REFLECT rows without a wavelength "
             "band or an ambient medium; its other modes are not ported yet "

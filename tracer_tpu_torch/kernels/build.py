@@ -36,12 +36,14 @@ _SIGNATURES = {
     "tt_bounce_culled": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P,
                          _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                          _F, _I, _I, _I, _P],
-    # rows S K G gmeta max_c seed pos dir e wl npos ndir ne nwl sid
-    # absorbed n t_eps disc_eps regen srcp pose tab n_tab bivar one_sided
-    # slope lambertian ambient_att stream
+    # rows S K G gmeta max_c seed pos dir e npos ndir ne sid absorbed wl
+    # nwl ri nri mid nmid n t_eps disc_eps regen srcp pose tab n_tab bivar
+    # one_sided slope lambertian ambient_att refr_frost refr_disp scat
+    # ambient_scat ambient_g media_tab n_media media_rows stream
     "tt_bounce": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                  _P, _P, _P, _I, _F, _F, _I, _P, _P, _P, _I, _I, _I, _I,
-                  _I, _F, _P],
+                  _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _P,
+                  _I, _I, _I, _I, _I, _F, _I, _I, _I, _F, _F, _P, _I, _P,
+                  _P],
     # rows S K G gmeta max_c pos dir t sid normal local up kind flags p0
     # p1 n t_eps disc_eps need_local backside_miss stream
     "tt_nearest": [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -12,19 +12,29 @@
 // Buie sources.
 //
 // tt_bounce (K2) replaces bounce_reflect_pallas (:1693, body
-// _make_fused_kernel :1517), stages (a) and (b): one thread per lane, a
+// _make_fused_kernel :1517), stages (a) to (c): one thread per lane, a
 // brute-force loop over every row of the scene with every quadric class
 // and aperture kind (rows.cuh, shared with K1 and K3), then the shade
 // epilogue (_make_shade_epilogue :679): reflect with slope error, the one-sided
 // kill, the pure-Lambertian lobe (:1181), spectral absorptance
 // interpolated at the lane's wavelength (_interp_row_table :144, carried
-// by _surface_body :430) and Beer-Lambert attenuation of hit segments in
-// an ambient medium (:1245). With regeneration on, dead lanes first draw a
-// fresh ray from the un-celled disk source (_sample_disk_buie :1413: Buie
-// or pillbox polar angle, optional aureole, optional wavelength band)
-// whose pose (centre, position rotation, direction rotation) is a device
-// operand. The plain streaming megakernel runs it every round, the culled
-// trace's drain with regeneration off.
+// by _surface_body :430), Beer-Lambert attenuation of the travelled
+// segment (:1245), and (stage c) K_REFRACTIVE interfaces on a per-lane
+// index: Fresnel roulette about the flipped normal (:999), frosted rows'
+// p2 sigma (:933), dispersive rows' n1(wl) and n2(wl) interpolated once
+// for the winner (:444); Henyey-Greenstein scattering that preempts the
+// hit when the lane's exponential free path is shorter (:863, sid -2);
+// and per-lane medium ids toggled at the crossings of the refractive rows
+// that bound the media (:849, :1009). Refraction, scattering and media
+// are template flags (bounce_kernel<kRefr, kScat, kMedia>), so the
+// configurations without them keep stage (b)'s code. With regeneration
+// on, dead lanes first draw a fresh ray from the un-celled disk source
+// (_sample_disk_buie :1413: Buie or pillbox polar angle, optional
+// aureole, optional wavelength band) whose pose (centre, position
+// rotation, direction rotation) is a device operand, and restart at index
+// 1 in medium 0. The plain streaming megakernel runs it every round, the
+// culled trace's drain with regeneration off. Energy-splitting
+// refraction (refr_split) is not ported.
 //
 // What bounds them on this card: the per-lane row loop is float32
 // arithmetic on rows that every lane of a block shares (about 50 flops
@@ -60,7 +70,7 @@ constexpr int SP_RADIUS = 12, SP_ERAY = 13, SP_DISC_END = 14,
 // Philox draw calls (kernels/philox.py): each has its own counter, so
 // adding a draw never shifts another
 constexpr uint32_t CALL_REGEN = 0u, CALL_SLOPE = 1u, CALL_LAMBERT = 2u,
-                   CALL_BAND = 3u;
+                   CALL_BAND = 3u, CALL_FRESNEL = 4u, CALL_SCATTER = 5u;
 
 __device__ __forceinline__ void philox(uint32_t c[4], uint32_t k0,
                                        uint32_t k1) {
@@ -219,26 +229,39 @@ struct Lane {
 
 struct Shaded {
   float px, py, pz, dx, dy, dz, e, absorbed;
+  float ri, mid;  // the lane's index and medium id after the bounce
+  bool scat;      // scattered in its medium before reaching a surface
 };
 
-// the epilogue's static modes
+// the epilogue's runtime modes (the template flags of shade pick the rest)
 struct Epi {
   int bivar_mode;      // 1 every slope row bivariate, 0 all radial, 2 per row
   int one_sided, slope, lambertian;
   const float* tab;    // (n, 2) spectral table, or nullptr: no spectral rows
   float ambient_att;   // Beer-Lambert coefficient of the ambient medium [1/m]
+  float ambient_scat;  // HG scattering coefficient of the ambient [1/m]
+  float ambient_g;     // HG asymmetry of the ambient
+  int refr_frost;      // refractive rows perturb their normal with p2
+  int refr_disp;       // refractive rows with p5 > 0 interpolate n(wl)
+  const float* media_tab;   // (M, 3) att, scat, g of each medium id
+  const float* media_rows;  // (S, 2) side-1 and side-2 medium ids per row
 };
 
-// shade the winner row `w` (nullptr on a miss) with the carried normal
-// (unnormalised gradient) and local d_z: pallas_intersect
+// shade the winner row `w` (row id sid; nullptr on a miss) with the
+// carried normal (unnormalised gradient) and local d_z: pallas_intersect
 // _make_shade_epilogue's reflect, slope error, one-sided kill, Lambertian
-// and ambient branches, and the spectral carry of _surface_body
-__device__ __forceinline__ Shaded shade(const float* w, float ngx_w,
+// and attenuation branches and the spectral carry of _surface_body; with
+// kRefr the refractive interfaces on the lane's index ri, with kScat the
+// HG scattering of the lane's medium (the ambient's, or with kMedia the
+// medium id mid's row of the media table)
+template <bool kRefr, bool kScat, bool kMedia>
+__device__ __forceinline__ Shaded shade(const float* w, int sid, float ngx_w,
                                         float ngy_w, float ngz_w,
                                         float upd_w, float t_b,
-                                        const Lane& in, float wl,
-                                        uint32_t seed, uint32_t stream,
-                                        uint32_t lane, const Epi& ep) {
+                                        const Lane& in, float wl, float ri,
+                                        float mid, uint32_t seed,
+                                        uint32_t stream, uint32_t lane,
+                                        const Epi& ep) {
   const bool hit = w != nullptr;
   const float ngx = hit ? ngx_w : 0.0f, ngy = hit ? ngy_w : 0.0f,
               ngz = hit ? ngz_w : 0.0f;
@@ -253,6 +276,15 @@ __device__ __forceinline__ Shaded shade(const float* w, float ngx_w,
                     static_cast<int>(w[ROW_P0 + 1]), ep.tab);
     q1 = w[ROW_P0 + 2];
   }
+  const bool is_refr = kRefr && kind == 6.0f;
+  if (is_refr && ep.refr_disp && w[ROW_P0 + 5] > 0.0f) {
+    // dispersive K_REFRACTIVE: n1(wl) and n2(wl) from the table chunks
+    // [p3, p3 + p4) and [p3 + p4, p3 + p4 + p5), for the winner only
+    const int st = static_cast<int>(w[ROW_P0 + 3]);
+    const int l1 = static_cast<int>(w[ROW_P0 + 4]);
+    q0 = interp_row(wl, st, l1, ep.tab);
+    q1 = interp_row(wl, st + l1, static_cast<int>(w[ROW_P0 + 5]), ep.tab);
+  }
   const float t_safe = hit ? t_b : 0.0f;
   const float hx = in.px + t_safe * in.dx;
   const float hy = in.py + t_safe * in.dy;
@@ -263,6 +295,41 @@ __device__ __forceinline__ Shaded shade(const float* w, float ngx_w,
   const float cos_g = in.dx * ngx + in.dy * ngy + in.dz * ngz;
   const float flip = cos_g > 0.0f ? -rinv : rinv;
   const float n0x = ngx * flip, n0y = ngy * flip, n0z = ngz * flip;
+  // the lane's medium
+  float m_att = ep.ambient_att, m_scat = ep.ambient_scat,
+        m_g = ep.ambient_g;
+  if (kMedia) {
+    const float* m = ep.media_tab + 3 * static_cast<int>(mid);
+    m_att = m[0];
+    m_scat = m[1];
+    m_g = m[2];
+  }
+  bool scat = false;
+  float free_path = 0.0f, sdx = 0.0f, sdy = 0.0f, sdz = 0.0f;
+  if (kScat) {
+    // exponential free path; a miss (t_b = inf) scatters too
+    float u[4];
+    uniforms4(seed, stream, lane, CALL_SCATTER, u);
+    const float logu = -logf(fmaxf(u[0], 1e-12f));
+    free_path = m_scat > 0.0f ? logu / m_scat : INFINITY;
+    scat = free_path < t_b;
+    if (scat) {
+      // Henyey-Greenstein polar angle about the travel direction
+      const float sg = 2.0f * u[1] - 1.0f;
+      const bool iso = fabsf(m_g) < 1e-9f;
+      const float frac = (1.0f - m_g * m_g) / (1.0f + m_g * sg);
+      const float cos_sc =
+          iso ? sg
+              : fminf(fmaxf((1.0f + m_g * m_g - frac * frac) * (0.5f / m_g),
+                            -1.0f),
+                      1.0f);
+      const float sin_sc = sqrtf(fmaxf(1.0f - cos_sc * cos_sc, 0.0f));
+      float s_sp, c_sp;
+      sincosf(TWO_PI * u[2], &s_sp, &c_sp);
+      rot_about(in.dx, in.dy, in.dz, sin_sc * c_sp, sin_sc * s_sp, cos_sc,
+                sdx, sdy, sdz);
+    }
+  }
   float nx = n0x, ny = n0y, nz = n0z;
   if (ep.slope) {
     float u[4];
@@ -271,8 +338,10 @@ __device__ __forceinline__ Shaded shade(const float* w, float ngx_w,
     float s_bm, c_bm;
     sincosf(TWO_PI * u[1], &s_bm, &c_bm);
     const float nrm1 = rr * c_bm;
-    // Lambertian rows carry ang_range in q1, not a slope sigma
-    const float sigma = ep.lambertian && kind == 2.0f ? 0.0f : q1;
+    // Lambertian rows carry ang_range in q1, not a slope sigma;
+    // refractive rows carry n2 there, and a frosted one its sigma in p2
+    float sigma = ep.lambertian && kind == 2.0f ? 0.0f : q1;
+    if (is_refr) sigma = ep.refr_frost ? w[ROW_P0 + 2] : 0.0f;
     const bool is_bv = ep.bivar_mode == 1 ||
                        (ep.bivar_mode == 2 && fmodf(kf, 4.0f) >= 2.0f);
     float ex, ey, ez;
@@ -299,6 +368,50 @@ __device__ __forceinline__ Shaded shade(const float* w, float ngx_w,
   float rx = in.dx - 2.0f * dn * nx;
   float ry = in.dy - 2.0f * dn * ny;
   float rz = in.dz - 2.0f * dn * nz;
+  float nri = ri, nmid = mid;
+  if (is_refr) {
+    // the side whose index is nearest the lane's is the one it comes
+    // from (index-matched sides: the one whose medium id it carries)
+    bool in1 = fabsf(ri - q0) <= fabsf(ri - q1);
+    float mid1 = 0.0f, mid2 = 0.0f;
+    if (kMedia) {
+      mid1 = ep.media_rows[2 * sid];
+      mid2 = ep.media_rows[2 * sid + 1];
+      if (!(fabsf(q0 - q1) > 1e-9f)) in1 = mid == mid1;
+    }
+    const float n_next = in1 ? q1 : q0;
+    const float safe_ri = ri == 0.0f ? 1.0f : ri;
+    const float safe_nx = n_next == 0.0f ? 1.0f : n_next;
+    const float nrat = safe_nx / safe_ri;
+    const float c1 = dn;
+    const bool refr_ok = c1 * c1 >= 1.0f - nrat * nrat;
+    const float inv_nr = 1.0f / nrat;
+    const float cos2 =
+        sqrtf(fmaxf(1.0f - (1.0f - c1 * c1) * inv_nr * inv_nr, 0.0f));
+    const float sgn = c1 < 0.0f ? -1.0f : 1.0f;
+    // unpolarized Fresnel R; R = 1 on total internal reflection
+    const float cos1a = fabsf(c1);
+    const float ratio = safe_ri / safe_nx;
+    const float under = 1.0f - ratio * ratio * (1.0f - cos1a * cos1a);
+    const float bar = sqrtf(fmaxf(under, 0.0f));
+    const float rs = (safe_ri * cos1a - safe_nx * bar) /
+                     (safe_ri * cos1a + safe_nx * bar);
+    const float rp = (safe_ri * bar - safe_nx * cos1a) /
+                     (safe_ri * bar + safe_nx * cos1a);
+    const float R =
+        refr_ok && under >= 0.0f ? 0.5f * (rs * rs + rp * rp) : 1.0f;
+    float u[4];
+    uniforms4(seed, stream, lane, CALL_FRESNEL, u);
+    if (!(u[0] <= R)) {
+      // Snell about the same normal; the lane enters the other side
+      rx = (in.dx - c1 * nx) * inv_nr + nx * cos2 * sgn;
+      ry = (in.dy - c1 * ny) * inv_nr + ny * cos2 * sgn;
+      rz = (in.dz - c1 * nz) * inv_nr + nz * cos2 * sgn;
+      nri = n_next;
+      if (kMedia) nmid = in1 ? mid2 : mid1;
+    }
+    q0 = 0.0f;  // Russian roulette keeps the full energy
+  }
   if (ep.lambertian) {
     // K_LAMBERTIAN: cosine-weighted about the unperturbed normal within
     // ang_range (q1)
@@ -317,15 +430,35 @@ __device__ __forceinline__ Shaded shade(const float* w, float ngx_w,
       rz = ldz;
     }
   }
-  // the ambient medium takes its share of the hit segment before the
-  // surface does; escaping lanes keep their energy
-  const float e_att = ep.ambient_att > 0.0f && hit
-                          ? in.e * expf(-ep.ambient_att * t_safe)
+  // the medium takes its share of the travelled segment (to the
+  // scattering event, else to the hit) before the surface does; escaping
+  // lanes keep their energy
+  const float travel = scat ? free_path : t_safe;
+  const float e_att = (hit || scat) && m_att > 0.0f
+                          ? in.e * expf(-m_att * travel)
                           : in.e;
   float e_out = e_att * (1.0f - q0);
   // F_ONE_SIDED is bit 0 of kind*1024 + flags: back-face hits die
   if (ep.one_sided && fmodf(kf, 2.0f) >= 1.0f && upd_b > 0.0f) e_out = 0.0f;
   Shaded o;
+  o.scat = scat;
+  o.ri = nri;
+  o.mid = nmid;
+  if (scat) {
+    // the event point, the HG direction, the attenuated energy; no
+    // surface absorbs, and the lane keeps its medium and index
+    o.px = in.px + free_path * in.dx;
+    o.py = in.py + free_path * in.dy;
+    o.pz = in.pz + free_path * in.dz;
+    o.dx = sdx;
+    o.dy = sdy;
+    o.dz = sdz;
+    o.e = e_att;
+    o.absorbed = 0.0f;
+    o.ri = ri;
+    o.mid = mid;
+    return o;
+  }
   o.px = hit ? hx : in.px;
   o.py = hit ? hy : in.py;
   o.pz = hit ? hz : in.pz;
@@ -343,10 +476,12 @@ __device__ __forceinline__ Shaded shade_flat(const float* w, float t_b,
                                              uint32_t stream, uint32_t lane,
                                              const Epi& ep) {
   if (w == nullptr)
-    return shade(w, 0.0f, 0.0f, 0.0f, 0.0f, t_b, in, 0.0f, seed, stream,
-                 lane, ep);
-  return shade(w, w[6], w[7], w[8], w[6] * in.dx + w[7] * in.dy + w[8] * in.dz,
-               t_b, in, 0.0f, seed, stream, lane, ep);
+    return shade<false, false, false>(w, -1, 0.0f, 0.0f, 0.0f, 0.0f, t_b,
+                                      in, 0.0f, 1.0f, 0.0f, seed, stream,
+                                      lane, ep);
+  return shade<false, false, false>(
+      w, -1, w[6], w[7], w[8], w[6] * in.dx + w[7] * in.dy + w[8] * in.dz,
+      t_b, in, 0.0f, 1.0f, 0.0f, seed, stream, lane, ep);
 }
 
 // the ray of lane l (its energy is loaded apart: a lane that is
@@ -504,11 +639,15 @@ struct PlainArgs {
   int meta_w;
   uint32_t seed;
   const float *pos, *dir, *e;
-  const float* wl;   // per-lane wavelength in, or nullptr
   float *npos, *ndir, *ne;
-  float* nwl;        // per-lane wavelength out (with wl)
   int* sid;
   float* absorbed;
+  const float* wl;   // per-lane wavelength in, or nullptr
+  float* nwl;        // per-lane wavelength out (with wl)
+  const float* ri;   // per-lane refractive index in (kRefr)
+  float* nri;
+  const float* mid;  // per-lane medium id in (kMedia)
+  float* nmid;
   long long n;
   float t_eps, disc_eps;
   int regen;         // regenerate dead lanes from the source
@@ -517,15 +656,31 @@ struct PlainArgs {
   const float* tab;  // (n_tab, 2) spectral table
   int n_tab;
   int bivar_mode, one_sided, slope, lambertian;
-  float ambient_att;
+  float ambient_att, ambient_scat, ambient_g;
+  int refr_frost, refr_disp;
+  const float* media_tab;   // (n_media, 3) att, scat, g per medium id
+  int n_media;
+  const float* media_rows;  // (S, 2) side-1 and side-2 ids per row
 };
 
+// the floats bounce_kernel stages in shared memory, in this order: the
+// rows, the spectral table, the source pose, and in media mode the media
+// table and the rows' side ids
+inline size_t plain_stage_floats(const PlainArgs& a) {
+  return (size_t)a.S * a.K + 2 * (size_t)a.n_tab + POSE_FLOATS +
+         3 * (size_t)a.n_media + (a.n_media ? 2 * (size_t)a.S : 0);
+}
+
+template <bool kRefr, bool kScat, bool kMedia>
 __global__ void __launch_bounds__(K2_THREADS) bounce_kernel(PlainArgs a) {
-  // the block stages every row, the spectral table and the source pose
+  // the block stages every row, the spectral table, the source pose and
+  // the media tables
   extern __shared__ float smem[];
   float* rows_sm = smem;
   float* tab_sm = smem + a.S * a.K;
   float* pose_sm = tab_sm + 2 * a.n_tab;
+  float* mtab_sm = pose_sm + POSE_FLOATS;
+  float* mrows_sm = mtab_sm + 3 * a.n_media;
   for (int i = threadIdx.x; i < a.S * a.K; i += K2_THREADS)
     rows_sm[i] = a.rows[i];
   for (int i = threadIdx.x; i < 2 * a.n_tab; i += K2_THREADS)
@@ -533,23 +688,33 @@ __global__ void __launch_bounds__(K2_THREADS) bounce_kernel(PlainArgs a) {
   if (a.regen)
     for (int i = threadIdx.x; i < POSE_FLOATS; i += K2_THREADS)
       pose_sm[i] = a.pose[i];
+  if (kMedia) {
+    for (int i = threadIdx.x; i < 3 * a.n_media; i += K2_THREADS)
+      mtab_sm[i] = a.media_tab[i];
+    for (int i = threadIdx.x; i < 2 * a.S; i += K2_THREADS)
+      mrows_sm[i] = a.media_rows[i];
+  }
   __syncthreads();
   const size_t l = (size_t)blockIdx.x * K2_THREADS + threadIdx.x;
   if (l >= (size_t)a.n) return;
   const uint32_t stream = (uint32_t)(l / TILE), lane = (uint32_t)(l % TILE);
   // a regenerated lane reads only its energy (and its wavelength when the
-  // source has no band to draw one from)
+  // source has no band to draw one from); it starts at index 1 in the
+  // ambient medium
   Lane in;
   in.e = a.e[l];
   const bool reborn = a.regen && in.e <= 0.0f;
   const bool drawn_wl = reborn && a.srcp[SP_HAS_BAND] != 0.0f;
   float wl = a.wl != nullptr && !drawn_wl ? a.wl[l] : 0.0f;
+  float ri = 1.0f, mid = 0.0f;
   if (reborn) {
     sample_disk(a.srcp, pose_sm, a.seed, stream, lane, in.px, in.py, in.pz,
                 in.dx, in.dy, in.dz, wl);
     in.e = a.srcp[SP_ERAY];
   } else {
     load_ray(a.pos, a.dir, l, in);
+    if (kRefr) ri = a.ri[l];
+    if (kMedia) mid = a.mid[l];
   }
   const Ray q = {in.px, in.py, in.pz, in.dx, in.dy, in.dz};
   Best b;
@@ -562,16 +727,22 @@ __global__ void __launch_bounds__(K2_THREADS) bounce_kernel(PlainArgs a) {
                rect_mask_of(m, a.C), a.C, q, a.t_eps, a.disc_eps, false, b);
   }
   const bool hit = b.sid >= 0;
-  const Epi ep = {a.bivar_mode, a.one_sided, a.slope, a.lambertian,
-                  a.wl != nullptr ? tab_sm : nullptr, a.ambient_att};
-  const Shaded o = shade(hit ? rows_sm + b.sid * a.K : nullptr, b.gx, b.gy,
-                         b.gz, b.up, b.t, in, wl, a.seed, stream, lane, ep);
+  Epi ep = {a.bivar_mode, a.one_sided, a.slope, a.lambertian,
+            a.wl != nullptr ? tab_sm : nullptr, a.ambient_att,
+            a.ambient_scat, a.ambient_g, a.refr_frost, a.refr_disp,
+            mtab_sm, mrows_sm};
+  const Shaded o = shade<kRefr, kScat, kMedia>(
+      hit ? rows_sm + b.sid * a.K : nullptr, b.sid, b.gx, b.gy, b.gz, b.up,
+      b.t, in, wl, ri, mid, a.seed, stream, lane, ep);
   store_lane(a.npos, a.ndir, a.ne, l, o.px, o.py, o.pz, o.dx, o.dy, o.dz,
              o.e);
   if (a.nwl != nullptr) a.nwl[l] = wl;
-  // stale lanes (no energy after regeneration) report no hit
+  if (kRefr) a.nri[l] = o.ri;
+  if (kMedia) a.nmid[l] = o.mid;
+  // stale lanes (no energy after regeneration) report no hit; live lanes
+  // that scattered report -2 (alive, on no surface)
   const bool live = in.e > 0.0f;
-  a.sid[l] = hit && live ? b.sid : -1;
+  a.sid[l] = !live ? -1 : (o.scat ? -2 : (hit ? b.sid : -1));
   a.absorbed[l] = live ? o.absorbed : 0.0f;
 }
 
@@ -580,6 +751,16 @@ cudaError_t allow_smem(Kernel k, size_t bytes) {
   if (bytes <= SMEM_DEFAULT) return cudaSuccess;
   return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+template <bool kRefr, bool kScat, bool kMedia>
+int launch_plain(const PlainArgs& a, size_t smem, int blocks,
+                 cudaStream_t st) {
+  auto kernel = bounce_kernel<kRefr, kScat, kMedia>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (blocks > 0) kernel<<<blocks, K2_THREADS, smem, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -635,15 +816,22 @@ int tt_bounce_culled(const void* rows, int S, int K, const void* lists,
 
 int tt_bounce(const void* rows, int S, int K, int G, const void* gmeta,
               int max_c, int seed, const void* pos, const void* dir,
-              const void* e, const void* wl, void* npos, void* ndir,
-              void* ne, void* nwl, void* sid, void* absorbed, int n,
-              float t_eps, float disc_eps, int regen, const void* srcp,
-              const void* pose, const void* tab, int n_tab, int bivar_mode,
-              int one_sided, int slope, int lambertian, float ambient_att,
+              const void* e, void* npos, void* ndir, void* ne, void* sid,
+              void* absorbed, const void* wl, void* nwl, const void* ri,
+              void* nri, const void* mid, void* nmid, int n, float t_eps,
+              float disc_eps, int regen, const void* srcp, const void* pose,
+              const void* tab, int n_tab, int bivar_mode, int one_sided,
+              int slope, int lambertian, float ambient_att, int refr_frost,
+              int refr_disp, int scat, float ambient_scat, float ambient_g,
+              const void* media_tab, int n_media, const void* media_rows,
               void* stream) {
   const int C = (K - ROW_AP) / 6;
+  const bool refr = ri != nullptr, media = mid != nullptr;
   if (max_c != MAX_C || C > MAX_C || (wl == nullptr) != (nwl == nullptr) ||
-      (wl != nullptr && n_tab < 1) || (regen && (!srcp || !pose)))
+      (wl != nullptr && n_tab < 1) || (regen && (!srcp || !pose)) ||
+      refr != (nri != nullptr) || media != (nmid != nullptr) ||
+      (media && (!refr || !media_tab || !media_rows || n_media < 1)) ||
+      (refr_disp && (!refr || wl == nullptr)))
     return (int)cudaErrorInvalidValue;
   PlainArgs a;
   a.rows = static_cast<const float*>(rows);
@@ -657,13 +845,17 @@ int tt_bounce(const void* rows, int S, int K, int G, const void* gmeta,
   a.pos = static_cast<const float*>(pos);
   a.dir = static_cast<const float*>(dir);
   a.e = static_cast<const float*>(e);
-  a.wl = static_cast<const float*>(wl);
   a.npos = static_cast<float*>(npos);
   a.ndir = static_cast<float*>(ndir);
   a.ne = static_cast<float*>(ne);
-  a.nwl = static_cast<float*>(nwl);
   a.sid = static_cast<int*>(sid);
   a.absorbed = static_cast<float*>(absorbed);
+  a.wl = static_cast<const float*>(wl);
+  a.nwl = static_cast<float*>(nwl);
+  a.ri = static_cast<const float*>(ri);
+  a.nri = static_cast<float*>(nri);
+  a.mid = static_cast<const float*>(mid);
+  a.nmid = static_cast<float*>(nmid);
   a.n = n;
   a.t_eps = t_eps;
   a.disc_eps = disc_eps;
@@ -677,15 +869,26 @@ int tt_bounce(const void* rows, int S, int K, int G, const void* gmeta,
   a.slope = slope;
   a.lambertian = lambertian;
   a.ambient_att = ambient_att;
-  const size_t smem =
-      ((size_t)S * K + 2 * (size_t)a.n_tab + POSE_FLOATS) * sizeof(float);
-  cudaError_t err = allow_smem(bounce_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
+  a.ambient_scat = ambient_scat;
+  a.ambient_g = ambient_g;
+  a.refr_frost = refr_frost;
+  a.refr_disp = refr_disp;
+  a.media_tab = static_cast<const float*>(media_tab);
+  a.n_media = media ? n_media : 0;
+  a.media_rows = static_cast<const float*>(media_rows);
+  const size_t smem = plain_stage_floats(a) * sizeof(float);
   const int blocks = (n + K2_THREADS - 1) / K2_THREADS;
-  if (blocks > 0)
-    bounce_kernel<<<blocks, K2_THREADS, smem,
-                    static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the instances the trace dispatches (media ride the refractive mode)
+  switch ((refr ? 1 : 0) | (scat ? 2 : 0) | (media ? 4 : 0)) {
+    case 0: return launch_plain<false, false, false>(a, smem, blocks, st);
+    case 1: return launch_plain<true, false, false>(a, smem, blocks, st);
+    case 2: return launch_plain<false, true, false>(a, smem, blocks, st);
+    case 3: return launch_plain<true, true, false>(a, smem, blocks, st);
+    case 5: return launch_plain<true, false, true>(a, smem, blocks, st);
+    case 7: return launch_plain<true, true, true>(a, smem, blocks, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* tt_error_string(int err) {

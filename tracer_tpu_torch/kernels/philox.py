@@ -9,9 +9,11 @@ whose bits cannot be reproduced here.
 Keying used by the bounce kernels: key = (round seed, stream), counter =
 (lane within the tile, draw call, 0, 0). Each call yields four 32-bit
 words: call 0 feeds the source regeneration (four uniforms), call 1 the
-slope-error epilogue, call 2 the Lambertian lobe and call 3 the
-wavelength drawn from a source band. Each draw has its own call, so adding
-one never shifts another. The arithmetic runs in int64 so every product
+slope-error epilogue, call 2 the Lambertian lobe, call 3 the
+wavelength drawn from a source band, call 4 the Fresnel roulette of a
+refractive interface and call 5 a participating medium's free path, HG
+polar angle and azimuth. Each draw has its own call, so adding one never
+shifts another. The arithmetic runs in int64 so every product
 of two 32-bit words stays exact.
 """
 from __future__ import annotations
@@ -27,6 +29,8 @@ CALL_REGEN = 0
 CALL_SLOPE = 1
 CALL_LAMBERT = 2
 CALL_BAND = 3
+CALL_FRESNEL = 4
+CALL_SCATTER = 5
 
 
 def _mulhilo(m: int, x: torch.Tensor):
