@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py             # every phase, about ten minutes
+    python3 chip_smoke.py             # every phase, about twelve minutes
     python3 chip_smoke.py --profile   # plus a torch.profiler breakdown
                                       # of one NSTTF bench-size trace
 
@@ -109,7 +109,30 @@ Phases, each printing its lines:
    fraction (0.04-0.09, curved.py:79; above 0.02 for the rect source),
    culled within 2% (receiver) and 0.5% (escaped) of unculled for the
    curved field, 1.5%, 3% (mirrors) and 0.5% for the rect source
-   (tests/test_pallas_tpu.py:215-255).
+   (tests/test_pallas_tpu.py:215-255);
+11. energy splitting and the stage (d)/(e) kinds beside refraction and
+   media ids: K2 against its plain version at 700,416 lanes in refr_split
+   mode (the split lens, config 6's lens with single_ray=False; TIR lanes
+   in a glass block in an absorbing ambient; a splitting cover over a
+   Cook-Torrance target) and in the four mixed scenes (the glazed config
+   7, a glass cover over its Cook-Torrance target; the lens in config 8's
+   HG medium over a Cook-Torrance floor; an absorbing slab beside a
+   transparent sheet; config 8b's box with a Lambertian-specular floor),
+   the branch's energy held like the energies and its direction on the
+   lanes that split (tests/test_torch_gpu.k2_compare), each timed beside
+   its plain version and its bound; then the glazed config 7 at
+   89,653,248 rays on the plain megakernel as in phase 7 (guards: full
+   emission, closure below 1e-4, the dome above 0.4 and every fraction
+   within 3 sigma of the plain version's 196,608-ray CPU trace), and the
+   split stream (benchmarks/suite.py:338-351: the split lens, its source
+   without the spec, on the general path with one overflow slot per
+   lane) at 89,653,248 rays: one untimed short trace, three timed (median,
+   every wall time, rounds and K2 launches per call). Guards: exact
+   emission, closure below 1e-4, a residual below 1e-6 of the source, the
+   receiver's share in (0.75, 0.98) and within 2% of phase 8's lens
+   (suite.py:351) and within 3 combined sigma of it, less at most the
+   share of the source culled as branches below min_energy (which the
+   roulette lens does not make), K1 and K3 never launched.
 
 Every kernel's launch count is set to 0 just before a main path runs and
 read just after. The line before the last is the kernels' JSON record;
@@ -470,18 +493,19 @@ def main(argv) -> None:
     # ---- phases 7-9: bench configs 1-3, then 6, 8 and 8b, then 7, on the
     # plain megakernel; then config 7 on the general path
     entry = record["kernels"][1]
+    physics = {}
     for modes, cfgs in ((BENCH_MODES, (1, 2, 3)),
                         (STAGE_C_MODES, (6, 8, "8b")),
                         (STAGE_DE_MODES, (7,))):
         k2 = bench_phase(dev, card, kb, kn, p_ref, modes, cfgs)
         entry["launches"] += k2["launches"]
         entry["max_abs_err"] = max(entry["max_abs_err"], k2["max_abs_err"])
+        physics.update(k2["physics"])
         if cfgs[0] == 1:
             # the record keeps config 1's regeneration mode
             entry.update({k: k2[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by")})
-    entry["launches"] += general_phase(dev, card, kb, kn,
-                                       k2["physics"][7])
+    entry["launches"] += general_phase(dev, card, kb, kn, 7, physics[7])
 
     # ---- phase 10: K1's other modes, K2's rect regeneration and
     # backside_miss, then the curved and the rect-source fields
@@ -493,6 +517,16 @@ def main(argv) -> None:
         l1, l2 = field_phase(dev, card, kb, kn, field)
         k1["launches"] += l1
         entry["launches"] += l2
+
+    # ---- phase 11: energy splitting, and the stage (d)/(e) kinds beside
+    # refraction and media ids: K2's new modes, the glazed config 7 on the
+    # megakernel, then the split stream on the general path
+    t11 = time.perf_counter()
+    k2 = bench_phase(dev, card, kb, kn, p_ref, PHASE11_K2_MODES, ("7g",))
+    entry["launches"] += k2["launches"]
+    entry["max_abs_err"] = max(entry["max_abs_err"], k2["max_abs_err"])
+    entry["launches"] += general_phase(dev, card, kb, kn, "6s", physics[6])
+    log(f"phase 11: {time.perf_counter() - t11:.1f} s")
     for k in record["kernels"]:
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
     print(json.dumps(record))
@@ -803,6 +837,19 @@ STAGE_C_MODES = (("lens, Fresnel roulette (config 6)", 6, 0.5, True),
                  ("media ids (config 8b)", "8b", 0.5, True),
                  ("lens in the HG medium", "lens_hg", 0.5, True),
                  ("absorbing media, no scattering", "slab_media", 0.5, True))
+# K2's modes of phase 11: energy splitting (on the general path's lanes:
+# no regeneration) and the stage (d)/(e) kinds beside refraction and media
+# ids (tests/test_torch_gpu.MIXED)
+PHASE11_K2_MODES = (
+    ("split lens, refr_split (split stream)", "6s", 0.0, False),
+    ("TIR lanes, refr_split, absorbing ambient", "split_tir", 0.0, False),
+    ("splitting cover over Cook-Torrance", "split_glazed_ct", 0.0, False),
+    ("glazed config 7: glass cover, Cook-Torrance", "7g", 0.5, True),
+    ("lens in the HG medium, Cook-Torrance floor", "lens_hg_ct", 0.5,
+     True),
+    ("absorbing slab beside a transparent sheet", "slab_transparent", 0.5,
+     True),
+    ("config 8b's box, Lambertian-specular floor", "box_ls", 0.5, True))
 STAGE_DE_MODES = (("Cook-Torrance (config 7)", 7, 0.5, True),
                   ("transparent, Lambertian-specular, semi-Lambertian",
                    "scatterers", 0.5, True),
@@ -833,8 +880,9 @@ CHOICE_OPS = 5                # a specular-or-diffuse choice
 def k2_bound(table, rows, kw, pos, dirs, energy, want, regen):
     """(ms, what sets it) of one K2 call on these inputs. Bytes: every
     lane's results written once (36 B, 4 B more for each of the
-    wavelength, index and medium id lanes it threads); a lane that carries
-    its ray in reads it once (28 B, 4 B more for each of those lanes), a
+    wavelength, index and medium id lanes it threads, 16 B more for the
+    reflected branch with refr_split); a lane that carries its ray in
+    reads it once (28 B, 4 B more for each of those lanes), a
     regenerated lane only its energy (4 B, and its wavelength when the
     source has no band to draw one); the rows, the spectral table and the
     media tables read once. Operations, as its data needs them: every row
@@ -854,7 +902,7 @@ def k2_bound(table, rows, kw, pos, dirs, energy, want, regen):
     n_regen = int(dead.sum()) if regen else 0
     n_traced = n - int(dead.sum()) + n_regen
     band = bool(kw["source_spec"][13]) if regen else False
-    nbytes = (n * (36 + 4 * n_lanes)
+    nbytes = (n * (36 + 4 * n_lanes + (16 if kw.get("refr_split") else 0))
               + (n - n_regen) * (28 + 4 * n_lanes)
               + n_regen * (4 + (4 if spectral and not band else 0))
               + 4 * rows.numel()
@@ -934,7 +982,8 @@ def bench_phase(dev, card, kb, kn, p_ref, modes, cfgs):
             got, want, k2_near(rows, tp, td, table.groups, F32_T_EPS,
                                kw["backside_miss"]), tp,
             td, live, att=medium_att(kw), max_flips=max_flips,
-            decisions=lanes["ref_index"] is not None)
+            decisions=lanes["ref_index"] is not None,
+            split=kw["refr_split"])
         hits = float((want[3][live] >= 0).float().mean())
         scat = float((want[3][live] == -2).float().mean())
         bnd = k2_bound(table, rows, kw, pos, dirs, e, want, regen)
@@ -964,7 +1013,7 @@ def bench_phase(dev, card, kb, kn, p_ref, modes, cfgs):
     for cfg in cfgs:
         table, meta, source_fn = bench_scene(cfg, n, dev)
         max_path = BENCH[cfg]["max_path"]
-        seed0 = {"8b": 9}.get(cfg, cfg)
+        seed0 = {"8b": 9, "7g": 17}.get(cfg, cfg)
 
         def run(seed, total=total):
             return trace_streaming(
@@ -1032,14 +1081,17 @@ def bench_phase(dev, card, kb, kn, p_ref, modes, cfgs):
                 physics = p[-1]
                 check(physics > {3: 0.0, 8: 0.1, "8b": 0.05}[cfg],
                       f"config {cfg}: medium share {physics}")
-            if cfg == 7:
-                physics = dome_fraction(meta, p)
-                check(physics > 0.4, f"config 7: dome fraction {physics}")
+            if cfg in (7, "7g"):
+                physics = surface_fraction(meta, p, "dome")
+                check(physics > 0.4, f"config {cfg}: dome fraction "
+                      f"{physics}")
         out["physics"][cfg] = (meta, p, em)
         shown = ", ".join(f"{nm} {x:.5f}" for nm, x in zip(
             [meta.names[int(r)] for r in meta.row_logical] + ["medium"], p))
         wall = statistics.median(walls)
-        what, tpu = TPU_PHYSICS.get(cfg, ("largest surface fraction", None))
+        what, tpu = TPU_PHYSICS.get(cfg, (
+            "dome fraction" if cfg == "7g" else "largest surface fraction",
+            None))
         log(f"config {cfg}: {em} rays emitted per call, {launches / 3:.0f} "
             f"rounds (K2 launches) per call, closure {closure:.2e}, {what} "
             f"{physics:.5f}" + (f" (TPU recorded {tpu})" if tpu else "")
@@ -1055,19 +1107,42 @@ def bench_phase(dev, card, kb, kn, p_ref, modes, cfgs):
     return out
 
 
-def dome_fraction(meta, p) -> float:
-    """Config 7's dome share of the source from per-row fractions ``p``."""
+def surface_fraction(meta, p, name) -> float:
+    """A logical surface's share of the source from per-row fractions
+    ``p``."""
     return sum(p[int(r)] for r in (
-        meta.row_logical == meta.index_of("dome")).nonzero()[0])
+        meta.row_logical == meta.index_of(name)).nonzero()[0])
 
 
-def general_phase(dev, card, kb, kn, mega):
-    """Config 7's source without its spec through trace_streaming's general
-    path at the suite's size: one untimed short trace, three timed (median,
-    every wall time and K2 launches per call). Guards: exact emission,
-    closure below 1e-4, the dome's share within 2% of the megakernel's
-    (``mega``: phase 9's (meta, fractions, emitted)) and within 3 combined
-    sigma of it. Returns K2's launches."""
+# the general path's runs: the surface its guard reads (against the
+# megakernel's share of the same scene, or for the split stream of the
+# roulette lens's), the seeds of its untimed, timed and profiled runs,
+# and the emission rounds of the profiled run (the split stream's full
+# call makes 150,000 device events, which the profiler takes over a
+# minute to sort)
+GENERAL_RUNS = {7: ("dome", 170, 71, 270, BENCH_ROUNDS),
+                "6s": ("rec", 160, 61, 260, BENCH_ROUNDS // 4)}
+
+
+def general_phase(dev, card, kb, kn, cfg, mega):
+    """Bench config ``cfg``'s source without its spec through
+    trace_streaming's general path at the suite's size: config 7 (the
+    suite's general-path cell) or "6s" (the split stream: the split lens,
+    one overflow slot per lane). One untimed short trace, three timed
+    (median, every wall time, rounds and K2 launches per call), one
+    profiled (a quarter call for the split stream). Guards: exact
+    emission, closure below 1e-4, K1 and K3 never
+    launched, the surface's share within 2% and 3 combined sigma of the
+    megakernel's (``mega``: that phase's (meta, fractions, emitted) of
+    config 7, or of config 6's roulette lens); for the split stream also
+    a residual below 1e-6 of the source and the receiver's share in
+    (0.75, 0.98). A split stream culls the branches that carry less than
+    min_energy (second reflections, R^2 of a ray's 4.5e-5 W), which the
+    roulette lens never does: the receiver may read lower than the
+    megakernel's by up to the culled share of the source besides the 3
+    sigma (tests/test_torch_split.py::
+    test_split_stream_culls_second_reflections shows it on the CPU).
+    Returns K2's launches."""
     import math
     import statistics
     import torch
@@ -1075,52 +1150,64 @@ def general_phase(dev, card, kb, kn, mega):
     from tracer_tpu_torch.models.bench_configs import (BENCH, bench_scene,
                                                        max_rounds,
                                                        without_spec)
+    name, seed_warm, seed_timed, seed_prof, prof_rounds = GENERAL_RUNS[cfg]
+    label = ("split stream (config 6s)" if cfg == "6s"
+             else f"config {cfg} general path")
     n = BENCH_SLAB
     total = BENCH_ROUNDS * n
-    table, meta, source_fn = bench_scene(7, n, dev)
+    table, meta, source_fn = bench_scene(cfg, n, dev)
     general = without_spec(source_fn)
 
     def run(seed, total=total):
         return trace_streaming(table, general,
                                torch.Generator().manual_seed(seed), total,
-                               max_rounds=max_rounds(7, BENCH_ROUNDS),
-                               max_path=BENCH[7]["max_path"])
-    run(170, 4 * n)                     # untimed: first-use costs
+                               max_rounds=max_rounds(cfg, BENCH_ROUNDS),
+                               max_path=BENCH[cfg]["max_path"])
+    run(seed_warm, 4 * n)               # untimed: first-use costs
     reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
                    kn.nearest_hit)
     walls, results = [], []
     for rep in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        results.append(run(71 + rep))
+        results.append(run(seed_timed + rep))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     launches = kb.bounce_reflect.launches
     check(kb.bounce_reflect_culled.launches == kn.nearest_hit.launches == 0,
-          "config 7 general path: K1 or K3 launched")
-    check(launches > 3 * BENCH_ROUNDS, f"config 7 general path: {launches} "
-          "K2 launches in 3 calls")
-    _, p_mega, em_mega = mega
-    d_mega = dome_fraction(meta, p_mega)
+          f"{label}: K1 or K3 launched")
+    check(launches > 3 * BENCH_ROUNDS, f"{label}: {launches} K2 launches in "
+          "3 calls")
+    meta_mega, p_mega, em_mega = mega
+    d_mega = surface_fraction(meta_mega, p_mega, name)
     for accum, emitted, source_e in results:
-        em = int(emitted)
-        check(em == total, f"config 7 general path: emitted {em}")
+        em, se = int(emitted), float(source_e)
+        check(em == total, f"{label}: emitted {em}")
         closure = energy_closure(accum, source_e)
-        check(abs(closure) < 1e-4, f"config 7 general path: closure "
-              f"{closure}")
-        p = list(accum.absorbed.double().cpu().numpy() / float(source_e))
-        d = dome_fraction(meta, p)
+        check(abs(closure) < 1e-4, f"{label}: closure {closure}")
+        p = list(accum.absorbed.double().cpu().numpy() / se)
+        d = surface_fraction(meta, p, name)
         sig = math.sqrt(d_mega * (1 - d_mega) * (1 / em + 1 / em_mega))
-        check(abs(d - d_mega) < 0.02 * d_mega and abs(d - d_mega) < 3 * sig,
-              f"config 7 general path: dome fraction {d} vs the "
-              f"megakernel's {d_mega} +- {sig}")
+        culled = float(accum.culled) / se if cfg == "6s" else 0.0
+        check(abs(d - d_mega) < 0.02 * d_mega
+              and d_mega - 3 * sig - culled < d < d_mega + 3 * sig,
+              f"{label}: {name} fraction {d} vs the megakernel's {d_mega} "
+              f"+- {sig} (culled {culled})")
+        if cfg == "6s":
+            residual = float(accum.residual) / se
+            check(residual < 1e-6, f"{label}: residual {residual}")
+            check(0.75 < d < 0.98, f"{label}: receiver fraction {d}")
     wall = statistics.median(walls)
-    log(f"config 7 general path: {total} rays emitted per call, "
-        f"{launches / 3:.0f} rounds (K2 launches) per call, closure "
-        f"{closure:.2e}, dome fraction {d:.5f} (megakernel {d_mega:.5f}); "
-        f"wall median {wall:.3f} s of {', '.join(f'{w:.3f}' for w in walls)}"
-        f", {total / wall / 1e6:.1f} Mrays/s ({card})")
-    profile_path("config 7 general path", lambda: run(270), "K2",
+    log(f"{label}: {total} rays emitted per call, {launches / 3:.0f} "
+        f"rounds, {launches / 3:.0f} K2 launches per call ({launches} in 3)"
+        f", closure {closure:.2e}, residual {float(accum.residual) / se:.2e}"
+        f", culled {float(accum.culled) / se:.5f}, {name} fraction {d:.5f} "
+        f"(megakernel {d_mega:.5f} +- {sig:.5f}); wall median "
+        f"{wall:.3f} s of {', '.join(f'{w:.3f}' for w in walls)}, "
+        f"{1e3 * wall / (launches / 3):.2f} ms a round, "
+        f"{total / wall / 1e6:.1f} Mrays/s ({card})")
+    profile_path(f"{label}, {prof_rounds * n} rays,",
+                 lambda: run(seed_prof, prof_rounds * n), "K2",
                  "bounce_kernel", card)
     return launches
 

@@ -13,8 +13,9 @@ block's barrier, so K1 (whose dead-lane rank is a ballot and a scan)
 runs too. What the emulation cannot show: the device compiler's own
 output, the timing of real warps, and speed. tests/test_torch_gpu.py and
 chip_smoke.py hold the built kernels against the same plain versions on
-the card. Two more builds with planted errors show that the comparisons
-reject a kernel that is slightly wrong: K2 with Snell's law 0.1% off, K1
+the card. Three more builds with planted errors show that the comparisons
+reject a kernel that is slightly wrong: K2 with Snell's law 0.1% off, K2
+with the split branch's energy taken before the medium's attenuation, K1
 (and the row code it shares) with the sign of a paraboloid's axial
 gradient flipped.
 """
@@ -30,11 +31,11 @@ import tracer_tpu_torch as ptt
 from tracer_tpu_torch.kernels import bounce as kb
 from tracer_tpu_torch.kernels import build
 from tracer_tpu_torch.kernels import nearest as kn
-from test_torch_gpu import (K1_MODES, K2_MODES, T_EPS, bench_lanes,
-                            bench_modes, fuzz_assembly, fuzz_rays, k1_call,
-                            k1_compare, k1_lanes, k1_live, k1_scene,
-                            k2_compare, k2_instance, k2_near, k2_scene,
-                            k3_compare, medium_att, traced_rays)
+from test_torch_gpu import (K1_MODES, K2_MODES, T_EPS, fuzz_assembly,
+                            fuzz_rays, k1_call, k1_compare, k1_lanes,
+                            k1_live, k1_scene, k2_compare, k2_instance,
+                            k2_mode, k2_near, k3_compare, medium_att,
+                            traced_rays)
 
 # the suite runs several test processes at once: one torch thread each
 # keeps them from oversubscribing the cores
@@ -124,6 +125,11 @@ def _emulable(source: str) -> str:
 # direction; the index the lane takes is right): k2_compare must reject it
 _PLANTED = ("const float inv_nr = 1.0f / nrat;",
             "const float inv_nr = 1.001f / nrat;")
+# a K2 whose split branch takes R of the energy before the medium's
+# attenuation: k2_compare must reject it on TIR lanes in an absorbing
+# ambient
+_PLANTED_SPLIT = ("o.s_e = o.split ? e_out * r_split : 0.0f;",
+                  "o.s_e = o.split ? in.e * r_split : 0.0f;")
 # the paraboloid's axial gradient with its sign flipped (rows.cuh): the
 # curved field's normals tilt the other way, which k1_compare must reject
 _PLANTED_GRADIENT = ("      glz = qd[8];", "      glz = -qd[8];")
@@ -171,14 +177,16 @@ def _load(proc, so):
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """The emulated kernels, K2 with _PLANTED and K1 with
-    _PLANTED_GRADIENT, built side by side."""
+    """The emulated kernels, K2 with _PLANTED, K1 with _PLANTED_GRADIENT
+    and K2 with _PLANTED_SPLIT, built side by side."""
     jobs = (_compile(tmp_path_factory.mktemp("emulated"),
                      ("bounce", "nearest")),
             _compile(tmp_path_factory.mktemp("planted"), ("bounce",),
                      _PLANTED),
             _compile(tmp_path_factory.mktemp("planted_gradient"),
-                     ("bounce",), _PLANTED_GRADIENT))
+                     ("bounce",), _PLANTED_GRADIENT),
+            _compile(tmp_path_factory.mktemp("planted_split"), ("bounce",),
+                     _PLANTED_SPLIT))
     return tuple(_load(*job) for job in jobs)
 
 
@@ -198,12 +206,8 @@ def _k2(lib, rows, seed, pos, dirs, energy, groups, **kw):
 def _k2_mode(lib, mode):
     """K2 through ``lib`` against its plain version in K2_MODES[mode] on
     two tiles: (k2_compare's results, kw, got, want, live)."""
-    scene, dead, regen = K2_MODES[mode]
     n = 2 * kb.TILE
-    table, spec = k2_scene(scene, n, "cpu")
-    pos, dirs, e, lanes = bench_lanes(table, spec, n, dead, 3, "cpu")
-    rows = kb.pack_rows(table)
-    kw = dict(regen=regen, **lanes, **bench_modes(table, spec))
+    table, spec, rows, pos, dirs, e, kw, regen = k2_mode(mode, n, 3, "cpu")
     got = _k2(lib, rows, 17, pos, dirs, e, table.groups, **kw)
     want = kb.bounce_reflect_ref(rows, 17, pos, dirs, e, table.groups,
                                  T_EPS, **kw)
@@ -212,7 +216,8 @@ def _k2_mode(lib, mode):
     res = k2_compare(got, want, k2_near(rows, tp, td, table.groups,
                                         backside_miss=kw["backside_miss"]),
                      tp, td, live, att=medium_att(kw),
-                     decisions=lanes["ref_index"] is not None)
+                     decisions=kw["ref_index"] is not None,
+                     split=kw["refr_split"])
     return res, kw, got, want, live
 
 
@@ -226,23 +231,45 @@ def test_k2_source_matches_plain(lib, mode):
     (d)/(e) kinds: config 7's Cook-Torrance target, the transparent,
     Lambertian-specular and semi-Lambertian scene, a dispersive conductor,
     IAM with c = 2, a bilinear piecewise grid, a periodic cell in its HG
-    medium) on two tiles: no flips, every lane within k2_compare's
-    tolerance, and no ties but on the lens's seam (its 2 cm centre is
-    thinner than the sag of two 0.3 m caps at r = 0.077 m, so lanes there
-    meet both rows at one point)."""
+    medium; energy splitting on the split lens and on TIR lanes in an
+    absorbing ambient; the stage (d)/(e) kinds beside refraction and
+    media ids: the glazed config 7, the lens in an HG medium over a
+    Cook-Torrance floor, an absorbing slab beside a transparent sheet,
+    config 8b's box with a Lambertian-specular floor; and the
+    backside_miss twin of every instance) on two tiles: no flips, every
+    lane within k2_compare's tolerance, and no ties but on the lens's
+    seam (its 2 cm centre is thinner than the sag of two 0.3 m caps at r
+    = 0.077 m, so lanes there meet both rows at one point)."""
     (_, flips, _), kw, got, want, live = _k2_mode(lib, mode)
     assert flips == 0
     # the rect source covers the whole field, whose mirrors take a sixth
-    # of its rays
-    share = 0.1 if mode == "rect_regen" else 0.5
+    # of its rays; the HG medium scatters most of the lens's beam in the
+    # air before the floor
+    share = {"rect_regen": 0.1}.get(mode, 0.5)
     assert (want[3][live] != -1).float().mean() > share
-    refr, scat, media, _, _ = k2_instance(kw)
+    refr, scat, media = k2_instance(kw)[:3]
     if scat:
         assert (want[3][live] == -2).float().mean() > 0.05
     if refr:
         # lanes cross refractive rows: their index or their medium changes
         assert (got[5] != kw["ref_index"]).any() or (
             media and (got[6] != kw["medium_id"]).any())
+    if kw["refr_split"]:
+        # lanes split, and on the TIR lanes all of the energy leaves on
+        # the reflected branch
+        s_e = want[-2]
+        assert (s_e[live] > 0.0).float().mean() > 0.3
+        if mode == "split_tir":
+            assert ((want[2] == 0.0) & (s_e > 0.0)).sum() > 500
+
+
+def test_k2_compare_rejects_planted_split_energy(libs):
+    """TIR lanes in an absorbing ambient through a K2 whose split branch
+    takes R of the energy before the medium's attenuation
+    (_PLANTED_SPLIT) fail k2_compare: the branch carries e where the plain
+    version's carries e exp(-att t)."""
+    with pytest.raises(AssertionError):
+        _k2_mode(libs[3], "split_tir")
 
 
 def test_k2_compare_rejects_planted_snell(libs):

@@ -9,8 +9,9 @@ tracer_tpu on the CPU:
   path;
 * the fused branch's record (t 0 on hits, no local point or normal) and
   its gate, tracer_tpu's _iam_mode, _where_ray_fields, the residual of a
-  trace cut by max_rounds, and the refusals left (energy splitting, mixed
-  IAM exponents; scenes the unfused bounce does not shade).
+  trace cut by max_rounds, and the refusals left (mixed IAM exponents;
+  scenes the unfused bounce does not shade); energy splitting now
+  streams (tests/test_torch_split.py).
 """
 import jax
 import jax.numpy as jnp
@@ -174,9 +175,10 @@ def test_where_ray_fields_moves_every_state_field():
 
 
 def test_streaming_refusals_left():
-    """Energy splitting and mixed IAM exponents (ROADMAP A10) raise on
-    every streaming path; a spec-less source over a volumetric scene
-    raises on the general path's unfused bounce (A9)."""
+    """Mixed IAM exponents (ROADMAP A10) raise on every streaming path;
+    energy splitting traces on both sources (the general path); a
+    spec-less source over a volumetric scene raises on the general path's
+    unfused bounce (A9)."""
     _, _, source_fn = bench_scene(7, SLAB, "cpu")
     G, M = ptt.geometry, ptt.materials
 
@@ -184,14 +186,16 @@ def test_streaming_refusals_left():
         return ptt.compile_scene(ptt.Assembly([ptt.AssembledObject([
             ptt.Surface(G.round_plate(0.5), o, location=[0, 0, i])
             for i, o in enumerate(optics)])]), device="cpu")[0]
-    cases = (("A10", scene(M.refractive_homogenous(1.0, 1.5,
-                                                   single_ray=False))),
-             ("A10", scene(M.iam(M.reflective(0.1), 1.0, c=1.0),
-                           M.iam(M.reflective(0.1), 1.0, c=2.0))))
-    for item, table in cases:
-        for src in (source_fn, without_spec(source_fn)):
-            with pytest.raises(NotImplementedError, match=item):
-                trace_streaming(table, src, torch.Generator(), TOTAL)
+    mixed = scene(M.iam(M.reflective(0.1), 1.0, c=1.0),
+                  M.iam(M.reflective(0.1), 1.0, c=2.0))
+    split = scene(M.refractive_homogenous(1.0, 1.5, single_ray=False))
+    for src in (source_fn, without_spec(source_fn)):
+        with pytest.raises(NotImplementedError, match="A10"):
+            trace_streaming(mixed, src, torch.Generator(), TOTAL)
+        acc, em, se = trace_streaming(split, src, torch.Generator(), SLAB,
+                                      max_rounds=20, max_path=4)
+        assert int(em) == SLAB
+        assert abs(energy_closure(acc, se)) < 1e-5
     box = scene(M.scattering_interface(0.3), M.reflective(0.2))
     with pytest.raises(NotImplementedError, match="A9"):
         trace_streaming(box, without_spec(source_fn), torch.Generator(),

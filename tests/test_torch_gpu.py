@@ -172,8 +172,9 @@ def wavelength_lane(table) -> bool:
 def bench_modes(table, spec):
     """K2's keyword arguments for a bench scene's trace (its static modes,
     the spectral table, the source's ambient medium, the media pair, the
-    bifacial rows' test and the stage (d)/(e) switches; no pose: the
-    wrappers take the spec's own)."""
+    bifacial rows' test, energy splitting where the scene has F_SPLIT
+    interfaces and the stage (d)/(e) switches; no pose: the wrappers take
+    the spec's own)."""
     feats = set(table.features)
     refr = ptt.materials.K_REFRACTIVE in table.kinds_present
     extra = ptt.engine._k2_extra(table)
@@ -188,6 +189,7 @@ def bench_modes(table, spec):
                 ambient_scat=scat, ambient_g=g,
                 refr_frost=refr and "refractive_slope" in feats,
                 refr_disp=refr and "dispersive" in feats,
+                refr_split=refr and "split" in feats,
                 media=ptt.engine._media_for(table, spec),
                 backside_miss="bifacial" in feats, **extra)
 
@@ -264,9 +266,10 @@ def k2_near(rows, pos, dirs, groups, t_eps: float = T_EPS,
 
 
 def k2_compare(got, want, near, pos, dirs, live, att=0.0, rtol=1e-5,
-               max_flips=0, decisions=False):
+               max_flips=0, decisions=False, split=False):
     """K2 results (pos, dir, energy, sid, absorbed[, wavelength][, index]
-    [, medium id]) against another version's on the ``live`` lanes
+    [, medium id][, s_e, s_dir]) against another version's on the ``live``
+    lanes
     (``pos``/``dirs`` the rays each traced after regeneration,
     traced_rays; ``near`` their k2_near). Ties (best and second-best t
     within 1e-5 of the scale) may pick either row; at most ``max_flips``
@@ -287,8 +290,11 @@ def k2_compare(got, want, near, pos, dirs, live, att=0.0, rtol=1e-5,
     attenuation ``att``, the other lanes within 1e-6 relative (FMA
     contraction). On a refractive winner cos is the smaller of the
     incident and the outgoing direction's against its normal (Snell's
-    conditioning); elsewhere it comes from the turned direction. Returns
-    (ties, flips, max abs error)."""
+    conditioning); elsewhere it comes from the turned direction. With
+    ``split`` (refr_split's outputs last) the reflected branch's energy
+    is held like the energies, the lanes that split must be the same, and
+    on them its direction within 10 rtol / cos^2 of the reflection (cos
+    from the reflected turn). Returns (ties, flips, max abs error)."""
     t1, t2, normal, kind = near
     scale = 1.0 + pos.abs().amax(dim=1)
     tie = live & ((t2 - t1) <= 1e-5 * (scale + t1))
@@ -320,8 +326,9 @@ def k2_compare(got, want, near, pos, dirs, live, att=0.0, rtol=1e-5,
     # angle, whose rounding grows as 1 / sin near the travel direction
     sin_sc = torch.sqrt((1.0 - (dirs * want[1]).sum(1) ** 2).clamp(min=0.0))
     c_dir = torch.where(want[3] == -2, sin_sc.clamp(min=1e-4), cos2)
+    n_out = len(got) - (2 if split else 0)
     lane_bad = torch.zeros_like(ok)
-    for k in range(5, len(got)):
+    for k in range(5, n_out):
         lane_bad |= (got[k] - want[k]).abs() > 1e-6 * want[k].abs()
     if decisions:
         # one version reflected, the other crossed: the index (or, at an
@@ -332,13 +339,25 @@ def k2_compare(got, want, near, pos, dirs, live, att=0.0, rtol=1e-5,
     assert flips <= max_flips, (flips, torch.nonzero(live & ~same & ~tie)[:5])
     assert (d_pos[moved] <= rtol * base[moved]).all(), "pos"
     assert (d_dir[ok] <= 10 * rtol / c_dir[ok]).all(), "dir"
-    for k, name in ((2, "energy"), (4, "absorbed")):
+    energies = ((2, "energy"), (4, "absorbed"))
+    if split:
+        energies += ((n_out, "s_e"),)
+        sp = ok & (want[n_out] > 0.0)
+        assert torch.equal(sp, ok & (got[n_out] > 0.0)), "split lanes"
+        r_turn = want[n_out + 1] - dirs
+        cos2_r = ((dirs * r_turn).sum(1) ** 2
+                  / (r_turn * r_turn).sum(1).clamp(min=1e-30)).clamp(
+                      min=1e-4)
+        d_sdir = (got[n_out + 1] - want[n_out + 1]).abs().amax(dim=1)
+        assert (d_sdir[sp] <= 10 * rtol / cos2_r[sp]).all(), "s_dir"
+        assert (got[n_out + 1][ok & ~sp] == 0.0).all(), "s_dir off splits"
+    for k, name in energies:
         g, w = got[k][ok], want[k][ok]
         tol = (10 * rtol + att * rtol * base[ok]) * w.abs()
         assert ((g - w).abs() <= tol).all(), name
     assert not lane_bad[ok if decisions else live].any(), "wl, ri or mid"
     big = [float((got[k][ok] - want[k][ok]).abs().max()) if ok.any() else 0.0
-           for k in (0, 1, 2, 4)]
+           for k, _ in ((0, ""), (1, "")) + energies]
     return int(tie.sum()), flips, max(big)
 
 
@@ -862,10 +881,90 @@ def stage_de_spec(name, n: int):
         ambient_scat=scat, ambient_g=g)
 
 
+# scenes with refraction or media ids beside the stage (d)/(e) kinds, and
+# TIR lanes on energy-splitting interfaces (mixed_assembly), with their
+# sources: centre, direction, radius, pillbox half-angle, ambient
+# attenuation [1/m], HG scattering [1/m] and asymmetry
+MIXED = {
+    "split_tir": ([0.0, 0.0, 1.0], [0.0, 0.0, -1.0], 0.3, 0.05,
+                  (0.5, 0.0, 0.0)),
+    "lens_hg_ct": (BENCH[6]["center"], BENCH[6]["direction"],
+                   BENCH[6]["radius"], BENCH[6]["ang_range"],
+                   (BENCH[8]["att"], BENCH[8]["scat"], BENCH[8]["g"])),
+    "slab_transparent": ([0.0, 0.0, 1.2], [0.0, 0.0, -1.0], 0.3, 0.3,
+                         (0.0, 0.0, 0.0)),
+    "box_ls": (BENCH["8b"]["center"], BENCH["8b"]["direction"],
+               BENCH["8b"]["radius"], BENCH["8b"]["ang_range"],
+               (0.0, 0.0, 0.0)),
+    "split_glazed_ct": (BENCH[7]["center"], BENCH[7]["direction"],
+                        BENCH[7]["radius"], BENCH[7]["ang_range"],
+                        (0.0, 0.0, 0.0))}
+
+
+def mixed_assembly(pkg, name):
+    """The assembly of MIXED scene ``name``, built with ``pkg``:
+    "split_tir" a glass block of energy-splitting faces, a horizontal top
+    (n 1 | 1.5) over a face tilted 50 degrees (beyond the critical angle
+    for the beam inside, which reflects totally there); "lens_hg_ct"
+    config 6's lens and receiver over a 2 x 2 m Cook-Torrance floor (lit
+    by the rays config 8's HG medium scatters past the receiver);
+    "slab_transparent" an absorbing slab between two index-matched
+    absorbant_interface discs over an absorber, beside a transparent
+    sheet over half of it; "box_ls" config 8b's box with a
+    Lambertian-specular floor (absorptivity 0.3, specularity 0.5, slope
+    error 2 mrad); "split_glazed_ct" the glazed config 7 ("7g") with an
+    energy-splitting cover."""
+    G, M, sp, sc = pkg.geometry, pkg.materials, pkg.spatial, pkg.scene
+    if name == "split_tir":
+        return sc.Assembly([sc.AssembledObject([
+            sc.Surface(G.rect_plate(1.2, 1.2),
+                       M.refractive_homogenous(1.0, 1.5, single_ray=False),
+                       name="top"),
+            sc.Surface(G.rect_plate(1.2, 1.2),
+                       M.refractive_homogenous(1.5, 1.0, single_ray=False),
+                       location=[0.0, 0.0, -0.6],
+                       rotation=sp.rotx(np.radians(50.0))[:3, :3],
+                       name="tilted")])])
+    if name == "lens_hg_ct":
+        asm, _ = bench_assembly(pkg, 6)
+        asm.objects[-1].add_surface(sc.Surface(
+            G.rect_plate(2.0, 2.0), M.bdrf_cook_torrance(0.3, 1.2, 7.0, 0.9),
+            location=[0.0, 0.0, -1.0], name="floor"))
+        return asm
+    if name == "split_glazed_ct":
+        asm, _ = bench_assembly(pkg, "7g")
+        asm.objects[0].surfaces[-1].optics = M.refractive_homogenous(
+            1.0, 1.5, single_ray=False)
+        return asm
+    if name == "box_ls":
+        asm, _ = bench_assembly(pkg, "8b")
+        asm.objects[0].surfaces[0].optics = M.lambertian_specular(0.3, 0.5,
+                                                                  2e-3)
+        return asm
+    surfs = [sc.Surface(G.round_plate(1.0), M.absorbant_interface(1.5),
+                        location=[0.0, 0.0, z], name=name)
+             for z, name in ((0.6, "b1"), (0.2, "b2"))]
+    surfs += [sc.Surface(G.round_plate(1.0), M.absorber(one_sided=False),
+                         name="plate"),
+              sc.Surface(G.rect_plate(1.0, 2.0), M.transparent(),
+                         location=[0.5, 0.0, 0.9], name="sheet")]
+    return sc.Assembly([sc.AssembledObject(surfs)])
+
+
+def mixed_spec(pkg, name, n: int):
+    """The pallas spec of MIXED scene ``name``'s source at ``n`` lanes,
+    built with ``pkg``."""
+    c, d, r, ang, (att, scat, g) = MIXED[name]
+    return pkg.sources.disk_pillbox_pallas_spec(
+        n, c, d, r, ang, BENCH_FLUX, ambient_att=att, ambient_scat=scat,
+        ambient_g=g)
+
+
 def k2_scene(scene, n: int, device):
     """(table, spec) of a K2 mode's scene: a bench configuration, a stage
-    (d)/(e) scene (STAGE_DE), or one of those that reach K2's other
-    instances and modes through trace_streaming: "lens_hg", config 6's
+    (d)/(e) scene (STAGE_DE), a MIXED scene, or one of those that reach
+    K2's other instances and modes through trace_streaming: "lens_hg",
+    config 6's
     lens in config 8's ambient HG medium (refraction and scattering),
     "slab_media", an absorbing slab between two index-matched
     absorbant_interface discs over an absorber (media ids without
@@ -882,6 +981,10 @@ def k2_scene(scene, n: int, device):
     if scene == "rect_nsttf":
         table, _, info = nsttf.build_scene(device=device)
         return table, nsttf.make_rect_source_fn(info, n).pallas_spec
+    if scene in MIXED:
+        table, _ = ptt.compile_scene(mixed_assembly(ptt, scene),
+                                     device=device)
+        return table, mixed_spec(ptt, scene, n)
     if scene == "bifacial":
         table, _ = ptt.compile_scene(bifacial_assembly(ptt), device=device)
         return table, ptt.sources.disk_pillbox_pallas_spec(
@@ -922,21 +1025,49 @@ def bifacial_assembly(pkg):
                    rotation=sp.rotx(np.pi - 0.2)[:3, :3], name="upper")])])
 
 
-# K2's modes, one or more for each of its eight instances <kRefr, kScat,
-# kMedia, kExtra>: (scene of k2_scene, dead share, regen)
-K2_MODES = {"regen": (1, 0.5, True), "minidish": (1, 0.0, False),
-            "lambertian": (2, 0.5, True), "spectral": (3, 0.5, True),
-            "lens": (6, 0.5, True), "ambient_hg": (8, 0.5, True),
-            "media": ("8b", 0.5, True), "lens_hg": ("lens_hg", 0.5, True),
-            "slab_media": ("slab_media", 0.5, True),
-            "cook_torrance": (7, 0.5, True),
-            "scatterers": ("scatterers", 0.5, True),
-            "conductor": ("conductor", 0.5, True),
-            "iam_c2": ("iam_c2", 0.5, True),
-            "piecewise_2d": ("piecewise_2d", 0.5, True),
-            "periodic_hg": ("periodic_hg", 0.5, True),
-            "rect_regen": ("rect_nsttf", 0.5, True),
-            "bifacial": ("bifacial", 0.5, True)}
+# K2's modes, one or more for each of its twelve instances <kRefr, kScat,
+# kMedia, kExtra>, with backside_miss off and on: (scene of k2_scene,
+# dead share, regen, backside_miss forced on). Forcing the switch on a
+# scene without bifacial rows runs the instance whose row loop tests it
+# (no row rejects a ray there; the bifacial mode shows the rejection)
+K2_MODES = {"regen": (1, 0.5, True, False), "minidish": (1, 0.0, False, False),
+            "lambertian": (2, 0.5, True, False),
+            "spectral": (3, 0.5, True, False),
+            "lens": (6, 0.5, True, False), "ambient_hg": (8, 0.5, True, False),
+            "media": ("8b", 0.5, True, False),
+            "lens_hg": ("lens_hg", 0.5, True, False),
+            "slab_media": ("slab_media", 0.5, True, False),
+            "cook_torrance": (7, 0.5, True, False),
+            "scatterers": ("scatterers", 0.5, True, False),
+            "conductor": ("conductor", 0.5, True, False),
+            "iam_c2": ("iam_c2", 0.5, True, False),
+            "piecewise_2d": ("piecewise_2d", 0.5, True, False),
+            "periodic_hg": ("periodic_hg", 0.5, True, False),
+            "rect_regen": ("rect_nsttf", 0.5, True, False),
+            "bifacial": ("bifacial", 0.5, True, False),
+            "split_lens": ("6s", 0.0, False, False),
+            "split_tir": ("split_tir", 0.0, False, False),
+            "split_glazed_ct": ("split_glazed_ct", 0.0, False, False),
+            "glazed_ct": ("7g", 0.5, True, False),
+            "lens_hg_ct": ("lens_hg_ct", 0.5, True, False),
+            "slab_transparent": ("slab_transparent", 0.5, True, False),
+            "box_ls": ("box_ls", 0.5, True, False)}
+K2_MODES.update({f"{m}_bmiss": K2_MODES[m][:3] + (True,) for m in (
+    "ambient_hg", "lens", "lens_hg", "slab_media", "media", "cook_torrance",
+    "periodic_hg", "glazed_ct", "lens_hg_ct", "slab_transparent",
+    "box_ls", "split_lens", "split_glazed_ct")})
+
+
+def k2_mode(mode, n: int, seed: int, device):
+    """The inputs of K2 mode ``mode`` at ``n`` lanes (bench_lanes with
+    ``seed``): (table, spec, rows, pos, dirs, energy, kw, regen), ``kw``
+    the call's keywords."""
+    scene, dead, regen, bmiss = K2_MODES[mode]
+    table, spec = k2_scene(scene, n, device)
+    pos, dirs, e, lanes = bench_lanes(table, spec, n, dead, seed, device)
+    kw = dict(regen=regen, **lanes, **bench_modes(table, spec))
+    kw["backside_miss"] |= bmiss
+    return table, spec, kb.pack_rows(table), pos, dirs, e, kw, regen
 
 
 @pytest.mark.cuda
@@ -948,16 +1079,16 @@ def test_k2_modes_match_plain_on_gpu(cuda_device, mode):
     absorber and bivariate slope error, config 3's spectral mirror in an
     attenuating medium, config 6's lens (Fresnel roulette), config 8's
     ambient HG medium, 8b's media ids, the lens in that HG medium and
-    absorbing media without scattering (k2_compare: edge flips and
-    roulette flips at most 1e-5 of the lanes, ties too but on the lens's
-    seam); one launch per call."""
+    absorbing media without scattering, the stage (d)/(e) kinds, rect
+    regeneration, bifacial rows, energy splitting (the split lens, TIR
+    lanes, a splitting cover), the stage (d)/(e) kinds beside refraction
+    and media ids (MIXED), and every instance's backside_miss twin
+    (k2_compare: edge flips and roulette flips at most 1e-5 of the lanes,
+    ties too but on the lens's seam; the split branch's energy and
+    direction); one launch per call."""
     dev = cuda_device
-    cfg, dead, regen = K2_MODES[mode]
     n = 64 * kb.TILE
-    table, spec = k2_scene(cfg, n, dev)
-    pos, dirs, e, lanes = bench_lanes(table, spec, n, dead, 3, dev)
-    rows = kb.pack_rows(table)
-    kw = dict(regen=regen, **lanes, **bench_modes(table, spec))
+    table, spec, rows, pos, dirs, e, kw, regen = k2_mode(mode, n, 3, dev)
     n0 = kb.bounce_reflect.launches
     got = kb.bounce_reflect(rows, 17, pos, dirs, e, table.groups, T_EPS,
                             **kw)
@@ -970,42 +1101,55 @@ def test_k2_modes_match_plain_on_gpu(cuda_device, mode):
     k2_compare(got, want, k2_near(rows, tp, td, table.groups,
                                   backside_miss=kw["backside_miss"]),
                tp, td, live, att=medium_att(kw), max_flips=int(1e-5 * n) + 1,
-               decisions=lanes["ref_index"] is not None)
+               decisions=kw["ref_index"] is not None,
+               split=kw["refr_split"])
     assert (want[3][live] != -1).float().mean() > 0.1
 
 
 def k2_instance(kw):
-    """The template instance <kRefr, kScat, kMedia, kExtra, kBmiss> K2's
-    call ``kw`` runs (tt_bounce's dispatch in csrc/bounce.cu)."""
+    """The template instance <kRefr, kScat, kMedia, kExtra, kBmiss,
+    kSplit> K2's call ``kw`` runs (tt_bounce's dispatch in
+    csrc/bounce.cu)."""
     scat = (kb.media_flags(kw["media"])[1] if kw["media"] is not None
             else kw["ambient_scat"] > 0.0)
     return (kw["ref_index"] is not None, scat, kw["media"] is not None,
-            any(kw.get(k) for k in kb.EXTRA_MODES), kw["backside_miss"])
+            any(kw.get(k) for k in kb.EXTRA_MODES), kw["backside_miss"],
+            bool(kw.get("refr_split")))
 
 
 def test_k2_modes_cover_every_instance():
-    """K2_MODES runs each of K2's eight template instances without
-    backside_miss and the base one with it (the bifacial plates; the
-    other seven differ from theirs by that one test), so the emulated
-    and on-card comparisons hold every one against the plain version;
-    and the rect regeneration, a runtime switch of the base instance."""
-    seen = set()
-    for scene, _, _ in K2_MODES.values():
+    """K2_MODES runs each of K2's 28 template instances (twelve
+    <kRefr, kScat, kMedia, kExtra> and the two splitting ones, kSplit
+    beside refraction without scattering or media ids, each without and
+    with backside_miss), so the emulated and on-card comparisons hold
+    every one against the plain version: splitting on the split lens, on
+    TIR lanes and on the glazed config 7's splitting cover; and the rect
+    regeneration, a runtime switch of the base instance."""
+    seen, split = set(), set()
+    for scene, _, _, bmiss in K2_MODES.values():
         table, spec = k2_scene(scene, kb.TILE, "cpu")
         refr = ptt.materials.K_REFRACTIVE in table.kinds_present
         kw = dict(bench_modes(table, spec),
                   ref_index=torch.ones(1) if refr else None)
+        kw["backside_miss"] |= bmiss
         seen.add(k2_instance(kw))
+        if kw["refr_split"]:
+            split.add(scene)
     base = {(False, False, False, False), (False, True, False, False),
             (True, False, False, False), (True, True, False, False),
             (True, False, True, False), (True, True, True, False),
-            (False, False, False, True), (False, True, False, True)}
-    assert seen == {k + (False,) for k in base} | {
-        (False, False, False, False, True)}
+            (False, False, False, True), (False, True, False, True),
+            (True, False, False, True), (True, True, False, True),
+            (True, False, True, True), (True, True, True, True)}
+    splitting = {(True, False, False, False), (True, False, False, True)}
+    assert seen == {k + (b, s) for b in (False, True)
+                    for k, s in [(k, False) for k in base]
+                    + [(k, True) for k in splitting]}
+    assert split == {"6s", "split_tir", "split_glazed_ct"}
     table, spec = k2_scene(K2_MODES["rect_regen"][0], kb.TILE, "cpu")
     assert kb.source_params(spec)[kb.SP_RECT] == 1.0
     assert k2_instance(dict(bench_modes(table, spec), ref_index=None)) == (
-        False, False, False, False, False)
+        False, False, False, False, False, False)
 
 
 @pytest.mark.cuda
@@ -1043,3 +1187,28 @@ def test_general_path_trace_closes_on_gpu(cuda_device):
     assert float(accum.absorbed.cpu()[dome].sum()) / float(source_e) > 0.4
     assert kb.bounce_reflect.launches > n2 + 4
     assert kn.nearest_hit.launches == n3
+
+
+@pytest.mark.cuda
+def test_split_stream_closes_on_gpu(cuda_device):
+    """Config 6's lens with energy-splitting interfaces streams on the
+    general path on the card: it emits exactly its budget, closes its
+    energy balance to 1e-5 with a residual below 1e-6 of the source, puts
+    0.75-0.98 of the source on the receiver and runs K2 (refr_split; no
+    K1 or K3) once per round."""
+    slab = 8 * kb.TILE
+    table, meta, source_fn = bench_scene("6s", slab, cuda_device)
+    n1, n2, n3 = (kb.bounce_reflect_culled.launches,
+                  kb.bounce_reflect.launches, kn.nearest_hit.launches)
+    accum, emitted, source_e = trace_streaming(
+        table, without_spec(source_fn), torch.Generator().manual_seed(0),
+        4 * slab, max_rounds=8 * 4 + 80, max_path=20)
+    assert int(emitted) == 4 * slab
+    assert abs(energy_closure(accum, source_e)) < 1e-5
+    assert float(accum.residual) < 1e-6 * float(source_e)
+    rec = torch.as_tensor(meta.row_logical == meta.index_of("rec"))
+    frac = float(accum.absorbed.cpu()[rec].sum()) / float(source_e)
+    assert 0.75 < frac < 0.98
+    assert kb.bounce_reflect.launches > n2 + 4
+    assert (kb.bounce_reflect_culled.launches, kn.nearest_hit.launches) \
+        == (n1, n3)

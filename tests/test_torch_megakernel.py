@@ -294,11 +294,12 @@ def test_trace_streaming_matches_jax(cfg):
 
 
 def test_unported_streaming_modes_raise():
-    """Energy-splitting refraction (in the trace and in K2), mixed IAM
-    exponents, the aureole parking of tracer_tpu's mesh builds and
-    float64 traces raise naming their ROADMAP items; a cullable scene
-    traces culled, single-ray refraction, the spec's HG medium and the
-    stage (d) kinds trace on the plain megakernel."""
+    """Mixed IAM exponents, the aureole parking of tracer_tpu's mesh
+    builds and float64 traces raise naming their ROADMAP items; K2's
+    refr_split needs ref_index (ValueError, as tracer_tpu asserts); a
+    cullable scene traces culled, an energy-splitting scene on the
+    general path, single-ray refraction, the spec's HG medium and the
+    stage (d) kinds on the plain megakernel."""
     table, meta, source_fn = bench_scene(2, SLAB, "cpu")
     G, M = ptt.geometry, ptt.materials
 
@@ -308,10 +309,12 @@ def test_unported_streaming_modes_raise():
             ptt.Assembly([ptt.AssembledObject([plate])]), dtype=dtype,
             device="cpu")[0]
     split = scene(M.refractive_homogenous(1.0, 1.5, single_ray=False))
-    with pytest.raises(NotImplementedError, match="A10"):
-        trace_streaming(split, source_fn, torch.Generator(), TOTAL)
+    acc, emitted, se = trace_streaming(split, source_fn, torch.Generator(),
+                                       SLAB, max_rounds=8, max_path=4)
+    assert int(emitted) == SLAB
+    assert abs(energy_closure(acc, se)) < 1e-5
     z = torch.zeros((4, 3))
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(ValueError, match="ref_index"):
         kb.bounce_reflect(kb.pack_rows(split), 1, z, z, torch.ones(4),
                           split.groups, T_EPS, refr_split=True)
     mixed = ptt.compile_scene(ptt.Assembly([ptt.AssembledObject([

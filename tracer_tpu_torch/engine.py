@@ -20,9 +20,11 @@
     tests every row, with a per-lane refractive index and medium id where
     the scene's refractive rows need them; the emission loop stops once
     ``total_rays`` are emitted and a compacted tail drains the survivors;
-  - for any other source, the general path: every round the source draws
-    a slab whose rays refill the free lanes, around one fused K2 bounce
-    (_bounce_step's fused branch).
+  - for any other source, and for scenes with energy-splitting
+    interfaces, the general path: every round the source draws a slab
+    whose rays refill the free lanes, around one fused K2 bounce
+    (_bounce_step's fused branch); in a splitting scene each lane's
+    reflected branch waits in its overflow slot until the lane is free.
 * :meth:`TracerEngine.ray_tracer` -- the host-stepped bounce loop with
   per-bounce records, stopping when the bundle dies.
 * :func:`trace_fused` -- the same bounce without records, accumulators and
@@ -450,7 +452,8 @@ _K2_KINDS = {_M.K_REFLECT, _M.K_LAMBERTIAN, _M.K_REFLECT_SPECTRAL,
              _M.K_SEMI_LAMBERTIAN, _M.K_TRANSPARENT, _M.K_FRESNEL_CONDUCTOR,
              _M.K_PERIODIC, _M.K_LAMBERTIAN_PIECEWISE}
 # kinds of _bounce_step's fused branch (tracer_tpu/engine.py:261-274;
-# refractive rows join without volumetric media, dispersion or splitting)
+# refractive rows join without volumetric media or dispersion, and in a
+# splitting scene only under split_mode)
 _FUSED_KINDS = _K2_KINDS - {_M.K_REFLECT_SPECTRAL, _M.K_REFRACTIVE}
 # kinds the culled trace takes (tracer_tpu/engine.py:1781-1786): the
 # specular corridor analysis covers mirrors whose reflection keeps its
@@ -459,7 +462,7 @@ _FUSED_KINDS = _K2_KINDS - {_M.K_REFLECT_SPECTRAL, _M.K_REFRACTIVE}
 _CULLED_KINDS = {_M.K_REFLECT, _M.K_LAMBERTIAN, _M.K_REFLECT_SPECTRAL,
                  _M.K_FRESNEL_CONDUCTOR}
 # scene features no streaming path of the port serves yet
-_FEATURES_LATER = {"split": "A10", "iam_nonmirror": "A10"}
+_FEATURES_LATER = {"iam_nonmirror": "A10"}
 
 
 def _iam_mode(scene):
@@ -548,10 +551,11 @@ def _spec_medium(spec):
 
 def _media_for(scene, spec):
     """The media pair when the scene's refractive rows bound volumetric
-    media (tracer_tpu/engine.py:1607; energy-splitting scenes are refused
-    before), else None."""
+    media (tracer_tpu/engine.py:1607), else None: energy-splitting scenes
+    stay on the general path."""
     if (_M.K_REFRACTIVE not in scene.kinds_present
-            or "volumetric" not in scene.features):
+            or "volumetric" not in scene.features
+            or "split" in scene.features):
         return None
     return _bake_media(scene, *_spec_medium(spec))
 
@@ -639,15 +643,19 @@ def trace_streaming(scene: SceneTable, source_fn, generator: torch.Generator,
     * a bakeable disk spec and rows of K2's kinds (_K2_KINDS; spectral,
       dispersive, dispersive-conductor and bilinear piecewise rows need
       the spec's band, volumetric scenes an ambient medium or media bound
-      by refractive rows): the plain megakernel, K2 with in-kernel
-      regeneration;
+      by refractive rows; no energy-splitting interfaces): the plain
+      megakernel, K2 with in-kernel regeneration;
     * otherwise the general path: the source drawn every round around
       _bounce_step's bounce (K2's fused branch where the scene allows it).
+      A scene with energy-splitting interfaces (single_ray=False) streams
+      there with true splitting: K2's refr_split outputs fill one
+      overflow slot per lane.
 
     Bifacial rows reject rays that reach their back (backside_miss) on
-    every path. Energy-splitting and mixed IAM exponents raise
-    NotImplementedError naming their ROADMAP item, and so does the general
-    path for scenes its unfused bounce does not shade yet."""
+    every path. Mixed IAM exponents raise NotImplementedError naming their
+    ROADMAP item, and so does the general path for scenes its unfused
+    bounce does not shade yet (a splitting scene with volumetric media or
+    dispersive interfaces, A9)."""
     spec = getattr(source_fn, "pallas_spec", None)
     spec, source_fn = _apply_scene_ambient(scene, spec, source_fn)
     if scene.frame.dtype != torch.float32:
@@ -685,7 +693,7 @@ def trace_streaming(scene: SceneTable, source_fn, generator: torch.Generator,
               or ((att > 0.0 or scat > 0.0) and "dispersive" not in features))
     if (spec is not None and kinds <= _K2_KINDS
             and (band is not None or not spectral) and vol_ok
-            and _k2_fits(scene, media)):
+            and "split" not in features and _k2_fits(scene, media)):
         spec_c, frame = _spec_frame_split(spec)
         return _trace_streaming_megakernel(
             scene, spec_c, torch.as_tensor(frame, device=scene.device),
@@ -796,19 +804,30 @@ def _trace_streaming_general(scene: SceneTable, source_fn,
                              max_rounds: int, max_path: int,
                              min_energy: float, t_eps, disc_eps: float,
                              fluxspecs: tuple = ()):
-    """The general streaming path (tracer_tpu/engine.py:1938, without the
-    split overflow, ROADMAP A10), for sources without a bakeable spec and
-    scenes the megakernel does not take: a host loop whose rounds refill
-    a prefix of the free lanes, up to the emission budget, from a fresh
-    slab of ``source_fn``, run one _bounce_step (K2's fused branch where
-    _fused_ok allows it; otherwise nearest hit and shade, which refuse
-    what they do not port) with the flux maps, and cull rays past
-    ``max_path``. The slab is drawn on the scene's device from a generator
-    seeded by ``generator``, which also draws the bounces' seeds. One
-    device read a round (emitted and live counts). Energy still alive at
-    ``max_rounds`` goes to the residual, so the closure is exact. Returns
-    (accum, emitted, source energy)."""
-    if not _fused_ok(scene):
+    """The general streaming path (tracer_tpu/engine.py:1938), for sources
+    without a bakeable spec and scenes the megakernel does not take: a
+    host loop whose rounds refill a prefix of the free lanes, up to the
+    emission budget, from a fresh slab of ``source_fn``, run one
+    _bounce_step (K2's fused branch where _fused_ok allows it; otherwise
+    nearest hit and shade, which refuse what they do not port) with the
+    flux maps, and cull rays past ``max_path``. The slab is drawn on the
+    scene's device from a generator seeded by ``generator``, which also
+    draws the bounces' seeds.
+
+    A scene with energy-splitting interfaces streams with true splitting:
+    every bounce runs K2's refr_split mode, so a lane that splits carries
+    on refracted and its reflected branch parks in the lane's overflow
+    slot (_merge_split). Each round first places every parked branch into
+    its own lane if that lane is free (_place_overflow), before fresh
+    source rays refill the rest, so the population never grows. Branches
+    past ``max_path`` are culled with their energy accounted.
+
+    One device read a round (emitted, live and parked counts). Energy
+    still alive at ``max_rounds``, parked branches included, goes to the
+    residual, so the closure is exact. Returns (accum, emitted, source
+    energy)."""
+    split = "split" in scene.features
+    if not _fused_ok(scene, split_mode=split):
         check_supported(scene)
     dev = scene.device
     n = source_fn.num_rays
@@ -823,8 +842,16 @@ def _trace_streaming_general(scene: SceneTable, source_fn,
                              device=dev, fluxspecs=fluxspecs)
     age = torch.zeros((n,), dtype=torch.int32, device=dev)
     source_e = torch.zeros((), dtype=torch.float64, device=dev)
-    emitted, live, i = 0, 0, 0
-    while i < max_rounds and (emitted < total_rays or live):
+    if split:
+        # each lane's overflow slot (empty) and its branch's age; the
+        # merges draw from their own generator
+        ovf, ovf_age = bundle, torch.zeros_like(age)
+        merge_gen = torch.Generator(device=dev).manual_seed(
+            _seed(generator))
+    emitted, live, parked, i = 0, 0, 0, 0
+    while i < max_rounds and (emitted < total_rays or live or parked):
+        if split:
+            bundle, age, ovf = _place_overflow(bundle, age, ovf, ovf_age)
         n_new = torch.zeros((), dtype=torch.int64, device=dev)
         if emitted < total_rays:
             if i:
@@ -838,10 +865,14 @@ def _trace_streaming_general(scene: SceneTable, source_fn,
             n_new = refill.sum()
             source_e += torch.where(refill, fresh.energy, 0.0).sum(
                 dtype=torch.float64)
+        prev = bundle
         bundle, accum, rec = _bounce_step(
             scene, bundle, accum, generator, min_energy=min_energy,
             t_eps=t_eps, disc_eps=disc_eps, block=64, count_hits=False,
-            need_local=False)
+            need_local=False, split_mode=split)
+        if split:
+            ovf, ovf_age = _merge_split(ovf, ovf_age, prev, age, rec, accum,
+                                        min_energy, merge_gen)
         _dfm.accumulate(accum.flux, fluxspecs, scene, rec.sid, rec.hit,
                         rec.absorbed)
         # the per-ray bounce budget
@@ -849,11 +880,72 @@ def _trace_streaming_general(scene: SceneTable, source_fn,
         over = bundle.alive & (age >= max_path)
         accum.culled += torch.where(over, bundle.energy, 0.0).sum()
         bundle = bundle.replace(alive=bundle.alive & ~over)
-        new, live = torch.stack([n_new, bundle.alive.sum()]).tolist()
+        counts = [n_new, bundle.alive.sum()]
+        if split:
+            ovf = _cull_overflow(ovf, ovf_age, max_path, accum)
+            counts.append(ovf.alive.sum())
+        new, live, *rest = torch.stack(counts).tolist()
+        parked = rest[0] if split else 0
         emitted += new
         i += 1
     accum.residual += torch.where(bundle.alive, bundle.energy, 0.0).sum()
+    if split:
+        accum.residual += torch.where(ovf.alive, ovf.energy, 0.0).sum()
     return accum, torch.tensor(emitted, dtype=torch.int64), source_e
+
+
+def _place_overflow(bundle: RayBundle, age, ovf: RayBundle, ovf_age):
+    """Each lane's parked branch takes the lane the round it is free
+    (tracer_tpu/engine.py:1999): elementwise selects, no cross-lane
+    moves, and before regeneration, so fresh rays never starve a branch.
+    The branch's path already holds the bounce that split it: its age is
+    ``ovf_age + 1``. Returns (bundle, age, ovf)."""
+    place = ovf.alive & ~bundle.alive
+    bundle = _where_ray_fields(place, ovf, bundle).replace(
+        alive=bundle.alive | place)
+    age = torch.where(place, ovf_age + 1, age)
+    ovf = ovf.replace(alive=ovf.alive & ~place,
+                      energy=torch.where(place, 0.0, ovf.energy))
+    return bundle, age, ovf
+
+
+def _cull_overflow(ovf: RayBundle, ovf_age, max_path: int,
+                   accum: TraceAccum) -> RayBundle:
+    """Cull the parked branches that would resume past the bounce budget
+    (``ovf_age + 1 >= max_path``, tracer_tpu/engine.py:2073), their
+    energy accounted in ``accum`` (in place)."""
+    over = ovf.alive & (ovf_age + 1 >= max_path)
+    accum.culled += torch.where(over, ovf.energy, 0.0).sum()
+    return ovf.replace(alive=ovf.alive & ~over)
+
+
+def _merge_split(ovf: RayBundle, ovf_age, prev: RayBundle, age_now, rec,
+                 accum: TraceAccum, min_energy: float,
+                 generator: torch.Generator):
+    """Park this round's reflected branches (``rec.split``) in their
+    lanes' overflow slots (tracer_tpu/engine.py:2027), ``accum`` in
+    place. Branches of at most ``min_energy`` are culled with their energy
+    accounted. A lane whose slot is still occupied merges the two
+    branches: it keeps the new one with probability s_e / (e_ovf + s_e)
+    (a uniform of ``generator``) and carries their sum, which is unbiased.
+    A branch starts at the hit point along its reflected direction with
+    the incidence side's ray fields (``prev``, the bundle before the
+    bounce) and its parent's age ``age_now``. Returns (ovf, ovf_age)."""
+    s_mask, s_e, s_dir = rec.split
+    ok = s_mask & (s_e > min_energy)
+    accum.culled += torch.where(s_mask & ~ok, s_e, 0.0).sum()
+    both = ovf.alive & ok
+    tot = ovf.energy + s_e
+    u = torch.rand(s_e.shape, generator=generator, dtype=s_e.dtype,
+                   device=s_e.device)
+    take_new = both & (u * tot < s_e)
+    new_store = (ok & ~ovf.alive) | take_new
+    sec = prev.replace(pos=rec.hit, dir=s_dir)
+    ovf = _where_ray_fields(new_store, sec, ovf).replace(
+        energy=torch.where(both, tot,
+                           torch.where(ok & ~ovf.alive, s_e, ovf.energy)),
+        alive=ovf.alive | ok)
+    return ovf, torch.where(new_store, age_now, ovf_age)
 
 
 def _spec_frame_split(spec):
@@ -904,7 +996,8 @@ class BounceRecord:
     wavelength: Optional[torch.Tensor] = None   # (N,) per-hit wavelength
     normal: Optional[torch.Tensor] = None       # (N,3) shading normal
     spectra: Optional[torch.Tensor] = None      # not ported (A10)
-    split: Optional[tuple] = None               # not ported (A9)
+    split: Optional[tuple] = None   # refr_split bounces: (lanes that split,
+    #   reflected branch energy (N,), its direction (N,3))
     bounce: Optional[int] = None    # bounce index
     slot: Optional[torch.Tensor] = None  # (K,) slab slot of each entry of
     #   a compacted (record="tags") record
@@ -938,14 +1031,17 @@ def _refuse_unported(scene, bundle: RayBundle) -> None:
                          f"on {scene.device}")
 
 
-def _fused_ok(scene: SceneTable) -> bool:
+def _fused_ok(scene: SceneTable, split_mode: bool = False) -> bool:
     """The gate of _bounce_step's fused K2 branch (tracer_tpu/engine.py
     :261-282) less its backend test: every kind fusable (refractive rows
-    without dispersion), no volumetric media, one IAM exponent, float32,
-    and rows that fit K2's stage."""
+    without dispersion, and in a scene with energy-splitting interfaces
+    only under ``split_mode``, where K2 splits them: its roulette would
+    drop the reflected share), no volumetric media, one IAM exponent,
+    float32, and rows that fit K2's stage."""
     kinds, features = set(scene.kinds_present), set(scene.features)
     fusable = _FUSED_KINDS
-    if "dispersive" not in features and "split" not in features:
+    if "dispersive" not in features and ("split" not in features
+                                         or split_mode):
         fusable = fusable | {_M.K_REFRACTIVE}
     return (kinds <= fusable and "volumetric" not in features
             and "iam_nonmirror" not in features
@@ -955,13 +1051,16 @@ def _fused_ok(scene: SceneTable) -> bool:
 def _bounce_step_fused(scene: SceneTable, bundle: RayBundle,
                        accum: TraceAccum, generator: torch.Generator,
                        min_energy: float, t_eps, disc_eps: float,
-                       count_hits: bool):
-    """_bounce_step's fused branch (tracer_tpu/engine.py:283-362, without
-    refr_split): one K2 bounce, no regeneration, on CUDA tensors the
-    kernel and on CPU tensors its plain version. The record carries no
-    local hit point, normal or distance (t is 0 on hits)."""
+                       count_hits: bool, split_mode: bool = False):
+    """_bounce_step's fused branch (tracer_tpu/engine.py:283-362): one K2
+    bounce, no regeneration, on CUDA tensors the kernel and on CPU tensors
+    its plain version; with ``split_mode`` in a scene with F_SPLIT
+    interfaces K2 splits them (refr_split) and the record's ``split``
+    holds the reflected branches. The record carries no local hit point,
+    normal or distance (t is 0 on hits)."""
     kinds, features = set(scene.kinds_present), set(scene.features)
     refractive = _M.K_REFRACTIVE in kinds
+    refr_split = refractive and split_mode and "split" in features
     extra = _k2_extra(scene)
     need_wl = _k2_needs_wl(scene)
     outs = bounce_reflect(
@@ -975,7 +1074,8 @@ def _bounce_step_fused(scene: SceneTable, bundle: RayBundle,
                       or extra["piecewise"] else None),
         ref_index=bundle.ref_index if refractive else None,
         refr_frost=refractive and "refractive_slope" in features,
-        backside_miss="bifacial" in features, **extra)
+        refr_split=refr_split, backside_miss="bifacial" in features,
+        **extra)
     new_pos, new_dir, new_e, sid, absorbed = outs[:5]
     new_ri = outs[5 + int(need_wl)] if refractive else bundle.ref_index
     alive = bundle.alive & (bundle.energy > 0.0)
@@ -996,12 +1096,18 @@ def _bounce_step_fused(scene: SceneTable, bundle: RayBundle,
         energy=torch.where(alive_next, e_out, 0.0),
         ref_index=torch.where(hit, new_ri, bundle.ref_index),
         alive=alive_next)
+    rec_split = None
+    if refr_split:
+        s_e, s_dir = outs[-2:]
+        s_mask = alive & (s_e > 0.0)
+        rec_split = (s_mask, torch.where(s_mask, s_e, 0.0), s_dir)
     zeros3 = torch.zeros_like(bundle.pos)
     rec = BounceRecord(
         sid=sid, t=torch.where(hit, 0.0, math.inf), hit=new_pos,
         local=zeros3, dir_in=bundle.dir, dir_out=new_dir, e_in=e_in,
         e_out=e_out, absorbed=absorbed_ray, backside=torch.zeros_like(hit),
-        alive_in=alive, wavelength=bundle.wavelength, normal=zeros3)
+        alive_in=alive, wavelength=bundle.wavelength, normal=zeros3,
+        split=rec_split)
     return new_bundle, accum, rec
 
 
@@ -1015,16 +1121,19 @@ def _bounce_step(scene: SceneTable, bundle: RayBundle, accum: TraceAccum,
     passes _fused_ok takes the fused K2 branch (_bounce_step_fused): on
     CUDA tensors the kernel, on CPU tensors its plain version, where
     tracer_tpu's CPU backend takes its jnp path; ray_tracer and
-    trace_fused keep need_local. Volumetric media, polychromatic spectra,
-    energy splitting and Kd candidates are not ported (ROADMAP A9, A10)
-    and raise."""
-    if cand is not None or spectral_alpha is not None or split_mode:
-        raise NotImplementedError("Kd candidates, polychromatic spectra "
-                                  "and energy splitting are not ported yet "
-                                  "(ROADMAP A9/A10)")
-    if not need_local and not force_jnp and _fused_ok(scene):
+    trace_fused keep need_local. ``split_mode`` lets a scene with
+    energy-splitting interfaces fuse, and its record's ``split`` carries
+    the reflected branches. The unfused shade ports K_REFLECT rows only:
+    volumetric media, energy splitting there (the host-stepped splitter),
+    polychromatic spectra and Kd candidates are not ported (ROADMAP A9,
+    A10) and raise."""
+    if cand is not None or spectral_alpha is not None:
+        raise NotImplementedError("Kd candidates and polychromatic spectra "
+                                  "are not ported yet (ROADMAP A9/A10)")
+    if not need_local and not force_jnp and _fused_ok(scene, split_mode):
         return _bounce_step_fused(scene, bundle, accum, generator,
-                                  min_energy, t_eps, disc_eps, count_hits)
+                                  min_energy, t_eps, disc_eps, count_hits,
+                                  split_mode)
     alive = bundle.alive & (bundle.energy > 0.0)
     t, sid, aux = nearest_hit_aux(scene, bundle.pos, bundle.dir,
                                   t_eps=t_eps, disc_eps=disc_eps,

@@ -22,12 +22,14 @@ their plain PyTorch versions.
   media that refractive rows bound, the stage (d) kinds (Cook-Torrance,
   Lambertian-specular, semi-Lambertian, transparent) and the stage (e)
   ones (Fresnel conductor, IAM with its exponent c, periodic teleport,
-  piecewise Lambertian), the bifacial rows' backside_miss, and optional
-  regeneration of dead lanes from a disk or rect source. Energy-splitting
-  refraction is not ported (ROADMAP A10),
-  nor the stage (d)/(e) kinds beside refraction or media ids (B2). The
-  plain streaming megakernel runs it every round, the general streaming
-  path every bounce, the culled trace's drain without regeneration.
+  piecewise Lambertian) alone, in an ambient HG medium or beside
+  refraction and media ids, the bifacial rows' backside_miss, energy
+  splitting at F_SPLIT interfaces (``refr_split``: the lane crosses and
+  the reflected branch leaves through two more outputs), and optional
+  regeneration of dead lanes from a disk or rect source. The plain
+  streaming megakernel runs it every round, the general streaming path
+  every bounce (with ``refr_split`` on a scene with energy-splitting
+  interfaces), the culled trace's drain without regeneration.
 
 A wrapper given CPU tensors runs the plain version (``*_ref``); given CUDA
 tensors it launches the kernel or raises — it never falls back. Each
@@ -343,7 +345,8 @@ def _shade(rows, t_b, sid_b, normal, up, rays, e_in, wl, seed: int, stream,
            lambertian: bool = False, spectral_tab=None,
            ambient_att: float = 0.0, ri=None, mid=None, media=None,
            refr_frost: bool = False, refr_disp: bool = False,
-           ambient_scat: float = 0.0, ambient_g: float = 0.0, **extra):
+           ambient_scat: float = 0.0, ambient_g: float = 0.0,
+           refr_split: bool = False, **extra):
     """The shade epilogue both kernels share, on each lane's winner row
     with its carried (unnormalised) normal and local d_z: reflect, slope
     error, the one-sided kill, the Lambertian lobe, spectral absorptance
@@ -354,9 +357,12 @@ def _shade(rows, t_b, sid_b, normal, up, rays, e_in, wl, seed: int, stream,
     ambient's, or with ``mid`` and ``media`` the lane's own), the media
     ids, and the stage (d)/(e) kinds switched on in ``extra``
     (EXTRA_MODES; the conductor and piecewise rows read ``spectral_tab``
-    at ``wl``, or at 0 without a lane). Returns (pos, dir, energy,
-    absorbed, ri, mid, scattered) before the live-lane masking (None for
-    the modes that are off)."""
+    at ``wl``, or at 0 without a lane); with ``refr_split`` the F_SPLIT
+    refractive rows split the energy instead of the roulette. Returns
+    (pos, dir, energy, absorbed, ri, mid, scattered, split) before the
+    live-lane masking (None for the modes that are off); ``split`` is
+    (the reflected branch's energy, the lanes that split, its three
+    direction components)."""
     px, py, pz, dx, dy, dz = rays
     hit = sid_b >= 0
     w = rows[sid_b.clamp(min=0).long()]
@@ -507,7 +513,15 @@ def _shade(rows, t_b, sid_b, normal, up, rays, e_in, wl, seed: int, stream,
         R = torch.where(refr_ok & (under >= 0.0), 0.5 * (rs * rs + rp * rp),
                         1.0)
         u_r = uniforms(seed, stream, lane, CALL_FRESNEL)[0]
-        crossed = is_refr & hit & ~(u_r <= R)
+        go_reflect = u_r <= R
+        if refr_split:
+            # F_SPLIT rows (flags bit 3) always cross; the reflected
+            # direction is saved before the crossing replaces it
+            split_b = is_refr & hit & (torch.fmod(kf, 16.0) >= 8.0)
+            s_rd = (rx, ry, rz)
+            r_split = torch.where(split_b, R, 0.0)
+            go_reflect = go_reflect & ~split_b
+        crossed = is_refr & hit & ~go_reflect
         rx = torch.where(crossed, tdx, rx)
         ry = torch.where(crossed, tdy, ry)
         rz = torch.where(crossed, tdz, rz)
@@ -554,8 +568,17 @@ def _shade(rows, t_b, sid_b, normal, up, rays, e_in, wl, seed: int, stream,
             nri = torch.where(scat, ri, nri)
         if media is not None:
             nmid = torch.where(scat, mid, nmid)
+    split = None
+    if refr_split:
+        # the reflected branch takes R of the energy left after the medium
+        # and the surface (all of it on total internal reflection); a lane
+        # that scattered before the surface emits none
+        on = split_b if scat is None else split_b & ~scat
+        s_e = torch.where(on, ne * r_split, 0.0)
+        ne = ne - s_e
+        split = (s_e, on, s_rd)
     return (torch.stack(npos, dim=1), torch.stack(ndir, dim=1), ne, absorbed,
-            nri, nmid, scat)
+            nri, nmid, scat, split)
 
 
 def _lobe(seed: int, stream, lane, sin_cap, n0):
@@ -829,23 +852,23 @@ def _media_tensors(media, n_rows: int, device):
 
 def _check_modes(source_spec, regen, wavelength, spectral_tab, src_frame,
                  ref_index=None, refr_disp=False, medium_id=None, media=None,
-                 refr_split=False, extra=None):
+                 refr_split=False, extra=None, ambient_scat=0.0):
     extra = extra or {}
     if set(extra) - set(EXTRA_MODES):
         raise TypeError(f"unknown K2 modes "
                         f"{sorted(set(extra) - set(EXTRA_MODES))}")
-    if any(extra.values()) and ref_index is not None:
-        raise NotImplementedError(
-            "K2 has no instance for the stage (d)/(e) kinds beside "
-            "refractive rows or media ids (ROADMAP B2)")
     if (extra.get("conductor") or extra.get("piecewise")) \
             and spectral_tab is None:
         raise ValueError("conductor and piecewise rows read the "
                          "spectral_tab")
-    if refr_split:
+    if refr_split and ref_index is None:
+        raise ValueError("refr_split rides the refractive mode: pass "
+                         "ref_index")
+    if refr_split and (media is not None or ambient_scat > 0.0):
         raise NotImplementedError(
-            "energy-splitting refraction (refr_split) serves the general "
-            "streaming path, not ported yet (ROADMAP A10)")
+            "energy splitting beside scattering or media ids: splitting "
+            "scenes with volumetric media take the unfused shade (ROADMAP "
+            "A9)")
     if regen and source_spec is None:
         raise ValueError("regeneration needs a source_spec")
     if regen and src_frame is None and source_spec[0] is None:
@@ -861,14 +884,15 @@ def _check_modes(source_spec, regen, wavelength, spectral_tab, src_frame,
         raise ValueError("refr_disp needs ref_index and wavelength lanes")
 
 
-def _lane_outputs(out, wl, ri, mid, wavelength, ref_index, medium_id):
+def _lane_outputs(out, wl, ri, mid, wavelength, ref_index, medium_id,
+                  split=None):
     """The wrappers' return order: (pos, dir, energy, sid, absorbed[, wl]
-    [, ri][, mid])."""
+    [, ri][, mid][, s_e, s_dir])."""
     for lane_in, lane_out in ((wavelength, wl), (ref_index, ri),
                               (medium_id, mid)):
         if lane_in is not None:
             out = out + (lane_out,)
-    return out
+    return out if split is None else out + tuple(split)
 
 
 def bounce_reflect_ref(rows, seed: int, pos, dirs, energy, groups,
@@ -885,7 +909,8 @@ def bounce_reflect_ref(rows, seed: int, pos, dirs, energy, groups,
     """Plain PyTorch version of :func:`bounce_reflect` (same arguments and
     results)."""
     _check_modes(source_spec, regen, wavelength, spectral_tab, src_frame,
-                 ref_index, refr_disp, medium_id, media, refr_split, extra)
+                 ref_index, refr_disp, medium_id, media, refr_split, extra,
+                 ambient_scat)
     n = pos.shape[0]
     idx = torch.arange(n, device=pos.device)
     stream, lane = idx // TILE, idx % TILE
@@ -909,13 +934,14 @@ def bounce_reflect_ref(rows, seed: int, pos, dirs, energy, groups,
                                       disc_eps, need_local=False,
                                       backside_miss=backside_miss)
     rays = list(pos.unbind(1)) + list(dirs.unbind(1))
-    npos, ndir, ne, absorbed, nri, nmid, scat = _shade(
+    npos, ndir, ne, absorbed, nri, nmid, scat, split = _shade(
         rows, t_b, sid_b, aux["normal"].unbind(1), aux["up_dot"], rays, e,
         wl, seed, stream, lane, bivar, one_sided, slope,
         lambertian=lambertian, spectral_tab=spectral_tab,
         ambient_att=ambient_att, ri=ri, mid=mid, media=media,
         refr_frost=refr_frost, refr_disp=refr_disp,
-        ambient_scat=ambient_scat, ambient_g=ambient_g, **extra)
+        ambient_scat=ambient_scat, ambient_g=ambient_g,
+        refr_split=refr_split, **extra)
     # stale lanes (no energy after regeneration) report no hit; live
     # scattered lanes report -2: alive, on no surface
     live = e > 0.0
@@ -924,8 +950,14 @@ def bounce_reflect_ref(rows, seed: int, pos, dirs, energy, groups,
         sid = torch.where(live & scat, -2, sid)
     out = (npos, ndir, ne, sid.to(torch.int32),
            torch.where(live, absorbed, 0.0))
+    if split is not None:
+        # the reflected branch, zero where no live lane split
+        s_e, on, s_rd = split
+        on = on & live
+        split = (torch.where(on, s_e, 0.0),
+                 torch.where(on[:, None], torch.stack(s_rd, dim=1), 0.0))
     return _lane_outputs(out, wl, nri, nmid, wavelength, ref_index,
-                         medium_id)
+                         medium_id, split)
 
 
 # ---------------------------------------------------------------------------
@@ -940,13 +972,14 @@ class _Modes(ctypes.Structure):
         "bivar_mode", "one_sided", "slope", "lambertian", "ambient_att",
         "refr_frost", "refr_disp", "scat", "ambient_scat", "ambient_g",
         "cook_torrance", "lam_specular", "semi_lambertian", "transparent",
-        "conductor", "periodic", "piecewise", "iam_c", "backside_miss")]
+        "conductor", "periodic", "piecewise", "iam_c", "backside_miss",
+        "refr_split")]
 
 
 @functools.lru_cache(maxsize=64)
 def _modes(bivar, one_sided, slope, lambertian, ambient_att, refr_frost,
            refr_disp, scat, ambient_scat, ambient_g, backside_miss,
-           extra) -> _Modes:
+           extra, refr_split=False) -> _Modes:
     """The mode struct of these switches (``extra`` the EXTRA_MODES
     values in order), built once: the cache keeps it alive for the C
     call."""
@@ -958,7 +991,7 @@ def _modes(bivar, one_sided, slope, lambertian, ambient_att, refr_frost,
                   bool(refr_disp), bool(scat), float(ambient_scat),
                   float(ambient_g),
                   *(bool(x[k]) for k in EXTRA_MODES if k != "iam"), iam_c,
-                  bool(backside_miss))
+                  bool(backside_miss), bool(refr_split))
 
 
 def _ray_outputs(n, device):
@@ -1152,22 +1185,31 @@ def bounce_reflect(rows, seed: int, pos, dirs, energy, groups,
               ambient; the ambient_* arguments are then ignored) and takes
               the entered side's id on crossing a K_REFRACTIVE row; needs
               ref_index
-    refr_split  energy splitting: not ported (raises, ROADMAP A10)
+    refr_split  energy splitting (needs ref_index): on an F_SPLIT
+              refractive row the lane always crosses, with the share 1 - R
+              of its energy after the medium (none on total internal
+              reflection), and the reflected branch leaves with R of it
+              through two more outputs, s_e (N,) and s_dir (N, 3), zero
+              where no live lane split (a lane that scattered first does
+              not); other refractive rows keep the roulette. Not beside
+              scattering or media ids (raises: splitting scenes with
+              volumetric media take the unfused shade, ROADMAP A9)
     backside_miss  rows flagged F_BACKSIDE_MISS (bifacial pairs) reject
               rays arriving along their local +Z, on every class (the jnp
               semantics; tracer_tpu's Pallas kernels skip flat rows)
     cook_torrance, lam_specular, semi_lambertian, transparent, conductor,
     periodic, piecewise  (EXTRA_MODES, keywords, False by default) shade
               the stage (d) and (e) kinds; ``iam`` is False or the scene's
-              Martin-Ruiz exponent c (True means 1). They run alone or in
-              an ambient HG medium, not beside ref_index (raises, ROADMAP
-              B2)
+              Martin-Ruiz exponent c (True means 1). They run alone, in an
+              ambient HG medium, or beside ref_index and medium_id
 
     Returns (pos, dir, energy, sid, absorbed[, wavelength][, ref_index]
-    [, medium_id]); sid is -1 on misses and on lanes without energy, which
-    pass their state through, and -2 on live lanes that scattered."""
+    [, medium_id][, s_e, s_dir]); sid is -1 on misses and on lanes
+    without energy, which pass their state through, and -2 on live lanes
+    that scattered."""
     _check_modes(source_spec, regen, wavelength, spectral_tab, src_frame,
-                 ref_index, refr_disp, medium_id, media, refr_split, extra)
+                 ref_index, refr_disp, medium_id, media, refr_split, extra,
+                 ambient_scat)
     kw = dict(disc_eps=disc_eps, bivar=bivar, one_sided=one_sided,
               slope=slope, lambertian=lambertian, source_spec=source_spec,
               regen=regen, wavelength=wavelength, spectral_tab=spectral_tab,
@@ -1175,7 +1217,7 @@ def bounce_reflect(rows, seed: int, pos, dirs, energy, groups,
               ref_index=ref_index, refr_frost=refr_frost,
               refr_disp=refr_disp, ambient_scat=ambient_scat,
               ambient_g=ambient_g, medium_id=medium_id, media=media,
-              backside_miss=backside_miss, **extra)
+              refr_split=refr_split, backside_miss=backside_miss, **extra)
     if pos.device.type == "cpu":
         return bounce_reflect_ref(rows, seed, pos, dirs, energy, groups,
                                   t_eps, **kw)
@@ -1234,8 +1276,8 @@ def launch_k2(lib, rows, seed: int, pos, dirs, energy, groups,
               ambient_att: float = 0.0, src_frame=None, ref_index=None,
               refr_frost: bool = False, refr_disp: bool = False,
               ambient_scat: float = 0.0, ambient_g: float = 0.0,
-              medium_id=None, media=None, backside_miss: bool = False,
-              **extra):
+              medium_id=None, media=None, refr_split: bool = False,
+              backside_miss: bool = False, **extra):
     """Marshal one call of the library's ``tt_bounce`` (checked arguments,
     tensors on one device; ``stream`` the CUDA stream, None for the
     default). Returns (the C function's error code, bounce_reflect's
@@ -1255,13 +1297,15 @@ def launch_k2(lib, rows, seed: int, pos, dirs, energy, groups,
     modes = _modes(bivar, one_sided, slope, lambertian, ambient_att,
                    refr_frost, refr_disp, scat_on, ambient_scat, ambient_g,
                    backside_miss, tuple(extra.get(k, False)
-                                        for k in EXTRA_MODES))
+                                        for k in EXTRA_MODES), refr_split)
     m_tab = m_rows = None
     if media is not None:
         m_tab, m_rows = _media_tensors(media, S, dev)
     outs = _ray_outputs(n, dev)
     lanes = [(t, None if t is None else torch.empty_like(t))
              for t in (wavelength, ref_index, medium_id)]
+    split = ((torch.empty_like(energy), torch.empty_like(dirs))
+             if refr_split else (None, None))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -1269,10 +1313,12 @@ def launch_k2(lib, rows, seed: int, pos, dirs, energy, groups,
         rows.data_ptr(), S, K, len(groups), gmeta.data_ptr(), MAX_C,
         int(seed), pos.data_ptr(), dirs.data_ptr(), energy.data_ptr(),
         *(o.data_ptr() for o in outs[:3]), outs[3].data_ptr(),
-        outs[4].data_ptr(), *(ptr(t) for lane in lanes for t in lane), n,
+        outs[4].data_ptr(), *(ptr(t) for lane in lanes for t in lane),
+        *(ptr(t) for t in split), n,
         float(t_eps), float(disc_eps), int(regen), ptr(srcp), ptr(pose),
         ptr(spectral_tab if n_tab else None), n_tab,
         ctypes.addressof(modes), ptr(m_tab),
         0 if m_tab is None else len(m_tab), ptr(m_rows), stream)
     return rc, _lane_outputs(tuple(outs), *(o for _, o in lanes),
-                             wavelength, ref_index, medium_id)
+                             wavelength, ref_index, medium_id,
+                             split if refr_split else None)

@@ -38,11 +38,12 @@ _SIGNATURES = {
                          _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _I, _I, _F, _F, _I, _P, _P],
     # rows S K G gmeta max_c seed pos dir e npos ndir ne sid absorbed wl
-    # nwl ri nri mid nmid n t_eps disc_eps regen srcp pose tab n_tab modes
-    # (a host struct, bounce._Modes) media_tab n_media media_rows stream
+    # nwl ri nri mid nmid s_e s_dir n t_eps disc_eps regen srcp pose tab
+    # n_tab modes (a host struct, bounce._Modes) media_tab n_media
+    # media_rows stream
     "tt_bounce": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                  _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _P,
-                  _I, _P, _P, _I, _P, _P],
+                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _P,
+                  _P, _P, _I, _P, _P, _I, _P, _P],
     # rows S K G gmeta max_c pos dir t sid normal local up kind flags p0
     # p1 n t_eps disc_eps need_local backside_miss stream
     "tt_nearest": [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -41,18 +41,28 @@
 // Martin-Ruiz IAM with the scene's exponent c (:1155), the periodic
 // teleport (:1231) and the piecewise Lambertian, whose absorptance and
 // specular probability are interpolated at the winner's incidence angle
-// (:1150, :483; bilinear in (theta, wl) through interp2_row). Refraction,
-// scattering, media, the stage (d)/(e) kinds and backside_miss are
-// template flags (bounce_kernel<kRefr, kScat, kMedia, kExtra, kBmiss>),
-// so the configurations without them keep stage (b)'s code. With regeneration
+// (:1150, :483; bilinear in (theta, wl) through interp2_row). With
+// refr_split (:1049, :1293), energy splitting: on an F_SPLIT refractive
+// row the lane always crosses, and the reflected branch leaves through
+// two more outputs with the share R of the energy left after the medium
+// and the surface (all of it on total internal reflection), for the
+// general streaming path's overflow slots; the roulette's uniform is
+// still drawn, so no other draw moves. Refraction, scattering, media, the
+// stage (d)/(e) kinds, backside_miss and splitting are template flags
+// (bounce_kernel<kRefr, kScat, kMedia, kExtra, kBmiss, kSplit>, 28
+// instances: the stage (d)/(e) kinds run alone, in an ambient HG medium,
+// or beside refraction and media ids; kSplit only beside refraction
+// without scattering or media ids, which splitting scenes never take on
+// the fused path), so the configurations without them keep stage (b)'s
+// code. With regeneration
 // on, dead lanes first draw a fresh ray from the un-celled disk or rect
 // source (_sample_disk_buie :1413: Buie or pillbox polar angle, optional
 // aureole, optional wavelength band) whose pose (centre, position
 // rotation, direction rotation) is a device operand, and restart at index
 // 1 in medium 0. Rows flagged F_BACKSIDE_MISS reject local +Z arrivals when
-// the mode asks (bifacial scenes), on every class. The plain streaming megakernel runs it every round, the
-// culled trace's drain with regeneration off. Energy-splitting
-// refraction (refr_split) is not ported.
+// the mode asks (bifacial scenes), on every class. The plain streaming
+// megakernel runs it every round, the general streaming path every
+// bounce, the culled trace's drain with regeneration off.
 //
 // What bounds them on this card: the per-lane row loop is float32
 // arithmetic on rows that every lane of a block shares (about 50 flops
@@ -339,6 +349,10 @@ struct Shaded {
   float px, py, pz, dx, dy, dz, e, absorbed;
   float ri, mid;  // the lane's index and medium id after the bounce
   bool scat;      // scattered in its medium before reaching a surface
+  // kSplit: the reflected branch's energy and direction, on a lane
+  // that split at an F_SPLIT interface (split)
+  float s_e, sdx, sdy, sdz;
+  bool split;
 };
 
 // K1's and K2's modes as the host passes them, one struct behind one
@@ -353,6 +367,8 @@ struct Modes {
   int conductor, periodic, piecewise;
   float iam_c;         // 0: no IAM rows; else the scene's exponent c
   int backside_miss;   // F_BACKSIDE_MISS rows reject local +Z arrivals
+  int refr_split;      // F_SPLIT refractive rows split the energy (K2:
+                       // a kSplit instance)
 };
 
 // the epilogue's runtime modes (the template flags of shade pick the rest)
@@ -381,8 +397,10 @@ struct Epi {
 // HG scattering of the lane's medium (the ambient's, or with kMedia the
 // medium id mid's row of the media table), with kExtra the kinds of
 // stages (d) and (e), which read the winner's p2 and p3 (q2, q3) as
-// _make_fused_kernel's four-parameter carry does
-template <bool kRefr, bool kScat, bool kMedia, bool kExtra>
+// _make_fused_kernel's four-parameter carry does; with kSplit (and kRefr)
+// F_SPLIT rows split the energy instead of the roulette
+template <bool kRefr, bool kScat, bool kMedia, bool kExtra,
+          bool kSplit = false>
 __device__ __forceinline__ Shaded shade(const float* w, int sid, float ngx_w,
                                         float ngy_w, float ngz_w,
                                         float upd_w, float t_b,
@@ -541,6 +559,10 @@ __device__ __forceinline__ Shaded shade(const float* w, int sid, float ngx_w,
   float ry = in.dy - 2.0f * dn * ny;
   float rz = in.dz - 2.0f * dn * nz;
   float nri = ri, nmid = mid;
+  // kSplit: on an F_SPLIT row (flags bit 3) the lane always crosses,
+  // and the reflected branch leaves with the share R of its energy
+  bool split = false;
+  float r_split = 0.0f, srx = 0.0f, sry = 0.0f, srz = 0.0f;
   if (is_refr) {
     // the side whose index is nearest the lane's is the one it comes
     // from (index-matched sides: the one whose medium id it carries)
@@ -574,7 +596,15 @@ __device__ __forceinline__ Shaded shade(const float* w, int sid, float ngx_w,
         refr_ok && under >= 0.0f ? 0.5f * (rs * rs + rp * rp) : 1.0f;
     float u[4];
     uniforms4(seed, stream, lane, CALL_FRESNEL, u);
-    if (!(u[0] <= R)) {
+    if (kSplit && fmodf(kf, 16.0f) >= 8.0f) {
+      // the reflected direction, saved before the crossing replaces it
+      split = true;
+      r_split = R;
+      srx = rx;
+      sry = ry;
+      srz = rz;
+    }
+    if (split || !(u[0] <= R)) {
       // Snell about the same normal; the lane enters the other side
       rx = (in.dx - c1 * nx) * inv_nr + nx * cos2 * sgn;
       ry = (in.dy - c1 * ny) * inv_nr + ny * cos2 * sgn;
@@ -715,6 +745,14 @@ __device__ __forceinline__ Shaded shade(const float* w, int sid, float ngx_w,
   o.scat = scat;
   o.ri = nri;
   o.mid = nmid;
+  // the reflected branch takes R of the energy left after the medium and
+  // the surface (all of it on total internal reflection, R = 1); a lane
+  // that scattered before the surface emits none
+  o.split = split && !scat;
+  o.s_e = o.split ? e_out * r_split : 0.0f;
+  o.sdx = srx;
+  o.sdy = sry;
+  o.sdz = srz;
   if (scat) {
     // the event point, the HG direction, the attenuated energy; no
     // surface absorbs, and the lane keeps its medium and index
@@ -736,7 +774,7 @@ __device__ __forceinline__ Shaded shade(const float* w, int sid, float ngx_w,
   o.dx = hit ? rx : in.dx;
   o.dy = hit ? ry : in.dy;
   o.dz = hit ? rz : in.dz;
-  o.e = hit ? e_out : in.e;
+  o.e = hit ? e_out - o.s_e : in.e;
   o.absorbed = hit ? e_att - e_out : 0.0f;
   return o;
 }
@@ -973,6 +1011,8 @@ struct PlainArgs {
   float* nri;
   const float* mid;  // per-lane medium id in (kMedia)
   float* nmid;
+  float* s_e;        // the reflected branch's energy out (kSplit)
+  float* s_dir;      // and its (n, 3) direction
   long long n;
   float t_eps, disc_eps;
   int regen;         // regenerate dead lanes from the source
@@ -994,7 +1034,8 @@ inline size_t plain_stage_floats(const PlainArgs& a) {
          3 * (size_t)a.n_media + (a.n_media ? 2 * (size_t)a.S : 0);
 }
 
-template <bool kRefr, bool kScat, bool kMedia, bool kExtra, bool kBmiss>
+template <bool kRefr, bool kScat, bool kMedia, bool kExtra, bool kBmiss,
+          bool kSplit>
 __global__ void __launch_bounds__(K2_THREADS) bounce_kernel(PlainArgs a) {
   // the block stages every row, the spectral table, the source pose and
   // the media tables
@@ -1057,7 +1098,7 @@ __global__ void __launch_bounds__(K2_THREADS) bounce_kernel(PlainArgs a) {
             a.wl != nullptr, md.cook_torrance, md.lam_specular,
             md.semi_lambertian, md.transparent, md.conductor, md.periodic,
             md.piecewise, md.iam_c};
-  const Shaded o = shade<kRefr, kScat, kMedia, kExtra>(
+  const Shaded o = shade<kRefr, kScat, kMedia, kExtra, kSplit>(
       hit ? rows_sm + b.sid * a.K : nullptr, b.sid, b.gx, b.gy, b.gz, b.up,
       b.t, in, wl, ri, mid, a.seed, stream, lane, ep);
   store_lane(a.npos, a.ndir, a.ne, l, o.px, o.py, o.pz, o.dx, o.dy, o.dz,
@@ -1068,6 +1109,14 @@ __global__ void __launch_bounds__(K2_THREADS) bounce_kernel(PlainArgs a) {
   // stale lanes (no energy after regeneration) report no hit; live lanes
   // that scattered report -2 (alive, on no surface)
   const bool live = in.e > 0.0f;
+  if (kSplit) {
+    // the reflected branch; zero where no live lane split
+    const bool sp = live && o.split;
+    a.s_e[l] = sp ? o.s_e : 0.0f;
+    a.s_dir[3 * l] = sp ? o.sdx : 0.0f;
+    a.s_dir[3 * l + 1] = sp ? o.sdy : 0.0f;
+    a.s_dir[3 * l + 2] = sp ? o.sdz : 0.0f;
+  }
   a.sid[l] = !live ? -1 : (o.scat ? -2 : (hit ? b.sid : -1));
   a.absorbed[l] = live ? o.absorbed : 0.0f;
 }
@@ -1079,10 +1128,11 @@ cudaError_t allow_smem(Kernel k, size_t bytes) {
                               (int)bytes);
 }
 
-template <bool kRefr, bool kScat, bool kMedia, bool kExtra, bool kBmiss>
+template <bool kRefr, bool kScat, bool kMedia, bool kExtra, bool kBmiss,
+          bool kSplit>
 int launch_plain(const PlainArgs& a, size_t smem, int blocks,
                  cudaStream_t st) {
-  auto kernel = bounce_kernel<kRefr, kScat, kMedia, kExtra, kBmiss>;
+  auto kernel = bounce_kernel<kRefr, kScat, kMedia, kExtra, kBmiss, kSplit>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   if (blocks > 0) kernel<<<blocks, K2_THREADS, smem, st>>>(a);
@@ -1092,11 +1142,13 @@ int launch_plain(const PlainArgs& a, size_t smem, int blocks,
 using LaunchPlain = int (*)(const PlainArgs&, size_t, int, cudaStream_t);
 
 // the instance with or without backside_miss: a compile-time switch, so
-// scenes without bifacial rows keep a row loop without the test
-template <bool kRefr, bool kScat, bool kMedia, bool kExtra>
+// scenes without bifacial rows keep a row loop without the test; the same
+// for energy splitting (kSplit)
+template <bool kRefr, bool kScat, bool kMedia, bool kExtra,
+          bool kSplit = false>
 LaunchPlain pick_plain(bool bmiss) {
-  return bmiss ? launch_plain<kRefr, kScat, kMedia, kExtra, true>
-               : launch_plain<kRefr, kScat, kMedia, kExtra, false>;
+  return bmiss ? launch_plain<kRefr, kScat, kMedia, kExtra, true, kSplit>
+               : launch_plain<kRefr, kScat, kMedia, kExtra, false, kSplit>;
 }
 
 }  // namespace
@@ -1123,7 +1175,7 @@ int tt_bounce_culled(const void* rows, int S, int K, const void* lists,
       (wl != nullptr && n_tab < 1) || (m.conductor && n_tab < 1) ||
       (n_tab > 0 && tab == nullptr) || m.refr_frost || m.refr_disp ||
       m.scat || m.cook_torrance || m.lam_specular || m.semi_lambertian ||
-      m.transparent || m.periodic || m.piecewise)
+      m.transparent || m.periodic || m.piecewise || m.refr_split)
     return (int)cudaErrorInvalidValue;
   CulledArgs a;
   a.rows = static_cast<const float*>(rows);
@@ -1177,7 +1229,8 @@ int tt_bounce(const void* rows, int S, int K, int G, const void* gmeta,
               int max_c, int seed, const void* pos, const void* dir,
               const void* e, void* npos, void* ndir, void* ne, void* sid,
               void* absorbed, const void* wl, void* nwl, const void* ri,
-              void* nri, const void* mid, void* nmid, int n, float t_eps,
+              void* nri, const void* mid, void* nmid, void* s_e,
+              void* s_dir, int n, float t_eps,
               float disc_eps, int regen, const void* srcp, const void* pose,
               const void* tab, int n_tab, const void* modes,
               const void* media_tab, int n_media, const void* media_rows,
@@ -1195,7 +1248,9 @@ int tt_bounce(const void* rows, int S, int K, int G, const void* gmeta,
       (media && (!refr || !media_tab || !media_rows || n_media < 1)) ||
       (m.refr_disp && (!refr || wl == nullptr)) ||
       ((m.conductor || m.piecewise) && n_tab < 1) ||
-      (n_tab > 0 && tab == nullptr))
+      (n_tab > 0 && tab == nullptr) || (s_e == nullptr) != (s_dir == nullptr) ||
+      (s_e != nullptr) != (m.refr_split != 0) ||
+      (m.refr_split && (!refr || media || m.scat)))
     return (int)cudaErrorInvalidValue;
   PlainArgs a;
   a.rows = static_cast<const float*>(rows);
@@ -1220,6 +1275,8 @@ int tt_bounce(const void* rows, int S, int K, int G, const void* gmeta,
   a.nri = static_cast<float*>(nri);
   a.mid = static_cast<const float*>(mid);
   a.nmid = static_cast<float*>(nmid);
+  a.s_e = static_cast<float*>(s_e);
+  a.s_dir = static_cast<float*>(s_dir);
   a.n = n;
   a.t_eps = t_eps;
   a.disc_eps = disc_eps;
@@ -1236,20 +1293,32 @@ int tt_bounce(const void* rows, int S, int K, int G, const void* gmeta,
   const int blocks = (n + K2_THREADS - 1) / K2_THREADS;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the instances the traces dispatch (media ride the refractive mode;
-  // the stage (d)/(e) kinds run alone or in an ambient HG medium), each
+  // the stage (d)/(e) kinds run alone, in an ambient HG medium, or beside
+  // refraction and media ids; splitting beside refraction alone), each
   // with and without backside_miss
   const bool bm = m.backside_miss != 0;
+  const bool split = m.refr_split != 0;
   LaunchPlain launch = nullptr;
   switch ((refr ? 1 : 0) | (m.scat ? 2 : 0) | (media ? 4 : 0) |
           (extra ? 8 : 0)) {
     case 0: launch = pick_plain<false, false, false, false>(bm); break;
-    case 1: launch = pick_plain<true, false, false, false>(bm); break;
+    case 1:
+      launch = split ? pick_plain<true, false, false, false, true>(bm)
+                     : pick_plain<true, false, false, false>(bm);
+      break;
     case 2: launch = pick_plain<false, true, false, false>(bm); break;
     case 3: launch = pick_plain<true, true, false, false>(bm); break;
     case 5: launch = pick_plain<true, false, true, false>(bm); break;
     case 7: launch = pick_plain<true, true, true, false>(bm); break;
     case 8: launch = pick_plain<false, false, false, true>(bm); break;
+    case 9:
+      launch = split ? pick_plain<true, false, false, true, true>(bm)
+                     : pick_plain<true, false, false, true>(bm);
+      break;
     case 10: launch = pick_plain<false, true, false, true>(bm); break;
+    case 11: launch = pick_plain<true, true, false, true>(bm); break;
+    case 13: launch = pick_plain<true, false, true, true>(bm); break;
+    case 15: launch = pick_plain<true, true, true, true>(bm); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return launch(a, smem, blocks, st);

@@ -20,11 +20,17 @@ port's host API.
    scattering 0.4/m, g 0.6) declared by the source spec;
 "8b". the same box with the medium bounded between two index-matched
    scattering_interface sheets at z = 1 and 3 m (suite.py:517: per-lane
-   medium ids), under a source without an ambient medium.
+   medium ids), under a source without an ambient medium;
+"6s". config 6's lens with energy-splitting interfaces (single_ray=False)
+   over the same receiver, the suite's "split stream" (suite.py:338-351);
+"7g". config 7's scene glazed: a flat 1.2 x 1.2 m glass cover (n 1 | 1.5,
+   roulette) at z = -1 m between the beam and the target.
 
 Each runs the plain streaming megakernel, ``engine.trace_streaming``
-without culling; config 7's source without its spec (:func:`without_spec`)
-runs the general streaming path, as the suite's second measurement of it
+without culling, but "6s": a scene with energy-splitting interfaces
+streams on the general path, with or without a spec (the suite traces it
+without, :func:`without_spec`); config 7's source without its spec runs
+the general streaming path too, as the suite's second measurement of it
 does. The assembly and spec builders take the package they
 build with (``pkg``): this package, or tracer_tpu, whose host API is the
 same, so a parity test can build both twins from one definition. This
@@ -62,6 +68,8 @@ BENCH = {
     8: dict(_BOX, att=0.15, scat=0.4, g=0.6),
     "8b": dict(_BOX, medium=dict(scat=0.4, g=0.6, att=0.15)),
 }
+BENCH["6s"] = dict(BENCH[6])
+BENCH["7g"] = dict(BENCH[7])
 BENCH_FLUX = 1000.0
 
 
@@ -98,20 +106,27 @@ def bench_assembly(pkg, cfg):
                          name="rec", location=[0.0, 0.0, 1.5],
                          rotation=sp.rotx(np.pi)[:3, :3])
         return sc.Assembly([sc.AssembledObject([dish, rec])]), ()
-    if cfg == 6:
+    if cfg in (6, "6s"):
         lens = _mod(pkg, "models.spherical_lens").SphericalLens(
-            diameter=0.5, depth=0.02, R1=0.3, R2=-0.3, refr_idx=1.5)
+            diameter=0.5, depth=0.02, R1=0.3, R2=-0.3, refr_idx=1.5,
+            single_ray=cfg == 6)
         rec = sc.Surface(G.round_plate(0.3), M.absorber(one_sided=False),
                          location=[0.0, 0.0, -lens.focal_length()],
                          name="rec")
         return sc.Assembly([lens, sc.AssembledObject([rec])]), ()
-    if cfg == 7:
+    if cfg in (7, "7g"):
         target = sc.Surface(G.rect_plate(1.0, 1.0),
                             M.bdrf_cook_torrance(0.3, 1.2, 7.0, 0.9),
                             name="target")
         dome = sc.Surface(G.hemisphere(3.0), M.absorber(one_sided=False),
                           name="dome")
-        return sc.Assembly([sc.AssembledObject([target, dome])]), ()
+        surfs = [target, dome]
+        if cfg == "7g":
+            surfs.append(sc.Surface(G.rect_plate(1.2, 1.2),
+                                    M.refractive_homogenous(1.0, 1.5),
+                                    location=[0.0, 0.0, -1.0],
+                                    name="cover"))
+        return sc.Assembly([sc.AssembledObject(surfs)]), ()
     if cfg in (8, "8b"):
         return _box(G, M, sp, sc, cfg)
     wls, abss = silver_table(pkg)
