@@ -132,7 +132,22 @@ Phases, each printing its lines:
    receiver's share in (0.75, 0.98) and within 2% of phase 8's lens
    (suite.py:351) and within 3 combined sigma of it, less at most the
    share of the source culled as branches below min_energy (which the
-   roulette lens does not make), K1 and K3 never launched.
+   roulette lens does not make), K1 and K3 never launched;
+12. aureole parking (culling park_aureole: the specular closure sized to
+   the solar disc, the hits of aureole-born lanes flagged by K1 and their
+   survivors parked for the drain): K1 with parking against its plain
+   version on every tile of the benchmark slab, 40% dead lanes and a
+   quarter tile's quota each, in the NSTTF instance under a CSR 0.2 Buie
+   disk and on CSR 0.2 rect cells and in the general instance on the
+   curved field (flips at most 1e-5 of the lanes, encoded sids
+   included), and against the kernel without parking (equal but for the
+   encoded sids), each timed with and without parking beside its plain
+   version and its bound; then phase 5's NSTTF trace at 537,919,488
+   rays: one counted trace with phase 5's culling and one with a parked
+   culling (rounds, drains, aureole-parked lanes), three timed parked
+   ones, under bench.py's guards and within 3 combined binomial sigma of
+   phase 5's receiver; and the rect-source NSTTF with a parked culling
+   once, under phase 10's guards against its unculled trace.
 
 Every kernel's launch count is set to 0 just before a main path runs and
 read just after. The line before the last is the kernels' JSON record;
@@ -310,8 +325,9 @@ def main(argv) -> None:
     spec = source_fn.pallas_spec
     t0 = time.perf_counter()
     culling = build_block_culling(table, meta, spec, slab)
+    t_culling = time.perf_counter() - t0
     log(f"culling: {culling.nb} tiles, L_mean {culling.stats['L_mean']:.1f}"
-        f", L_max {culling.stats['L_max']}, {time.perf_counter() - t0:.1f} s")
+        f", L_max {culling.stats['L_max']}, {t_culling:.1f} s")
     rows = kb.pack_rows(table)
     te = 3e-4
     kw = dict(bivar=True, one_sided=True, slope=True)
@@ -460,6 +476,7 @@ def main(argv) -> None:
                         fluxspecs=(fspec,))
     reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
                    kn.nearest_hit)
+    phase5 = {}
     for label, cul, total, max_rounds, reps in runs:
         l1, l2 = kb.bounce_reflect_culled.launches, kb.bounce_reflect.launches
         walls = []
@@ -475,6 +492,7 @@ def main(argv) -> None:
             rec_frac, closure, flux_rec = check_trace(
                 label, accum, emitted, source_e, total, energy_closure)
         wall = sorted(walls)[len(walls) // 2]
+        phase5[label] = (rec_frac, int(emitted), wall)
         log(f"slice ({label}): {int(emitted)} rays emitted, receiver "
             f"fraction {rec_frac:.5f}, closure {closure:.2e}, flux/receiver "
             f"{flux_rec:.6f}, K1 launches "
@@ -513,8 +531,9 @@ def main(argv) -> None:
     entry["max_abs_err"] = max(entry["max_abs_err"], k2["max_abs_err"])
     k1 = record["kernels"][0]
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_modes_phase(dev, card, kb))
+    unculled = {}
     for field in ("curved", "rect"):
-        l1, l2 = field_phase(dev, card, kb, kn, field)
+        l1, l2, unculled[field] = field_phase(dev, card, kb, kn, field)
         k1["launches"] += l1
         entry["launches"] += l2
 
@@ -527,6 +546,19 @@ def main(argv) -> None:
     entry["max_abs_err"] = max(entry["max_abs_err"], k2["max_abs_err"])
     entry["launches"] += general_phase(dev, card, kb, kn, "6s", physics[6])
     log(f"phase 11: {time.perf_counter() - t11:.1f} s")
+
+    # ---- phase 12: aureole parking: K1 with parking against its plain
+    # version and itself without, then the parked NSTTF and rect-source
+    # traces
+    t12 = time.perf_counter()
+    k1["max_abs_err"] = max(k1["max_abs_err"], aureole_k1_phase(dev, card,
+                                                                kb))
+    l1, l2 = aureole_trace_phase(dev, card, kb, kn, culling, t_culling,
+                                 phase5["default corridors"],
+                                 unculled["rect"])
+    k1["launches"] += l1
+    entry["launches"] += l2
+    log(f"phase 12: {time.perf_counter() - t12:.1f} s")
     for k in record["kernels"]:
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
     print(json.dumps(record))
@@ -1359,7 +1391,8 @@ def field_phase(dev, card, kb, kn, field):
     test_pallas_tpu.py's margins (receiver 2%, escaped 0.5% for the curved
     field; receiver 1.5%, mirrors 3%, escaped 0.5% for the rect source),
     the difference also printed in combined binomial sigma. Returns (K1,
-    K2) launches of the timed and unculled traces."""
+    K2) launches of the timed and unculled traces and the unculled trace's
+    fractions."""
     import math
     import statistics
     import torch
@@ -1458,7 +1491,261 @@ def field_phase(dev, card, kb, kn, field):
         f" ({total / wall / 1e6:.1f} Mrays/s), unculled {walls[3]:.3f} s "
         f"({card})")
     check(l1 > 0 and l2 > 0, f"{field}: K1 {l1}, K2 {l2} launches")
-    return l1, l2
+    return l1, l2, off
+
+
+# phase 12's K1 modes with parking (test_torch_gpu.K1_MODES, all but the
+# curved field's CSR 0.2): label, mode
+AUREOLE_K1_MODES = (("NSTTF instance, Buie disk CSR 0.2", "aureole"),
+                    ("NSTTF instance, rect cells CSR 0.2", "aureole_rect"),
+                    ("general instance, curved field CSR 0.02", "curved"))
+
+
+def aureole_k1_phase(dev, card, kb) -> float:
+    """K1 with park_aureole in each of AUREOLE_K1_MODES on 218 pads, every
+    tile of the benchmark slab's parked culling: lanes aimed at the
+    tiles' candidates with a 40% dead share and a quarter tile's quota
+    each (regeneration), slope error on. Against its plain version: sid
+    equal on all but 1e-5 of the live lanes (encoded sids included), the
+    rest within tests/test_torch_gpu.k1_compare's tolerance; against the
+    kernel without parking: every output equal once the encoded sids are
+    decoded, and encoded sids only on regenerated lanes. Then the kernel
+    with and without parking timed in turns (off, on, on, off) beside the
+    plain version and the bound. Returns the largest abs error."""
+    import torch
+    from test_torch_gpu import (k1_args, k1_compare, k1_lanes, k1_live,
+                                k1_scene, k1_traced)
+    slab = 2 * ((1 << 20) // kb.TILE * kb.TILE + kb.TILE)
+    worst = 0.0
+    for label, mode in AUREOLE_K1_MODES:
+        t0 = time.perf_counter()
+        table, meta, culling, spec = k1_scene(mode, 218, slab, dev,
+                                              park_aureole=True)
+        t_build = time.perf_counter() - t0
+        check(culling.park_aureole, f"{label}: culling does not park")
+        tiles = tuple(range(culling.nb))
+        lanes = k1_lanes(meta, culling, tiles, 8, 0.4, dev, spec[13])
+        rem = torch.full((culling.nb,), kb.TILE // 4, dtype=torch.int32,
+                         device=dev)
+        act = torch.ones(culling.nb, dtype=torch.int32, device=dev)
+        args = (table, culling, spec, tiles, 23, lanes, rem, act)
+        pos_args, kw_on = k1_args(*args)
+        kw_off = dict(kw_on, park_aureole=False)
+        check(kw_on["park_aureole"], f"{label}: K1 not asked to park")
+        got = kb.bounce_reflect_culled(*pos_args, **kw_on)
+        off = kb.bounce_reflect_culled(*pos_args, **kw_off)
+        want = kb.bounce_reflect_culled_ref(*pos_args, **kw_on)
+        torch.cuda.synchronize()
+        live = k1_live(lanes[2], rem, act)
+        n_live = int(live.sum())
+        err, flips, errs = k1_compare(
+            got, want, live, max_flips=int(1e-5 * n_live) + 1,
+            traced=k1_traced(*args))
+        worst = max(worst, err)
+        enc = got[3] <= -16
+        n_enc, n_enc_ref = int(enc.sum()), int((want[3] <= -16).sum())
+        reborn = (lanes[2] <= 0.0) & live
+        check(n_enc > 0 and not bool((enc & ~reborn).any()),
+              f"{label}: {n_enc} encoded sids, some on lanes not reborn")
+        dec = torch.where(enc, -got[3] - 16, got[3])
+        check(torch.equal(dec, off[3]), f"{label}: decoded sids differ "
+              "from the kernel's without parking")
+        for k in (0, 1, 2, 4):
+            check(torch.equal(got[k], off[k]), f"{label}: output {k} "
+                  "moved with parking")
+        bnd = k1_bound(table, culling, spec, lanes, rem, want)
+        del got, off, want
+
+        def call(kw):
+            return lambda: kb.bounce_reflect_culled(*pos_args, **kw)
+        p1 = time_cuda(lambda: kb.bounce_reflect_culled_ref(*pos_args,
+                                                            **kw_on), 3)
+        t_off = [time_cuda(call(kw_off), 20)]
+        t_on = [time_cuda(call(kw_on), 20), time_cuda(call(kw_on), 20)]
+        t_off.append(time_cuda(call(kw_off), 20))
+        log(f"K1 parking, {label}: culling {culling.nb} tiles (L_mean "
+            f"{culling.stats['L_mean']:.1f}, L_max {culling.stats['L_max']}"
+            f", built in {t_build:.1f} s); {n_live} live lanes, "
+            f"{n_enc} encoded sids (plain {n_enc_ref}), flips {flips}, max "
+            f"abs err {err:.2e} ("
+            + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+            + f"); at {slab} lanes kernel with parking "
+            f"{', '.join(f'{t:.4f}' for t in t_on)} ms, without "
+            f"{', '.join(f'{t:.4f}' for t in t_off)} ms, plain {p1:.3f} ms,"
+            f" bound {bnd[0]:.4f} ms ({bnd[1]}) ({card})")
+        del lanes, pos_args, kw_on, kw_off
+    return worst
+
+
+def aureole_trace_phase(dev, card, kb, kn, culling0, t_culling0, unparked,
+                        rect_unculled):
+    """Phase 5's NSTTF trace (537,919,488 rays, slab 2,101,248, max_path
+    8, min_energy 1e-6, the 50x50 receiver flux map) with a parked
+    culling, beside the unparked ``culling0`` (built in ``t_culling0``
+    s): one counted trace at full size (emit-drain cycles, lanes drained,
+    aureole-parked lanes: encoded hits that survive min_energy), then
+    three timed (median and every wall, K1 and K2 launches); the
+    unparked culling's counted trace too. Guards:
+    bench.py's (check_trace) on every trace, and the receiver within 3
+    combined binomial sigma of phase 5's ``unparked`` (receiver fraction,
+    rays, median wall). Then the rect-source NSTTF (phase 10's source,
+    537,919,488 rays) with a parked culling once: closure below 1e-4, the
+    flux map, the receiver above 0.02 and within phase 10's margins of
+    its unculled trace ``rect_unculled`` (receiver 1.5%, mirrors 3%,
+    escaped 0.5%). Returns (K1, K2) launches of the timed and rect
+    traces."""
+    import math
+    import statistics
+    import torch
+    from tracer_tpu_torch import engine
+    from tracer_tpu_torch.analysis.device_fluxmap import flux_plan
+    from tracer_tpu_torch.culling import build_block_culling
+    from tracer_tpu_torch.engine import energy_closure
+    from tracer_tpu_torch.models import nsttf
+    base = (1 << 20) // kb.TILE * kb.TILE + kb.TILE
+    # parked lanes stay frozen until no tile can emit, so a tile over
+    # dense mirrors silts up and the emission tail runs long: the round
+    # budget is phase 5's depth-1 trace's
+    slab, total, max_rounds = 2 * base, 512 * base, 20_000
+    table, meta, info = nsttf.build_scene(device=dev)
+    source_fn = nsttf.make_source_fn(info, slab)
+    t0 = time.perf_counter()
+    culling = build_block_culling(table, meta, source_fn.pallas_spec, slab,
+                                  park_aureole=True)
+    t_build = time.perf_counter() - t0
+    check(culling.park_aureole, "NSTTF: culling does not park")
+    log(f"parked NSTTF culling: {culling.nb} tiles in {t_build:.1f} s, "
+        f"L_mean {culling.stats['L_mean']:.2f}, L_max "
+        f"{culling.stats['L_max']} (unparked: {t_culling0:.1f} s, L_mean "
+        f"{culling0.stats['L_mean']:.2f}, L_max {culling0.stats['L_max']})"
+        f" ({card})")
+    fspec = flux_plan(meta, "receiver", resolution=50)
+
+    def run(seed, table=table, source_fn=source_fn, culling=culling):
+        return engine.trace_streaming(
+            table, source_fn, torch.Generator().manual_seed(seed), total,
+            max_rounds=max_rounds, max_path=8, min_energy=1e-6,
+            culling=culling, fluxspecs=(fspec,))
+
+    # one counted trace with each culling: rounds, the drains and the
+    # lanes they take, K1's encoded hits and those that survive to park
+    k1_fn, drain_fn = engine.bounce_reflect_culled, engine._chunked_drain
+    for label, cul in (("unparked", culling0), ("parked", culling)):
+        seen = {"parked": torch.zeros((), dtype=torch.int64, device=dev),
+                "hits": torch.zeros((), dtype=torch.int64, device=dev),
+                "drains": 0, "drained": 0}
+
+        def counted_k1(*args, **kw):
+            out = k1_fn(*args, **kw)
+            enc = out[3] <= -16
+            seen["hits"] += enc.sum()
+            seen["parked"] += (enc & (out[2] > 1e-6)).sum()
+            return out
+
+        def counted_drain(e, *args, **kw):
+            seen["drains"] += 1
+            seen["drained"] += int((e > 0.0).sum())
+            return drain_fn(e, *args, **kw)
+        engine.bounce_reflect_culled = counted_k1
+        engine._chunked_drain = counted_drain
+        try:
+            l1 = kb.bounce_reflect_culled.launches
+            l2 = kb.bounce_reflect.launches
+            accum, emitted, source_e = run(0, culling=cul)
+            rounds = kb.bounce_reflect_culled.launches - l1
+            k2_counted = kb.bounce_reflect.launches - l2
+        finally:
+            engine.bounce_reflect_culled = k1_fn
+            engine._chunked_drain = drain_fn
+        check_trace(f"{label} NSTTF", accum, emitted, source_e, total,
+                    energy_closure)
+        parked, hits = int(seen["parked"]), int(seen["hits"])
+        check((parked > 0) == (label == "parked"),
+              f"{label} NSTTF: {parked} aureole lanes parked")
+        log(f"{label} NSTTF, counted trace: {rounds} rounds (K1 launches),"
+            f" {k2_counted} K2 launches in {seen['drains']} drains of "
+            f"{seen['drained']} live lanes; {hits} aureole-born hits, "
+            f"{parked} parked = {100 * parked / int(emitted):.4f}% of "
+            f"{int(emitted)} refills ({card})")
+    reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
+                   kn.nearest_hit)
+    walls, recs = [], []
+    for rep in (1, 2, 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accum, emitted, source_e = run(rep)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        rec, closure, flux_rec = check_trace("parked NSTTF", accum, emitted,
+                                             source_e, total, energy_closure)
+        recs.append((rec, int(emitted), closure))
+    l1, l2 = kb.bounce_reflect_culled.launches, kb.bounce_reflect.launches
+    check(kn.nearest_hit.launches == 0, "parked NSTTF: K3 launched")
+    p0, n0, wall0 = unparked
+    worst = 0.0
+    for rec, n, _ in recs:
+        sig = math.sqrt(p0 * (1 - p0) * (1 / n + 1 / n0))
+        worst = max(worst, abs(rec - p0) / sig)
+        check(abs(rec - p0) < 3 * sig, f"parked NSTTF: receiver {rec} vs "
+              f"unparked {p0}, {abs(rec - p0) / sig:.2f} sigma")
+    wall = statistics.median(walls)
+    log(f"parked NSTTF: {recs[0][1]} rays emitted per call, receiver "
+        f"{', '.join(f'{r[0]:.5f}' for r in recs)} (unparked {p0:.5f}, "
+        f"largest difference {worst:.2f} sigma), closures "
+        f"{max(abs(r[2]) for r in recs):.1e}, flux/receiver "
+        f"{flux_rec:.6f}; K1 launches {l1}, K2 launches {l2} in 3 runs; "
+        f"wall median {wall:.3f} s of {', '.join(f'{w:.3f}' for w in walls)}"
+        f", {recs[0][1] / wall / 1e6:.1f} Mrays/s (unparked median "
+        f"{wall0:.3f} s, {n0 / wall0 / 1e6:.1f} Mrays/s) ({card})")
+
+    # the rect-source NSTTF with a parked culling, once
+    rect_fn = nsttf.make_rect_source_fn(info, slab)
+    t0 = time.perf_counter()
+    rect_cul = build_block_culling(table, meta, rect_fn.pallas_spec, slab,
+                                   park_aureole=True)
+    t_build = time.perf_counter() - t0
+    check(rect_cul.park_aureole, "rect: culling does not park")
+    rec_row = int((meta.row_logical == meta.index_of("receiver"))
+                  .nonzero()[0][0])
+    r1, r2 = kb.bounce_reflect_culled.launches, kb.bounce_reflect.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    accum, emitted, source_e = run(5, source_fn=rect_fn, culling=rect_cul)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    r1 = kb.bounce_reflect_culled.launches - r1
+    r2 = kb.bounce_reflect.launches - r2
+    em, se = int(emitted), float(source_e)
+    check(em >= total, f"parked rect: emitted {em} of {total}")
+    closure = energy_closure(accum, source_e)
+    check(abs(closure) < 1e-4, f"parked rect: closure {closure}")
+    for name in ("absorbed", "escaped", "culled", "residual"):
+        check(bool(torch.isfinite(getattr(accum, name)).all()),
+              f"parked rect: {name} not finite")
+    ab = accum.absorbed.double().cpu()
+    fsum = float(accum.flux[0].double().sum())
+    check(abs(fsum - float(ab[rec_row])) < 5e-3 * float(ab[rec_row]),
+          f"parked rect: flux map {fsum} vs receiver {float(ab[rec_row])}")
+    rec = float(ab[rec_row]) / se
+    f = dict(rec=rec, mir=float(ab.sum()) / se - rec,
+             esc=float(accum.escaped) / se)
+    check(rec > 0.02, f"parked rect: receiver fraction {rec}")
+    sigmas = []
+    for k, m in {"rec": 0.015, "mir": 0.03, "esc": 0.005}.items():
+        u = rect_unculled[k]
+        check(abs(f[k] - u) < m * u, f"parked rect: {k} {f[k]} vs "
+              f"unculled {u}")
+        sig = math.sqrt(max(u * (1 - u), 1e-12)
+                        * (1 / em + 1 / rect_unculled["n"]))
+        sigmas.append(f"{k} {abs(f[k] - u) / sig:.2f} sigma")
+    log(f"parked rect-source NSTTF: culling in {t_build:.1f} s (L_mean "
+        f"{rect_cul.stats['L_mean']:.2f}, L_max {rect_cul.stats['L_max']})"
+        f"; {em} rays, receiver {rec:.5f} (unculled "
+        f"{rect_unculled['rec']:.5f}), mirrors {f['mir']:.5f}, escaped "
+        f"{f['esc']:.5f}, difference {', '.join(sigmas)}, closure "
+        f"{closure:.1e}; K1 launches {r1}, K2 launches {r2}; wall "
+        f"{wall:.3f} s, {em / wall / 1e6:.1f} Mrays/s ({card})")
+    return l1 + r1, l2 + r2
 
 
 def check_trace(label, accum, emitted, source_e, total, energy_closure):

@@ -17,7 +17,8 @@ the card. Three more builds with planted errors show that the comparisons
 reject a kernel that is slightly wrong: K2 with Snell's law 0.1% off, K2
 with the split branch's energy taken before the medium's attenuation, K1
 (and the row code it shares) with the sign of a paraboloid's axial
-gradient flipped.
+gradient flipped, and K1 with its aureole flag set on lanes that were not
+reborn.
 """
 import ctypes
 import re
@@ -133,6 +134,10 @@ _PLANTED_SPLIT = ("o.s_e = o.split ? e_out * r_split : 0.0f;",
 # the paraboloid's axial gradient with its sign flipped (rows.cuh): the
 # curved field's normals tilt the other way, which k1_compare must reject
 _PLANTED_GRADIENT = ("      glz = qd[8];", "      glz = -qd[8];")
+# K1's aureole flag raised on every lane while parking is on, reborn or
+# not: k1_compare must reject the encoded sids of lanes that carried
+# their ray in
+_PLANTED_AUREOLE = ("a.e[l] <= 0.0f &&", "a.e[l] < 1e30f &&")
 
 
 def _compile(d, names, planted=None):
@@ -177,8 +182,9 @@ def _load(proc, so):
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """The emulated kernels, K2 with _PLANTED, K1 with _PLANTED_GRADIENT
-    and K2 with _PLANTED_SPLIT, built side by side."""
+    """The emulated kernels, K2 with _PLANTED, K1 with _PLANTED_GRADIENT,
+    K2 with _PLANTED_SPLIT and K1 with _PLANTED_AUREOLE, built side by
+    side."""
     jobs = (_compile(tmp_path_factory.mktemp("emulated"),
                      ("bounce", "nearest")),
             _compile(tmp_path_factory.mktemp("planted"), ("bounce",),
@@ -186,7 +192,9 @@ def libs(tmp_path_factory):
             _compile(tmp_path_factory.mktemp("planted_gradient"),
                      ("bounce",), _PLANTED_GRADIENT),
             _compile(tmp_path_factory.mktemp("planted_split"), ("bounce",),
-                     _PLANTED_SPLIT))
+                     _PLANTED_SPLIT),
+            _compile(tmp_path_factory.mktemp("planted_aureole"),
+                     ("bounce",), _PLANTED_AUREOLE))
     return tuple(_load(*job) for job in jobs)
 
 
@@ -347,13 +355,16 @@ def test_k1_source_matches_plain(lib, mode):
     """K1's CUDA source in each mode beyond the NSTTF's (the curved
     field's two classes, rect cells, the Lambertian receiver, spectral
     mirrors on a wavelength lane in an attenuating ambient, conductor
-    mirrors over an IAM receiver with c = 2, bifacial mirrors) on two
-    traced tiles and an idle one, with regeneration and slope error: no
-    flips, every lane within k1_compare's tolerance, the wavelength lane
-    where the field has one; hits on at least a quarter of the live
-    lanes, and the idle tile passed through."""
+    mirrors over an IAM receiver with c = 2, bifacial mirrors, aureole
+    parking under a Buie disk and on rect cells) on two traced tiles and
+    an idle one, with regeneration and slope error: no flips (encoded
+    sids included), every lane within k1_compare's tolerance, the
+    wavelength lane where the field has one; hits on at least a quarter
+    of the live lanes, at least 10 encoded sids where lanes park, and the
+    idle tile passed through."""
     _, got, want, live = _k1_mode(lib, mode)
     assert (want[3][live] >= 0).float().mean() > 0.25
+    assert (int((want[3] <= -16).sum()) >= 10) == mode.startswith("aureole")
     idle = slice(2 * kb.TILE, 3 * kb.TILE)
     assert (got[3][idle] == -1).all() and (got[4][idle] == 0).all()
     assert (len(got) == 6) == (mode == "spectral")
@@ -365,3 +376,11 @@ def test_k1_compare_rejects_planted_gradient(libs):
     tilt by up to twice the facets' slope at their rims."""
     with pytest.raises(AssertionError):
         _k1_mode(libs[2], "curved")
+
+
+def test_k1_compare_rejects_planted_aureole(libs):
+    """The parked rect-cell field through a K1 that raises its aureole
+    flag on lanes that were not reborn (_PLANTED_AUREOLE) fails
+    k1_compare: their hits come back encoded."""
+    with pytest.raises(AssertionError):
+        _k1_mode(libs[4], "aureole_rect")

@@ -370,9 +370,12 @@ def tile_args(culling, tiles=TILES):
 
 # K1's modes beyond the NSTTF's (chip_smoke.py phase 10, the emulated and
 # the on-card comparisons): each a field of NSTTF heliostats
-# (field_assembly) under its source (field_spec)
+# (field_assembly) under its source (field_spec); the "aureole" modes park
+# aureole-born lanes (culling park_aureole) under a Buie disk or the rect
+# source with CSR 0.2
 K1_MODES = ("curved", "rect", "lambertian", "spectral", "conductor_iam",
-            "bifacial")
+            "bifacial", "aureole", "aureole_rect")
+AUREOLE_CSR = 0.2               # the aureole modes' circumsolar ratio
 FIELD_BAND = (350e-9, 2.4e-6)   # the spectral field's wavelength band [m]
 FIELD_ATT = 2e-4                # and its ambient attenuation [1/m]
 
@@ -387,8 +390,9 @@ def field_assembly(pkg, mode: str, n: int):
     a Lambertian receiver (0.9); "spectral": mirrors whose absorptance
     rises from 0.05 to 0.15 over 300-2500 nm, in an attenuating ambient;
     "conductor_iam": Fresnel-conductor mirrors (n 1.2 + 6i) and an IAM
-    receiver (a_r 0.3, c 2); "bifacial": mirrors whose back absorbs 0.6.
-    Every receiver is 11 x 11 m, 60 m up, tilted toward (cx, cy, -45)."""
+    receiver (a_r 0.3, c 2); "bifacial": mirrors whose back absorbs 0.6;
+    "aureole" and "aureole_rect": the flat field. Every receiver is 11 x
+    11 m, 60 m up, tilted toward (cx, cy, -45)."""
     import importlib
     M, sp, sc, G = pkg.materials, pkg.spatial, pkg.scene, pkg.geometry
     hf = importlib.import_module(pkg.__name__ + ".models.heliostat_field")
@@ -434,31 +438,34 @@ def field_assembly(pkg, mode: str, n: int):
 def field_spec(pkg, mode: str, n: int, slab: int) -> tuple:
     """The pallas spec of K1 mode ``mode``'s source over the first n
     pads, at ``slab`` lanes: the NSTTF's rect source for "rect", else its
-    Buie disk (with the band and the attenuation for "spectral")."""
+    Buie disk (with the band and the attenuation for "spectral"); CSR 0.02,
+    AUREOLE_CSR for the "aureole" modes (a rect source for
+    "aureole_rect")."""
     import importlib
     hf = importlib.import_module(pkg.__name__ + ".models.heliostat_field")
     pos = hf.load_heliostat_positions()[:n]
     sun = hf.solar_vector(0.0, np.pi / 6)
-    if mode == "rect":
+    csr = AUREOLE_CSR if mode.startswith("aureole") else 0.02
+    if mode in ("rect", "aureole_rect"):
         center_xy = pos[:, :2].mean(axis=0)
         half = (pos[:, :2].max(axis=0) - pos[:, :2].min(axis=0)) / 2 + 12.0
         src_c = (np.array([center_xy[0], center_xy[1], 0.0])
                  + sun * (300.0 / sun[2]))
         return pkg.sources.rect_buie_sunshape_pallas_spec(
             slab, src_c, [0.0, 0.0, -1.0], 2.0 * float(half[0]),
-            2.0 * float(half[1]), 0.02, 1000.0, rays_direction=-sun)
+            2.0 * float(half[1]), csr, 1000.0, rays_direction=-sun)
     center = pos.mean(axis=0)
     extent = float(np.max(np.hypot(*(pos[:, :2] - center[:2]).T))) + 10.0
     kw = (dict(wl_band=FIELD_BAND, ambient_att=FIELD_ATT)
           if mode == "spectral" else {})
     return pkg.sources.buie_sunshape_pallas_spec(
-        slab, center + sun * 300.0, -sun, extent, 0.02, 1000.0, **kw)
+        slab, center + sun * 300.0, -sun, extent, csr, 1000.0, **kw)
 
 
-def k1_modes(table, spec) -> dict:
+def k1_modes(table, spec, culling=None) -> dict:
     """bounce_reflect_culled's keyword arguments for a cullable scene's
-    trace under ``spec`` (engine._trace_culled's), and the spectral table
-    where its rows read it."""
+    trace under ``spec`` (engine._trace_culled's) with ``culling``'s
+    parking, and the spectral table where its rows read it."""
     kinds, feats = set(table.kinds_present), set(table.features)
     spectral = ptt.materials.K_REFLECT_SPECTRAL in kinds
     conductor = ptt.materials.K_FRESNEL_CONDUCTOR in kinds
@@ -470,17 +477,23 @@ def k1_modes(table, spec) -> dict:
                 lambertian=ptt.materials.K_LAMBERTIAN in kinds,
                 ambient_att=ptt.engine._spec_medium(spec)[0],
                 conductor=conductor, iam=ptt.engine._iam_mode(table),
-                backside_miss="bifacial" in feats)
+                backside_miss="bifacial" in feats,
+                park_aureole=bool(getattr(culling, "park_aureole", False)))
 
 
-def k1_scene(mode: str, n: int, slab: int, device):
+def k1_scene(mode: str, n: int, slab: int, device, park_aureole=None):
     """(table, meta, culling, spec) of K1 mode ``mode`` over the first n
-    pads, the culling built for ``slab`` lanes."""
+    pads, the culling built for ``slab`` lanes, parking aureole-born lanes
+    with ``park_aureole`` (None: in the "aureole" modes)."""
     asm, extra = field_assembly(ptt, mode, n)
     table, meta = ptt.compile_scene(asm, extra_features=extra,
                                     device=device)
     spec = field_spec(ptt, mode, n, slab)
-    return table, meta, build_block_culling(table, meta, spec, slab), spec
+    if park_aureole is None:
+        park_aureole = mode.startswith("aureole")
+    culling = build_block_culling(table, meta, spec, slab,
+                                  park_aureole=park_aureole)
+    return table, meta, culling, spec
 
 
 def k1_lanes(meta, culling, tiles, seed: int, dead: float, device,
@@ -598,7 +611,8 @@ def k1_compare(got, want, live, max_flips: int, traced=None, rtol=1e-5,
         tpos, tdir, normal = traced
         cos2 = ((tdir * normal).sum(1) ** 2
                 / (normal * normal).sum(1).clamp(min=1e-30))
-        cos2 = torch.where(ws >= 0, cos2, 1.0).clamp(min=1e-4)
+        hit = (ws >= 0) | (ws <= -16)           # encoded sids hit too
+        cos2 = torch.where(hit, cos2, 1.0).clamp(min=1e-4)
         moved = (wp - tpos).norm(dim=1)
         scale = 1.0 + tpos.abs().amax(dim=1)
         pos_lim = torch.maximum(pos_lim, rtol * (scale + moved) / cos2)
@@ -626,12 +640,12 @@ def k1_args(table, culling, spec, tiles, seed: int, lanes, remaining,
             active, **kw):
     """bounce_reflect_culled's (positional, keyword) arguments on the
     ``tiles``' lanes with their quotas ``remaining`` and ``active``
-    flags, in the modes of ``table`` and ``spec`` (k1_modes; ``kw``
-    overrides them), every tensor on the lanes' device."""
+    flags, in the modes of ``table``, ``spec`` and ``culling`` (k1_modes;
+    ``kw`` overrides them), every tensor on the lanes' device."""
     dev = lanes[0].device
     lists, counts, cells, cb = (torch.as_tensor(a, device=dev)
                                 for a in tile_args(culling, tiles))
-    modes = dict(k1_modes(table, spec), **kw)
+    modes = dict(k1_modes(table, spec, culling), **kw)
     if modes["spectral_tab"] is not None:
         modes["spectral_tab"] = modes["spectral_tab"].to(dev)
     pos, dirs, e, wl = lanes

@@ -294,12 +294,13 @@ def test_trace_streaming_matches_jax(cfg):
 
 
 def test_unported_streaming_modes_raise():
-    """Mixed IAM exponents, the aureole parking of tracer_tpu's mesh
+    """Mixed IAM exponents, the culling layouts of tracer_tpu's mesh
     builds and float64 traces raise naming their ROADMAP items; K2's
     refr_split needs ref_index (ValueError, as tracer_tpu asserts); a
-    cullable scene traces culled, an energy-splitting scene on the
-    general path, single-ray refraction, the spec's HG medium and the
-    stage (d) kinds on the plain megakernel."""
+    cullable scene traces culled, with aureole parking too, an
+    energy-splitting scene on the general path, single-ray refraction,
+    the spec's HG medium and the stage (d) kinds on the plain
+    megakernel."""
     table, meta, source_fn = bench_scene(2, SLAB, "cpu")
     G, M = ptt.geometry, ptt.materials
 
@@ -329,12 +330,18 @@ def test_unported_streaming_modes_raise():
                                       SLAB, max_rounds=8, max_path=4,
                                       culling=culling)
     assert int(emitted) == SLAB
-    # ... but not with tracer_tpu's aureole parking (its mesh builds)
+    # ... with K1's aureole parking on too, but tracer_tpu's mesh layouts
+    # are not built
     parked = dataclasses.replace(culling)
     object.__setattr__(parked, "park_aureole", True)
+    acc, emitted, se = trace_streaming(table, source_fn, torch.Generator(),
+                                       SLAB, max_rounds=8, max_path=4,
+                                       culling=parked)
+    assert int(emitted) == SLAB
+    assert abs(energy_closure(acc, se)) < 1e-5
     with pytest.raises(NotImplementedError, match="A13"):
-        trace_streaming(table, source_fn, torch.Generator(), SLAB,
-                        culling=parked)
+        build_block_culling(table, meta, source_fn.pallas_spec, SLAB,
+                            mesh_devices=2)
     with pytest.raises(NotImplementedError, match="A4"):
         trace_streaming(scene(M.reflective(0.1), torch.float64), source_fn,
                         torch.Generator(), SLAB)

@@ -27,6 +27,14 @@ error wider than ``w_cap``) are *demoted*: the engine parks their surviving
 rays and re-traces them against the full surface list in a drain phase.
 Rays older than ``age_cap`` are parked the same way.
 
+With ``park_aureole`` (Buie sources, on request) the invariant splits by
+emission angle: the FIRST-segment sweep covers the full sunshape cone
+(every first hit of every ray, aureole included, is in ``lists[b]``),
+while the specular CLOSURE covers only rays within the solar-disc cone;
+the culled kernel marks the hits of lanes born into the aureole by an
+encoded sid, and the engine parks their survivors for the exact drain,
+like demoted-surface survivors.
+
 The TPU build's scalar-memory budget (segments, row shards, corridor
 degrades) and its mesh layouts do not exist on the GPU and are left out:
 for scenes that fit the TPU budget the lists are identical to
@@ -66,6 +74,8 @@ class BlockCulling:
     age_caps (nb,) int32 per-block corridor depth: a block's rays park
             after this many bounces on the fast path
     demote_rows rows whose surviving rays are parked (wide scatterers)
+    park_aureole the closure is sized to the solar-disc cone: the culled
+            trace parks the survivors of aureole-born lanes' first bounce
     """
 
     lists: np.ndarray
@@ -77,6 +87,7 @@ class BlockCulling:
     group_offsets: tuple
     demote_rows: tuple
     stats: dict
+    park_aureole: bool = False
 
     @property
     def nb(self) -> int:
@@ -831,7 +842,8 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
                         w_cap: float = 0.15, age_cap: int = 3,
                         margin: float = 0.25, resolution: int = 8,
                         balance: bool = True,
-                        pilot_rays: int = 256) -> BlockCulling:
+                        pilot_rays: int = 256, mesh_devices: int = 1,
+                        park_aureole: Optional[bool] = None) -> BlockCulling:
     """Build per-block candidate lists for a disk source
     (``sources.buie_sunshape_pallas_spec``, ``disk_pillbox_pallas_spec``)
     or a rect one (``rect_buie_sunshape_pallas_spec``,
@@ -850,7 +862,16 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
     angles) or a rect cell's [x0, x1, y0, y1] in local metres, as the
     kernels sample them. Raises NotImplementedError for scenes whose
     packed rows or candidate lists exceed what the bounce kernels stage
-    in shared memory (ROADMAP B5)."""
+    in shared memory (ROADMAP B5), and for ``mesh_devices > 1``, the
+    layouts of tracer_tpu's mesh-sharded trace (ROADMAP A13).
+
+    ``park_aureole=True`` sizes the specular closure to the solar-disc
+    cone (1.001 theta_dni) while the first-segment sweep keeps the full
+    sunshape cone: shorter lists, and the culled trace parks the
+    survivors of aureole-born lanes' first bounce for the exact drain.
+    It is off for a source without an aureole. ``None`` (the default)
+    means off: tracer_tpu turns it on by itself only for its mesh
+    builds."""
     from .kernels.bounce import MAX_STAGE_FLOATS, TILE, row_width
     from .accel import UNBOUNDED_KINDS
     tile = tile or TILE
@@ -868,6 +889,10 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
             f"culling needs bounded surfaces; rows {unbounded} have "
             "unbounded kinds "
             f"({sorted({_row_geometries(meta)[i].kind for i in unbounded})})")
+    if mesh_devices > 1:
+        raise NotImplementedError(
+            "mesh-targeted culling layouts serve the sharded trace "
+            "(ROADMAP A13)")
     nb = slab // tile
     (cx, cy, cz, rot, radius, _e_ray, _coeffs, _disc_end, gamma, _kappa,
      _integ, theta_tot, theta_dni) = source_spec[:13]
@@ -885,11 +910,16 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
         cells_fn = lambda nc: rect_cells(nc, *rect_wh)   # noqa: E731
     else:
         cells_fn = disk_cells
-    # corridors cover the full sunshape cone (out to the aureole's
-    # theta_tot for Buie sources); the TPU build's disc-cone corridors with
-    # parked aureole lanes (park_aureole) exist only for its mesh layouts
+    # Buie sunshapes carry a circumsolar aureole out to theta_tot, ~10x
+    # the solar-disc cone theta_dni. The first-segment sweep always covers
+    # the full cone; with park_aureole the specular closure covers only
+    # the disc cone (the kernel flags aureole-born lanes' hits and the
+    # engine parks their survivors). The 1.001 covers the inverse-CDF
+    # polynomial's fit error.
+    park_aureole = bool(park_aureole) and gamma is not None
     theta_first = float(theta_tot if gamma is not None else theta_dni)
-    theta_reach = theta_first
+    theta_reach = (1.001 * float(theta_dni) if park_aureole
+                   else theta_first)
 
     import time as _time
     t_phase = {}
@@ -1069,4 +1099,4 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
                         age_caps=age_caps, group_offsets=offsets,
                         demote_rows=tuple(int(r) for r in
                                           np.nonzero(demote)[0]),
-                        stats=stats)
+                        stats=stats, park_aureole=park_aureole)

@@ -303,7 +303,7 @@ def _trace_streaming_megakernel_culled(
         max_rounds: int, max_path: int, min_energy: float, t_eps: float,
         disc_eps: float, bivar, one_sided: bool, slope: bool,
         demote_rows: tuple, fluxspecs: tuple = (), spectral: bool = False,
-        modes=None):
+        modes=None, park_aureole: bool = False):
     """Relevancy-culled streaming trace (tracer_tpu/engine.py:1158): each
     tile owns one equal-area source cell and intersects only its static
     candidate list; per-tile quotas keep the stratified emission
@@ -311,8 +311,10 @@ def _trace_streaming_megakernel_culled(
     the parking and the drain (fresh rays draw it from the spec's band);
     ``modes`` holds K1's epilogue switches (kernels.bounce.CULLED_MODES),
     which the drain's K2 takes too. With an ambient attenuation the medium
-    takes each hit segment's loss beyond the surfaces'. Returns (accum,
-    rays emitted, source energy)."""
+    takes each hit segment's loss beyond the surfaces'. With
+    ``park_aureole`` (the culling's) K1 flags the hits of aureole-born
+    lanes, and their survivors park for the drain. Returns (accum, rays
+    emitted, source energy)."""
     dev = scene.device
     nb = lists.shape[0]
     assert slab == nb * TILE, "culled path needs ray count == nb * TILE"
@@ -403,12 +405,18 @@ def _trace_streaming_megakernel_culled(
                 rows, lists, counts, cells, cell_bounds, _seed(generator),
                 remaining_b, active_b, pos, dirs, e, scene.groups,
                 group_offsets, source_spec=source_spec, wavelength=wl,
-                **shared)
+                park_aureole=park_aureole, **shared)
             npos, ndirs, ne, sid, absorbed = outs[:5]
             # parked lanes are frozen: the kernel traces them anyway, but
             # their results are discarded until the drain
             sid = torch.where(parked, -1, sid)
             absorbed = torch.where(parked, 0.0, absorbed)
+            # a hit of a lane born into the aureole arrives encoded as
+            # -(row + 16): account it like any other and park the
+            # survivor, since the disc-sized closure does not cover its
+            # reflected cone
+            aur_hit = sid <= -16
+            sid = torch.where(aur_hit, -sid - 16, sid)
             hit = sid >= 0
             _account(accum, sid, ~parked & (e_before > 0.0) & ~hit,
                      absorbed, e_before)
@@ -423,9 +431,10 @@ def _trace_streaming_megakernel_culled(
             accum.culled += torch.where(low, ne, 0.0).sum()
             ne = torch.where(hit & ~low, ne, 0.0)
             age = torch.where(~parked & (e_before > 0.0), age + 1, age)
-            # park survivors of demoted rows and rays at the age cap
+            # park survivors of demoted rows, of aureole-born lanes' first
+            # bounce and rays at the age cap
             demote_hit = hit & demote[sid.clamp(min=0).long()]
-            newly = ~parked & (ne > 0.0) & (demote_hit
+            newly = ~parked & (ne > 0.0) & (demote_hit | aur_hit
                                             | (age >= age_cap_lane))
             pos = torch.where(parked[:, None], pos, npos)
             dirs = torch.where(parked[:, None], dirs, ndirs)
@@ -743,10 +752,6 @@ def _trace_culled(scene, spec, culling, generator, total_rays, n, common,
     the wavelength lane where spectral or dispersive-conductor rows read
     it."""
     kinds, features = set(scene.kinds_present), set(scene.features)
-    if getattr(culling, "park_aureole", False):
-        raise NotImplementedError(
-            "aureole parking serves tracer_tpu's mesh-targeted culling "
-            "builds; the port's culling has none (ROADMAP A13)")
     nb = culling.nb
     if n != nb * TILE:
         raise ValueError(
@@ -780,7 +785,8 @@ def _trace_culled(scene, spec, culling, generator, total_rays, n, common,
         dev_i32(culling.block_quota(total_rays)), dev_i32(culling.age_caps),
         source_spec=spec, group_offsets=culling.group_offsets, slab=n,
         demote_rows=culling.demote_rows, disc_eps=disc_eps,
-        spectral=_culled_wl(scene), modes=modes, **common)
+        spectral=_culled_wl(scene), modes=modes,
+        park_aureole=culling.park_aureole, **common)
 
 
 # the per-ray state fields of a streaming slab that regeneration moves

@@ -9,9 +9,9 @@ their plain PyTorch versions.
   aperture kind) and the epilogue of every cullable kind: reflect with
   slope error and the one-sided kill, the Lambertian lobe, spectral
   absorptance on a wavelength lane, Beer-Lambert attenuation, Fresnel
-  conductors, IAM, and the bifacial rows' backside_miss. Its aureole
-  parking (park_aureole) serves tracer_tpu's mesh builds only (ROADMAP
-  A13).
+  conductors, IAM, and the bifacial rows' backside_miss; with
+  ``park_aureole``, the hits of lanes reborn into the sunshape's
+  circumsolar aureole come back as encoded sids, -(sid + 16).
 * :func:`bounce_reflect` (K2) — one brute-force bounce over all scene
   rows (port of bounce_reflect_pallas, stages a to e): every quadric
   class and aperture kind, reflect with slope error and the one-sided
@@ -726,7 +726,9 @@ def _sample_cell(spec, seed: int, stream, lane, cb):
     """Fresh rays from each lane's equal-area source cell (the kernels'
     sample_cell): a Buie disk cell [a0, a1, th0, th1] (area fractions,
     angles) or a rect cell [x0, x1, y0, y1] (local metres). Six ray
-    components and the wavelength (None without a band)."""
+    components, the wavelength (None without a band) and whether the
+    polar angle fell in the circumsolar aureole (u3 >= disc_end, never
+    without one)."""
     p = [float(v) for v in source_params(spec)]
     u1, u2, u3, u4 = uniforms(seed, stream, lane, CALL_REGEN)
     c0, c1, c2, c3 = cb.unbind(1)
@@ -737,8 +739,10 @@ def _sample_cell(spec, seed: int, stream, lane, cb):
         rr = p[12] * torch.sqrt(c0 + u1 * (c1 - c0))
         ang = c2 + u2 * (c3 - c2)
         lx, ly = rr * torch.cos(ang), rr * torch.sin(ang)
+    aureole = ((u3 >= p[14]) if p[15]
+               else torch.zeros_like(u3, dtype=torch.bool))
     return _source_ray(p, p[0:3], p[3:12], p[SP_DROT:SP_DROT + 9], lx, ly,
-                       u3, u4, seed, stream, lane)
+                       u3, u4, seed, stream, lane) + [aureole]
 
 
 def _sample_disk(spec, pose, seed: int, stream, lane):
@@ -759,11 +763,11 @@ def _sample_disk(spec, pose, seed: int, stream, lane):
                        stream, lane)
 
 
-# the switches of K1's epilogue (bounce_reflect_culled_pallas's names) and
-# of its candidate loop, each False by default; ``iam`` is False or the
-# scene's exponent c
+# the switches of K1's epilogue (bounce_reflect_culled_pallas's names), of
+# its candidate loop and of its sid store, each False by default; ``iam``
+# is False or the scene's exponent c
 CULLED_MODES = ("lambertian", "ambient_att", "conductor", "iam",
-                "backside_miss")
+                "backside_miss", "park_aureole")
 
 
 def _check_culled_modes(wavelength, spectral_tab, modes):
@@ -796,6 +800,7 @@ def bounce_reflect_culled_ref(rows, lists, counts, cells, cell_bounds,
     rays = list(pos.unbind(1)) + list(dirs.unbind(1))
     e, wl = energy, wavelength
     stream = cells[blk]
+    aureole = torch.zeros_like(dead)
     if source_spec is not None:
         do = dead & act & (rank < remaining[blk])
         fresh = _sample_cell(source_spec, seed, stream, lane,
@@ -804,6 +809,8 @@ def bounce_reflect_culled_ref(rows, lists, counts, cells, cell_bounds,
         e = torch.where(do, float(source_params(source_spec)[SP_ERAY]), e)
         if wl is not None and fresh[6] is not None:
             wl = torch.where(do, fresh[6], wl)
+        if modes.get("park_aureole"):
+            aureole = do & fresh[7]
     t_b, sid_b, normal, up = _nearest_listed(
         rows, lists, counts, groups, group_offsets, blk, rays, t_eps,
         disc_eps, modes.get("backside_miss", False))
@@ -815,6 +822,9 @@ def bounce_reflect_culled_ref(rows, lists, counts, cells, cell_bounds,
         ambient_att=modes.get("ambient_att", 0.0), **extra)[:4]
     live = e > 0.0
     sid = torch.where(live & (sid_b >= 0), sid_b, -1)
+    # a hit of a lane reborn into the aureole: the engine decodes it and
+    # parks the survivor
+    sid = torch.where(aureole & (sid >= 0), -sid - 16, sid)
     absorbed = torch.where(live, absorbed, 0.0)
     # idle tiles pass their state through
     npos = torch.where(act[:, None], npos, pos)
@@ -973,13 +983,13 @@ class _Modes(ctypes.Structure):
         "refr_frost", "refr_disp", "scat", "ambient_scat", "ambient_g",
         "cook_torrance", "lam_specular", "semi_lambertian", "transparent",
         "conductor", "periodic", "piecewise", "iam_c", "backside_miss",
-        "refr_split")]
+        "refr_split", "park_aureole")]
 
 
 @functools.lru_cache(maxsize=64)
 def _modes(bivar, one_sided, slope, lambertian, ambient_att, refr_frost,
            refr_disp, scat, ambient_scat, ambient_g, backside_miss,
-           extra, refr_split=False) -> _Modes:
+           extra, refr_split=False, park_aureole=False) -> _Modes:
     """The mode struct of these switches (``extra`` the EXTRA_MODES
     values in order), built once: the cache keeps it alive for the C
     call."""
@@ -991,7 +1001,7 @@ def _modes(bivar, one_sided, slope, lambertian, ambient_att, refr_frost,
                   bool(refr_disp), bool(scat), float(ambient_scat),
                   float(ambient_g),
                   *(bool(x[k]) for k in EXTRA_MODES if k != "iam"), iam_c,
-                  bool(backside_miss), bool(refr_split))
+                  bool(backside_miss), bool(refr_split), bool(park_aureole))
 
 
 def _ray_outputs(n, device):
@@ -1035,6 +1045,10 @@ def bounce_reflect_culled(rows, lists, counts, cells, cell_bounds,
               table; without a lane at wavelength 0), the Martin-Ruiz IAM
               (False or the scene's exponent c) and the bifacial rows'
               one-sided test
+    park_aureole  (keyword) a lane regenerated this call into the
+              sunshape's circumsolar aureole (its polar-angle uniform at
+              or past disc_end) reports a hit on row s as sid -(s + 16);
+              every other output is unchanged (culling.park_aureole)
 
     The NSTTF's modes (flat rect rows, K_REFLECT) run the kernel's own
     instance; any other mode or class the general one, conductor and IAM
@@ -1104,7 +1118,7 @@ def launch_k1(lib, rows, lists, counts, cells, cell_bounds, seed: int,
               slope: bool = True, source_spec=None, wavelength=None,
               spectral_tab=None, disc_eps: float = 1e-6, lambertian=False,
               ambient_att: float = 0.0, conductor=False, iam=False,
-              backside_miss=False):
+              backside_miss=False, park_aureole=False):
     """Marshal one call of the library's ``tt_bounce_culled`` (checked
     arguments, tensors on one device; ``stream`` the CUDA stream, None for
     the default). Returns (the C function's error code,
@@ -1118,7 +1132,8 @@ def launch_k1(lib, rows, lists, counts, cells, cell_bounds, seed: int,
     extra = tuple(conductor if k == "conductor" else iam if k == "iam"
                   else False for k in EXTRA_MODES)
     modes = _modes(bivar, one_sided, slope, lambertian, ambient_att, False,
-                   False, False, 0.0, 0.0, backside_miss, extra)
+                   False, False, 0.0, 0.0, backside_miss, extra,
+                   park_aureole=park_aureole)
     outs = _ray_outputs(nb * TILE, dev)
     nwl = None if wavelength is None else torch.empty_like(wavelength)
     n_tab = spectral_tab.shape[0] if spectral_tab is not None else 0

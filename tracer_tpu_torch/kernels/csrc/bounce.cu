@@ -16,8 +16,14 @@
 // absorptance on a wavelength lane (drawn from the source's band on
 // regeneration), ambient Beer-Lambert attenuation and the bifacial rows'
 // backside_miss; <true, true> adds the Fresnel conductor and the IAM
-// (K2's kExtra epilogue). Aureole parking (park_aureole), which only
-// tracer_tpu's mesh builds turn on, is not ported.
+// (K2's kExtra epilogue). Every instance takes aureole parking
+// (park_aureole, :1967-1981, :2021-2026) as a run-time switch tested
+// outside the row loop: a lane reborn into the sunshape's circumsolar
+// aureole stores its hit as sid -(sid + 16), which the engine decodes and
+// parks for the exact drain. Nothing of it is carried across the row
+// loop, whose general instances sit at their register cap: at the store,
+// a hit lane that entered dead was reborn this call, and its sampler's
+// draw is made again (aureole_draw).
 //
 // tt_bounce (K2) replaces bounce_reflect_pallas (:1693, body
 // _make_fused_kernel :1517), stages (a) to (e): one thread per lane, a
@@ -210,6 +216,16 @@ __device__ __forceinline__ void sample_cell(const float* sp, const float* cb,
   dz = drot[6] * ax + drot[7] * ay + drot[8] * az;
 }
 
+// whether a fresh ray of sample_cell drew its polar angle in the
+// circumsolar aureole (u3 >= disc_end; never without an aureole): the
+// sampler's draw made again
+__device__ __forceinline__ bool aureole_draw(const float* sp, uint32_t seed,
+                                             uint32_t stream, uint32_t lane) {
+  float u[4];
+  uniforms4(seed, stream, lane, CALL_REGEN, u);
+  return sp[SP_HAS_GAMMA] != 0.0f && u[2] >= sp[SP_DISC_END];
+}
+
 // a fresh ray's wavelength, uniform in the source's band (its own draw)
 __device__ __forceinline__ float band_wl(const float* sp, uint32_t seed,
                                          uint32_t stream, uint32_t lane) {
@@ -369,6 +385,7 @@ struct Modes {
   int backside_miss;   // F_BACKSIDE_MISS rows reject local +Z arrivals
   int refr_split;      // F_SPLIT refractive rows split the energy (K2:
                        // a kSplit instance)
+  int park_aureole;    // K1: hits of aureole-born lanes get encoded sids
 };
 
 // the epilogue's runtime modes (the template flags of shade pick the rest)
@@ -990,7 +1007,12 @@ __global__ void __launch_bounds__(K1_THREADS)
                o.e);
     if (kGeneral && a.nwl != nullptr) a.nwl[l] = wl;
     const bool live = in.e > 0.0f;
-    a.sid[l] = slot_best >= 0 && live ? ids_sm[slot_best] : -1;
+    const int sid = slot_best >= 0 && live ? ids_sm[slot_best] : -1;
+    // park_aureole: the hit of a lane reborn this call (it entered dead
+    // and is live) into the aureole is stored encoded
+    const bool parks = md.park_aureole && sid >= 0 && a.e[l] <= 0.0f &&
+                       aureole_draw(a.srcp, a.seed, stream, (uint32_t)t);
+    a.sid[l] = parks ? -sid - 16 : sid;
     a.absorbed[l] = live ? o.absorbed : 0.0f;
   }
 }
