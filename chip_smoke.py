@@ -17,7 +17,10 @@ Phases, each printing its lines:
    inputs and random streams: K1 (bounce_reflect_culled) over 64 NSTTF
    tiles with regeneration and slope error, K2 (bounce_reflect) over the
    same lanes; then each one's time at the benchmark slab (2,101,248
-   lanes) beside its plain version's;
+   lanes) beside its plain version's, K1 dispatching the tiles in the
+   culling's order as the trace does, and K1's launch geometry there
+   (blocks, threads, lanes a block, blocks resident a SM, waves) with
+   the spread of the tiles' candidate rows;
 4. K3 (nearest_hit) against its plain version: on the MiniDish at
    4,194,304 lanes (the sun's rays, then their second bounce), on the
    NSTTF table, on a table with every quadric class and aperture kind and
@@ -397,9 +400,24 @@ def main(argv) -> None:
                                  source_spec=spec, **kw)
     pos, dirs, e = o[0], o[1], torch.where(o[3] >= 0, o[2], 0.0)
     rem[:] = kb.TILE // 4
+    # the trace's call: the culling's tile order, K1's launch geometry
+    order = i32(culling.order)
     call_k1 = (lambda: kb.bounce_reflect_culled(
         *args, 6, rem, act, pos, dirs, e, table.groups,
-        culling.group_offsets, te, source_spec=spec, **kw))
+        culling.group_offsets, te, source_spec=spec, order=order, **kw))
+    geo = kb.k1_geometry(args[1], rows, table.groups, culling.group_offsets,
+                         **kw)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_cand = torch.as_tensor(culling.counts.sum(1), dtype=torch.float64)
+    log(f"K1 launch geometry at {nbb} tiles: {geo['blocks']} blocks of "
+        f"{geo['threads']} threads, {geo['split']} a tile of {geo['sub']} "
+        f"lanes each, {geo['smem']} B of shared memory a block, "
+        f"{geo['resident']} resident a SM on {sms} SMs: "
+        f"{geo['blocks'] / (geo['resident'] * sms):.2f} waves; candidate "
+        f"rows a tile: median {float(n_cand.median()):.0f}, 90th "
+        f"percentile {float(n_cand.quantile(0.9)):.1f}, max "
+        f"{int(n_cand.max())}, {int((n_cand == 0).sum())} tiles with none, "
+        f"dispatched most first ({card})")
     call_k1_ref = (lambda: kb.bounce_reflect_culled_ref(
         *args, 6, rem, act, pos, dirs, e, table.groups,
         culling.group_offsets, te, source_spec=spec, **kw))
@@ -1358,7 +1376,11 @@ def k1_modes_phase(dev, card, kb) -> float:
         want = kb.bounce_reflect_culled_ref(*pos_args, **kw_args)
         bnd = k1_bound(table, culling, spec, lanes, rem, want)
         del want
-        call_k = (lambda: kb.bounce_reflect_culled(*pos_args, **kw_args))
+        order = torch.as_tensor(culling.order, device=dev)
+        call_k = (lambda: kb.bounce_reflect_culled(*pos_args, order=order,
+                                                   **kw_args))
+        geo = kb.k1_geometry(pos_args[1], pos_args[0], *pos_args[11:13],
+                             **kw_args)
         call_p = (lambda: kb.bounce_reflect_culled_ref(*pos_args,
                                                        **kw_args))
         p1 = time_cuda(call_p, 3)
@@ -1372,8 +1394,8 @@ def k1_modes_phase(dev, card, kb) -> float:
             f"{hits:.3f}, flips {flips}, max abs err {err:.2e} ("
             + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
             + f"); at {slab} lanes kernel {min(k1a, k1b):.4f} ms, plain "
-            f"{min(p1, p2):.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) "
-            f"({card})")
+            f"{min(p1, p2):.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
+            f"{geo['resident']} blocks resident a SM ({card})")
         del lanes, pos_args, kw_args
     return worst
 
@@ -1556,8 +1578,11 @@ def aureole_k1_phase(dev, card, kb) -> float:
         bnd = k1_bound(table, culling, spec, lanes, rem, want)
         del got, off, want
 
+        order = torch.as_tensor(culling.order, device=dev)
+
         def call(kw):
-            return lambda: kb.bounce_reflect_culled(*pos_args, **kw)
+            return lambda: kb.bounce_reflect_culled(*pos_args, order=order,
+                                                    **kw)
         p1 = time_cuda(lambda: kb.bounce_reflect_culled_ref(*pos_args,
                                                             **kw_on), 3)
         t_off = [time_cuda(call(kw_off), 20)]

@@ -8,7 +8,7 @@ import torch
 from benchmarks import nsttf as jax_nsttf
 from tracer_tpu.culling import build_block_culling as jax_build
 from tracer_tpu_torch.culling import build_block_culling
-from tracer_tpu_torch.kernels.bounce import TILE
+from tracer_tpu_torch.kernels.bounce import TILE, tile_order
 from tracer_tpu_torch.models import nsttf
 
 BENCH_SLAB = 2 * ((1 << 20) // TILE * TILE + TILE)
@@ -65,6 +65,24 @@ def test_block_quota_equal(cullings, slabs):
     j, p, slab = cullings
     np.testing.assert_array_equal(p.block_quota(slabs * slab),
                                   j.block_quota(slabs * slab))
+
+
+def test_tile_order_is_stable_argsort(cullings):
+    """The order in which K1 dispatches the tiles is a permutation of
+    them: the stable argsort of -counts.sum(1), most candidates first and
+    ties in tile order; the wrapper derives the same from the counts."""
+    _, p, _ = cullings
+    n_cand = p.counts.sum(1)
+    assert p.order.dtype == np.int32
+    np.testing.assert_array_equal(np.sort(p.order), np.arange(p.nb))
+    np.testing.assert_array_equal(p.order,
+                                  np.argsort(-n_cand, kind="stable"))
+    ranked = n_cand[p.order]
+    assert (np.diff(ranked) <= 0).all()
+    tied = np.diff(ranked) == 0
+    assert (np.diff(p.order)[tied] > 0).all()
+    np.testing.assert_array_equal(
+        tile_order(torch.as_tensor(p.counts)).numpy(), p.order)
 
 
 def test_bench_slab_layout(scenes):

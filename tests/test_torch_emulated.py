@@ -8,9 +8,12 @@ a block's threads meet at a std::barrier (__syncthreads), blocks run one
 after another and dynamic shared memory is one host buffer. Built without
 FMA contraction, the emulated kernels follow the plain versions' float32
 arithmetic step for step, so the comparison is exact apart from the
-libm calls. A warp's ballot is every lane's vote gathered through the
-block's barrier, so K1 (whose dead-lane rank is a ballot and a scan)
-runs too. What the emulation cannot show: the device compiler's own
+libm calls. A warp's ballot or sum is every lane's vote gathered through
+the block's barrier, so K1 (whose dead-lane rank is a ballot and a scan)
+runs too; an asynchronous copy to shared memory (cp.async) is queued and
+made when its thread waits for it, so a kernel that reads staged data
+before its wait and barrier reads stale memory here. What the emulation
+cannot show: the device compiler's own
 output, the timing of real warps, and speed. tests/test_torch_gpu.py and
 chip_smoke.py hold the built kernels against the same plain versions on
 the card. Three more builds with planted errors show that the comparisons
@@ -34,9 +37,9 @@ from tracer_tpu_torch.kernels import build
 from tracer_tpu_torch.kernels import nearest as kn
 from test_torch_gpu import (K1_MODES, K2_MODES, T_EPS, fuzz_assembly,
                             fuzz_rays, k1_call, k1_compare, k1_lanes,
-                            k1_live, k1_scene, k2_compare, k2_instance,
-                            k2_mode, k2_near, k3_compare, medium_att,
-                            traced_rays)
+                            k1_live, k1_scene, k1_straddling, k2_compare,
+                            k2_instance, k2_mode, k2_near, k3_compare,
+                            medium_att, traced_rays)
 
 # the suite runs several test processes at once: one torch thread each
 # keeps them from oversubscribing the cores
@@ -57,6 +60,7 @@ _RUNTIME = r"""
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
+struct alignas(16) float4 { float x, y, z, w; };
 inline thread_local dim3 threadIdx, blockIdx;
 inline std::barrier<>* g_block = nullptr;
 inline std::vector<float> g_dynamic_smem(1 << 16);
@@ -67,6 +71,12 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 template <class K> cudaError_t cudaFuncSetAttribute(K, int, int) {
+  return cudaSuccess;
+}
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int,
+                                                          size_t) {
+  *n = 1;
   return cudaSuccess;
 }
 inline void __syncthreads() { g_block->arrive_and_wait(); }
@@ -85,6 +95,16 @@ inline unsigned __ballot_sync(unsigned, bool vote) {
     m |= (unsigned)(g_ballot[(t & ~31u) + i] != 0) << i;
   __syncthreads();
   return m;
+}
+// a warp's sum, gathered the same way
+inline int __reduce_add_sync(unsigned, int v) {
+  const unsigned t = threadIdx.x;
+  g_ballot[t] = v;
+  __syncthreads();
+  int sum = 0;
+  for (unsigned i = 0; i < 32; ++i) sum += g_ballot[(t & ~31u) + i];
+  __syncthreads();
+  return sum;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline void sincosf(float x, float* s, float* c) { *s = sinf(x); *c = cosf(x); }
@@ -106,6 +126,31 @@ void emulated_launch(K kernel, int grid, int block, size_t smem,
         kernel(args);
       });
     for (auto& th : threads) th.join();
+  }
+}
+"""
+
+_PIPELINE = r"""
+// CPU stand-in for the asynchronous copies (cp.async): a thread's copies
+// are queued, committed in groups and made when it waits for them
+#pragma once
+#include <string.h>
+#include <vector>
+struct PendingCopy { void* dst; const void* src; size_t n; };
+inline thread_local std::vector<PendingCopy> g_open;
+inline thread_local std::vector<std::vector<PendingCopy>> g_groups;
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n,
+                                    size_t = 0) {
+  g_open.push_back({dst, src, n});
+}
+inline void __pipeline_commit() {
+  g_groups.push_back(g_open);
+  g_open.clear();
+}
+inline void __pipeline_wait_prior(size_t prior) {
+  while (g_groups.size() > prior) {
+    for (const PendingCopy& c : g_groups.front()) memcpy(c.dst, c.src, c.n);
+    g_groups.erase(g_groups.begin());
   }
 }
 """
@@ -148,6 +193,7 @@ def _compile(d, names, planted=None):
     if gxx is None:
         pytest.skip("needs g++ to compile the CUDA sources for the CPU")
     (d / "cuda_runtime.h").write_text(_RUNTIME)
+    (d / "cuda_pipeline_primitives.h").write_text(_PIPELINE)
     srcs = []
     found = planted is None
     for p in sorted(build._CSRC.iterdir()):
@@ -384,3 +430,63 @@ def test_k1_compare_rejects_planted_aureole(libs):
     k1_compare: their hits come back encoded."""
     with pytest.raises(AssertionError):
         _k1_mode(libs[4], "aureole_rect")
+
+
+@pytest.mark.parametrize("mode", ("rect", "curved"))
+def test_k1_ranks_across_sub_tiles(lib, mode):
+    """K1's CUDA source (the NSTTF instance on rect cells, the general one
+    on the curved field) over four tiles whose dead lanes straddle the
+    boundaries of its sub-tiles (k1_straddling), with quotas of 0, one
+    ending inside the third sub-tile, one past the tile's dead count and
+    TILE: no
+    flips, every live lane within k1_compare's tolerance, and lanes
+    leaving with energy exactly where the plain version's do, so each
+    sub-tile's ranks continue its tile's flat order as the engine's cumsum
+    does."""
+    table, meta, culling, spec = k1_scene(mode, 40, 16 * kb.TILE, "cpu")
+    tiles = (3, 4, 5, 6)
+    lanes, rem = k1_straddling(meta, culling, tiles, 5, "cpu", spec[13])
+    act = torch.ones(4, dtype=torch.int32)
+    args = (table, culling, spec, tiles, 29, lanes, rem, act)
+    got = k1_call(_k1_fn(lib), *args)
+    want = k1_call(kb.bounce_reflect_culled_ref, *args)
+    k1_compare(got, want, k1_live(lanes[2], rem, act), max_flips=0)
+    assert torch.equal(got[2] > 0.0, want[2] > 0.0)
+    # the quotas reach past the tiles' first sub-tiles
+    reborn = (lanes[2] <= 0.0) & k1_live(lanes[2], rem, act)
+    sub = kb.TILE // kb.K1_SPLIT
+    assert reborn.view(4, kb.K1_SPLIT, sub).any(2).sum(1).tolist() == [
+        0, 3, kb.K1_SPLIT, kb.K1_SPLIT]
+
+
+def test_k1_tile_order_moves_nothing(lib):
+    """K1's CUDA source dispatching its tiles in other orders (the
+    derived heaviest-first, the identity, a rotation) gives every output
+    bit for bit the same: a block reads and writes only its own tile."""
+    table, meta, culling, spec = k1_scene("curved", 40, 16 * kb.TILE, "cpu")
+    lanes = k1_lanes(meta, culling, K1_TILES, 3, 0.4, "cpu", spec[13])
+    rem = torch.tensor([kb.TILE, 400, kb.TILE], dtype=torch.int32)
+    act = torch.tensor([1, 1, 0], dtype=torch.int32)
+    args = (table, culling, spec, K1_TILES, 13, lanes, rem, act)
+    outs = [k1_call(_k1_fn(lib), *args, **({} if o is None else dict(
+        order=torch.tensor(o, dtype=torch.int32))))
+        for o in (None, (0, 1, 2), (2, 0, 1))]
+    for other in outs[1:]:
+        for g, t in zip(outs[0], other):
+            assert torch.equal(g, t)
+
+
+def test_k1_geometry_matches_wrapper(lib):
+    """The source's cut of a tile is the one the wrapper and the tests
+    assume (kb.K1_SPLIT blocks of TILE / K1_SPLIT lanes), and a block
+    stages its sub-tile's rays beside the candidate rows."""
+    out = (ctypes.c_int * 5)()
+    modes = kb._culled_modes(True, True, True, False, 0.0, False, False,
+                             False, False)
+    rc = lib.tt_k1_geometry(31, 36, 0, 1, 0, ctypes.addressof(modes),
+                            ctypes.addressof(out))
+    assert rc == 0
+    split, threads, sub, smem, _ = out
+    assert (split, sub) == (kb.K1_SPLIT, kb.TILE // kb.K1_SPLIT)
+    assert sub % threads == 0
+    assert smem == 4 * (kb.K1_RAY_FLOATS + 31 * 36 + 31)

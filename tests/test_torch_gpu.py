@@ -539,6 +539,31 @@ def k1_lanes(meta, culling, tiles, seed: int, dead: float, device,
             torch.tensor(e, dtype=torch.float32, device=device), wl)
 
 
+def k1_straddling(meta, culling, tiles, seed: int, device, band=None):
+    """Lanes of four ``tiles`` (k1_lanes' rays, a tenth of them dead)
+    whose other dead lanes cluster in windows across each boundary
+    between K1's sub-tiles (kb.K1_SPLIT a tile), with quotas of 0, one
+    that ends 25 lanes into the third sub-tile, TILE - 1 (past the tile's
+    dead count, yet ranked) and TILE. Returns (lanes, remaining)."""
+    assert len(tiles) == 4
+    pos, dirs, e, wl = k1_lanes(meta, culling, tiles, seed, 0.1, "cpu",
+                                band)
+    sub = kb.TILE // kb.K1_SPLIT
+    lane = torch.arange(kb.TILE)
+    near = torch.zeros(kb.TILE, dtype=torch.bool)
+    for k in range(1, kb.K1_SPLIT):
+        near |= (lane >= k * sub - 90 + 20 * k) & (lane < k * sub + 30 * k)
+    e = torch.where(near, 0.0, e.view(4, kb.TILE))
+    dead = (e <= 0.0).to(torch.int32)
+    inside = int(dead[1, :2 * sub + 25].sum())
+    assert int(dead[2].sum()) < kb.TILE - 1
+    rem = torch.tensor([0, inside, kb.TILE - 1, kb.TILE],
+                       dtype=torch.int32, device=device)
+    lanes = tuple(None if t is None else t.to(device)
+                  for t in (pos, dirs, e.reshape(-1), wl))
+    return lanes, rem
+
+
 def k1_live(energy, remaining, active):
     """The lanes K1 traces: in active tiles, those with energy and the
     dead ones its quota regenerates (the first ``remaining[b]`` of tile b
@@ -742,6 +767,36 @@ def test_k1_modes_match_plain_on_gpu(cuda_device, mode):
     k1_compare(got, want, live, max_flips=int(1e-5 * n) + 1,
                traced=k1_traced(*args))
     assert (want[3][live] >= 0).float().mean() > 0.25
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ("rect", "curved"))
+def test_k1_sub_tile_ranks_and_order_on_gpu(cuda_device, mode):
+    """K1 on the card (the NSTTF instance on rect cells, the general one
+    on the curved field) over four tiles whose dead lanes straddle its
+    sub-tile boundaries, with quotas of 0, one ending inside a sub-tile,
+    one past the dead count and TILE (k1_straddling): within k1_compare's
+    tolerance of the plain version, lanes leaving with energy exactly
+    where the plain version's do, and every output the same bit for bit
+    in another dispatch order of the tiles."""
+    dev = cuda_device
+    table, meta, culling, spec = k1_scene(mode, 218, 64 * kb.TILE, dev)
+    tiles = (20, 21, 22, 23)
+    lanes, rem = k1_straddling(meta, culling, tiles, 5, dev, spec[13])
+    act = torch.ones(4, dtype=torch.int32, device=dev)
+    args = (table, culling, spec, tiles, 29, lanes, rem, act)
+    got = k1_call(kb.bounce_reflect_culled, *args)
+    want = k1_call(kb.bounce_reflect_culled_ref, *args)
+    turned = k1_call(kb.bounce_reflect_culled, *args,
+                     order=torch.tensor((3, 1, 0, 2), dtype=torch.int32,
+                                        device=dev))
+    torch.cuda.synchronize()
+    live = k1_live(lanes[2], rem, act)
+    k1_compare(got, want, live, max_flips=int(1e-5 * int(live.sum())) + 1,
+               traced=k1_traced(*args))
+    assert torch.equal(got[2] > 0.0, want[2] > 0.0)
+    for g, t in zip(got, turned):
+        assert torch.equal(g, t)
 
 
 def test_cpu_tensors_take_the_plain_version():

@@ -60,6 +60,9 @@ class BlockCulling:
             per-group column segments [group_offsets[g], +W_g) so the
             kernel's per-group specialized loops can index them; -1 pads
     counts  (nb, G) int32 valid entries per block per group
+    order   (nb,) int32 the blocks by descending candidate count (a stable
+            argsort of -counts.sum(1)): the order in which K1 dispatches
+            them on the card, so the longest lists start first
     group_offsets (G,) static column offset of each group's segment
     cell_bounds (nb, 4) float32 equal-area source cell of each block: a
             disk's [a0, a1, th0, th1] with a = (r/R)^2 the area fraction
@@ -80,6 +83,7 @@ class BlockCulling:
 
     lists: np.ndarray
     counts: np.ndarray
+    order: np.ndarray
     cell_bounds: np.ndarray
     cell_of_block: np.ndarray
     n_cells: int
@@ -1094,7 +1098,9 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
                  n_demoted=int(demote.sum()),
                  t_phase={k: round(v, 1) for k, v in t_phase.items()},
                  reduction=float(S / max(n_cand.mean(), 1.0)))
-    return BlockCulling(lists=arr, counts=counts, cell_bounds=cell_bounds,
+    return BlockCulling(lists=arr, counts=counts,
+                        order=np.argsort(-n_cand, kind="stable")
+                        .astype(np.int32), cell_bounds=cell_bounds,
                         cell_of_block=cell_of_block, n_cells=n_cells,
                         age_caps=age_caps, group_offsets=offsets,
                         demote_rows=tuple(int(r) for r in

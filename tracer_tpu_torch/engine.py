@@ -303,7 +303,7 @@ def _trace_streaming_megakernel_culled(
         max_rounds: int, max_path: int, min_energy: float, t_eps: float,
         disc_eps: float, bivar, one_sided: bool, slope: bool,
         demote_rows: tuple, fluxspecs: tuple = (), spectral: bool = False,
-        modes=None, park_aureole: bool = False):
+        modes=None, park_aureole: bool = False, order=None):
     """Relevancy-culled streaming trace (tracer_tpu/engine.py:1158): each
     tile owns one equal-area source cell and intersects only its static
     candidate list; per-tile quotas keep the stratified emission
@@ -313,7 +313,8 @@ def _trace_streaming_megakernel_culled(
     which the drain's K2 takes too. With an ambient attenuation the medium
     takes each hit segment's loss beyond the surfaces'. With
     ``park_aureole`` (the culling's) K1 flags the hits of aureole-born
-    lanes, and their survivors park for the drain. Returns (accum, rays
+    lanes, and their survivors park for the drain. ``order`` is the
+    culling's tile order, which K1 dispatches by. Returns (accum, rays
     emitted, source energy)."""
     dev = scene.device
     nb = lists.shape[0]
@@ -405,7 +406,7 @@ def _trace_streaming_megakernel_culled(
                 rows, lists, counts, cells, cell_bounds, _seed(generator),
                 remaining_b, active_b, pos, dirs, e, scene.groups,
                 group_offsets, source_spec=source_spec, wavelength=wl,
-                park_aureole=park_aureole, **shared)
+                park_aureole=park_aureole, order=order, **shared)
             npos, ndirs, ne, sid, absorbed = outs[:5]
             # parked lanes are frozen: the kernel traces them anyway, but
             # their results are discarded until the drain
@@ -786,7 +787,8 @@ def _trace_culled(scene, spec, culling, generator, total_rays, n, common,
         source_spec=spec, group_offsets=culling.group_offsets, slab=n,
         demote_rows=culling.demote_rows, disc_eps=disc_eps,
         spectral=_culled_wl(scene), modes=modes,
-        park_aureole=culling.park_aureole, **common)
+        park_aureole=culling.park_aureole, order=dev_i32(culling.order),
+        **common)
 
 
 # the per-ray state fields of a streaming slab that regeneration moves

@@ -61,7 +61,9 @@ from .philox import (CALL_BAND, CALL_BECKMANN, CALL_FRESNEL, CALL_LAMBERT,
 from .rows import (ROW_AP, ROW_KIND, ROW_P0, _check, _check_device, _rows_t,
                    pack_rows, row_width)  # noqa: F401 (re-exported)
 
-TILE = 3072            # lanes per tile: one source cell, one CUDA block
+TILE = 3072            # lanes per tile: one source cell and random stream
+K1_SPLIT = 4           # K1's blocks per tile (csrc/bounce.cu), each
+K1_RAY_FLOATS = 6 * TILE // K1_SPLIT    # staging its sub-tile's pos, dir
 # the most floats a kernel stages in one block's shared memory (H100:
 # 227 KB per block, less the culled kernel's row ids)
 MAX_STAGE_FLOATS = (232448 - 4096) // 4
@@ -1004,6 +1006,50 @@ def _modes(bivar, one_sided, slope, lambertian, ambient_att, refr_frost,
                   bool(backside_miss), bool(refr_split), bool(park_aureole))
 
 
+def _culled_modes(bivar, one_sided, slope, lambertian, ambient_att,
+                  conductor, iam, backside_miss, park_aureole) -> _Modes:
+    """K1's mode struct: the K2 fields it does not take are off."""
+    extra = tuple(conductor if k == "conductor" else iam if k == "iam"
+                  else False for k in EXTRA_MODES)
+    return _modes(bivar, one_sided, slope, lambertian, ambient_att, False,
+                  False, False, 0.0, 0.0, backside_miss, extra,
+                  park_aureole=park_aureole)
+
+
+def tile_order(counts):
+    """The order in which K1 dispatches the tiles: a stable argsort of
+    their candidate rows, most first (culling.BlockCulling.order on the
+    host), as int32 on ``counts``' device."""
+    return torch.argsort(-counts.sum(1), stable=True).to(torch.int32)
+
+
+def k1_geometry(lists, rows, groups, group_offsets, wavelength=None,
+                spectral_tab=None, bivar=True, one_sided: bool = True,
+                slope: bool = True, lambertian=False,
+                ambient_att: float = 0.0, conductor=False, iam=False,
+                backside_miss=False, park_aureole=False, **_) -> dict:
+    """K1's launch geometry on the card for a call with these arguments
+    (bounce_reflect_culled's keywords): blocks (nb * split), threads,
+    lanes per block (sub), shared bytes per block and the blocks resident
+    on one SM (the CUDA occupancy calculator)."""
+    from . import build
+    lib = build.load()
+    nb, W = lists.shape
+    flat_rect = _group_meta(tuple(groups), tuple(group_offsets),
+                            rows.device)[1]
+    n_tab = spectral_tab.shape[0] if spectral_tab is not None else 0
+    modes = _culled_modes(bivar, one_sided, slope, lambertian, ambient_att,
+                          conductor, iam, backside_miss, park_aureole)
+    out = (ctypes.c_int * 5)()
+    rc = lib.tt_k1_geometry(W, rows.shape[1], n_tab, int(flat_rect),
+                            int(wavelength is not None),
+                            ctypes.addressof(modes), ctypes.addressof(out))
+    build.check(lib, rc, "k1_geometry")
+    split, threads, sub, smem, resident = out
+    return dict(blocks=nb * split, threads=threads, split=split, sub=sub,
+                smem=smem, resident=resident)
+
+
 def _ray_outputs(n, device):
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.empty((n, 3), **f32), torch.empty((n, 3), **f32),
@@ -1018,7 +1064,7 @@ def bounce_reflect_culled(rows, lists, counts, cells, cell_bounds,
                           one_sided: bool = True, slope: bool = True,
                           source_spec=None, wavelength=None,
                           spectral_tab=None, disc_eps: float = 1e-6,
-                          **modes):
+                          order=None, **modes):
     """One round of the relevancy-culled bounce over nb = lists.shape[0]
     tiles of TILE lanes (port of bounce_reflect_culled_pallas).
 
@@ -1049,6 +1095,14 @@ def bounce_reflect_culled(rows, lists, counts, cells, cell_bounds,
               sunshape's circumsolar aureole (its polar-angle uniform at
               or past disc_end) reports a hit on row s as sid -(s + 16);
               every other output is unchanged (culling.park_aureole)
+    order     (nb,) int32 the order in which the kernel dispatches the
+              tiles, most candidate rows first (culling.BlockCulling.order,
+              which the culled trace passes); None derives it from
+              ``counts``. It moves no result.
+
+    The kernel serves each tile with K1_SPLIT blocks of TILE / K1_SPLIT
+    lanes; pos, dirs and energy must start on 16-byte boundaries (fresh
+    tensors do), since it stages and stores them 16 bytes at a time.
 
     The NSTTF's modes (flat rect rows, K_REFLECT) run the kernel's own
     instance; any other mode or class the general one, conductor and IAM
@@ -1091,11 +1145,20 @@ def bounce_reflect_culled(rows, lists, counts, cells, cell_bounds,
     _check_device(dev, args)
     for name, dt, shape in shapes:
         _check(name, args[name], dt, shape)
+    if order is not None:
+        _check_device(dev, {"order": order})
+        _check("order", order, torch.int32, (nb,))
+    for name in ("pos", "dirs", "energy"):
+        if args[name].data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             "(K1 moves it 16 bytes at a time)")
     if (K - ROW_AP) % 6 or (K - ROW_AP) // 6 > MAX_C:
         raise ValueError(f"rows: {K} columns is not 30 + 6 * C with "
                          f"C <= {MAX_C}")
     n_tab = spectral_tab.shape[0] if spectral_tab is not None else 0
-    if W * K + W + 2 * n_tab > MAX_STAGE_FLOATS:
+    # the NSTTF instance pads each staged row to whole 16-byte words
+    if K1_RAY_FLOATS + W * (-(-K // 4) * 4) + W + 2 * n_tab \
+            > MAX_STAGE_FLOATS:
         raise NotImplementedError("candidate lists exceed the shared-memory "
                                   "stage (ROADMAP B5)")
     lib = build.load()
@@ -1106,7 +1169,7 @@ def bounce_reflect_culled(rows, lists, counts, cells, cell_bounds,
                          bivar=bivar, one_sided=one_sided, slope=slope,
                          source_spec=source_spec, wavelength=wavelength,
                          spectral_tab=spectral_tab, disc_eps=disc_eps,
-                         **modes)
+                         order=order, **modes)
     build.check(lib, rc, "bounce_reflect_culled")
     bounce_reflect_culled.launches += 1
     return outs
@@ -1116,24 +1179,23 @@ def launch_k1(lib, rows, lists, counts, cells, cell_bounds, seed: int,
               remaining, active, pos, dirs, energy, groups, group_offsets,
               t_eps: float, stream, bivar=True, one_sided: bool = True,
               slope: bool = True, source_spec=None, wavelength=None,
-              spectral_tab=None, disc_eps: float = 1e-6, lambertian=False,
-              ambient_att: float = 0.0, conductor=False, iam=False,
-              backside_miss=False, park_aureole=False):
+              spectral_tab=None, disc_eps: float = 1e-6, order=None,
+              lambertian=False, ambient_att: float = 0.0, conductor=False,
+              iam=False, backside_miss=False, park_aureole=False):
     """Marshal one call of the library's ``tt_bounce_culled`` (checked
     arguments, tensors on one device; ``stream`` the CUDA stream, None for
-    the default). Returns (the C function's error code,
-    bounce_reflect_culled's results)."""
+    the default; ``order`` None derives it as tile_order does). Returns
+    (the C function's error code, bounce_reflect_culled's results)."""
     dev = pos.device
     nb, W = lists.shape
     S, K = rows.shape
     gmeta, flat_rect = _group_meta(tuple(groups), tuple(group_offsets), dev)
     srcp = (_source_tensor(source_spec, dev) if source_spec is not None
             else None)
-    extra = tuple(conductor if k == "conductor" else iam if k == "iam"
-                  else False for k in EXTRA_MODES)
-    modes = _modes(bivar, one_sided, slope, lambertian, ambient_att, False,
-                   False, False, 0.0, 0.0, backside_miss, extra,
-                   park_aureole=park_aureole)
+    if order is None:
+        order = tile_order(counts)
+    modes = _culled_modes(bivar, one_sided, slope, lambertian, ambient_att,
+                          conductor, iam, backside_miss, park_aureole)
     outs = _ray_outputs(nb * TILE, dev)
     nwl = None if wavelength is None else torch.empty_like(wavelength)
     n_tab = spectral_tab.shape[0] if spectral_tab is not None else 0
@@ -1144,10 +1206,11 @@ def launch_k1(lib, rows, lists, counts, cells, cell_bounds, seed: int,
         rows.data_ptr(), S, K, lists.data_ptr(), W, counts.data_ptr(),
         len(groups), gmeta.data_ptr(), MAX_C, cells.data_ptr(),
         cell_bounds.data_ptr(), remaining.data_ptr(), active.data_ptr(),
-        ptr(srcp), int(seed), pos.data_ptr(), dirs.data_ptr(),
-        energy.data_ptr(), *(o.data_ptr() for o in outs), ptr(wavelength),
-        ptr(nwl), ptr(spectral_tab), n_tab, nb, float(t_eps),
-        float(disc_eps), int(flat_rect), ctypes.addressof(modes), stream)
+        order.data_ptr(), ptr(srcp), int(seed), pos.data_ptr(),
+        dirs.data_ptr(), energy.data_ptr(), *(o.data_ptr() for o in outs),
+        ptr(wavelength), ptr(nwl), ptr(spectral_tab), n_tab, nb,
+        float(t_eps), float(disc_eps), int(flat_rect),
+        ctypes.addressof(modes), stream)
     return rc, outs if nwl is None else outs + (nwl,)
 
 

@@ -31,12 +31,14 @@ _lib = None
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # rows S K lists W counts G gmeta max_c cells cell_bounds remaining
-    # active srcp seed pos dir e npos ndir ne sid absorbed wl nwl tab n_tab
-    # nb t_eps disc_eps flat_rect modes (a host struct, bounce._Modes)
-    # stream
+    # active order srcp seed pos dir e npos ndir ne sid absorbed wl nwl tab
+    # n_tab nb t_eps disc_eps flat_rect modes (a host struct,
+    # bounce._Modes) stream
     "tt_bounce_culled": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P,
-                         _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _P, _I, _I, _F, _F, _I, _P, _P],
+                         _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _I, _I, _F, _F, _I, _P, _P],
+    # W K n_tab flat_rect wl_lane modes out (5 ints)
+    "tt_k1_geometry": [_I, _I, _I, _I, _I, _P, _P],
     # rows S K G gmeta max_c seed pos dir e npos ndir ne sid absorbed wl
     # nwl ri nri mid nmid s_e s_dir n t_eps disc_eps regen srcp pose tab
     # n_tab modes (a host struct, bounce._Modes) media_tab n_media

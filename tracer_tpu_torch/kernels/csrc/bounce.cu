@@ -3,11 +3,12 @@
 //
 // tt_bounce_culled (K1) replaces the TPU kernel bounce_reflect_culled_pallas
 // (tracer_tpu/kernels/pallas_intersect.py:2049, body
-// _make_fused_kernel_culled :1884): one thread block serves one tile of
-// TILE lanes, regenerates the tile's first `remaining` dead lanes from its
-// equal-area source cell (a Buie or pillbox disk cell, or a rect cell in
-// local metres whose rays leave along an oblique source's own direction
-// frame), tests only the tile's candidate rows and shades the winner.
+// _make_fused_kernel_culled :1884): each tile of TILE lanes regenerates
+// its first `remaining` dead lanes from its equal-area source cell (a
+// Buie or pillbox disk cell, or a rect cell in local metres whose rays
+// leave along an oblique source's own direction frame), tests only the
+// tile's candidate rows and shades the winner; K1_SPLIT blocks serve a
+// tile, one sub-tile of contiguous lanes each (below).
 // Three instances (bounce_culled_kernel<kGeneral, kExtra>): the NSTTF one
 // <false, false> takes flat groups with AP_RECT / AP_NONE apertures and
 // K_REFLECT optics with bivariate / radial / mixed slope error and the
@@ -73,8 +74,9 @@
 // What bounds them on this card: the per-lane row loop is float32
 // arithmetic on rows that every lane of a block shares (about 50 flops
 // per flat row, 100 per curved one), and each lane's state is read and
-// written once (28-32 bytes in, 36-40 out; a lane that regenerates reads
-// only its 4-byte energy). K1 and K2 test flat rect rows with rows.cuh's
+// written once (28-32 bytes in, 36-40 out; a lane that K2 regenerates
+// reads only its 4-byte energy, while K1 stages every lane's ray). K1 and
+// K2 test flat rect rows with rows.cuh's
 // flat_rect_t, every other class with its row_hit. Both kernels stage
 // their rows in shared memory once per block, so the loop reads no device
 // memory and
@@ -83,6 +85,35 @@
 // keyed per tile and counted per lane and draw call, so the plain PyTorch
 // versions (kernels/bounce.py) draw the same uniforms and the two can be
 // compared lane by lane.
+//
+// K1's cut for this card. The TPU ran its grid in order on one core, so
+// one tile a grid step cost nothing; on 132 SMs one block a tile left the
+// tiles with the most candidate rows (31 at the bench slab, where the
+// median is 13 and a third have none) running almost alone at the end of
+// the launch. So K1_SPLIT blocks serve a tile, each a sub-tile of
+// TILE / K1_SPLIT contiguous lanes, and the grid walks the tiles in the
+// culling's order, most candidate rows first (BlockCulling.order). The
+// Philox key stays (seed, tile) and the counter (lane within the tile,
+// call), so no draw moves. The rank that picks the dead lanes to reborn
+// continues across sub-tiles: a block counts the dead lanes of its tile's
+// earlier sub-tiles (16-byte loads of lines the tile's other blocks read
+// too) and of each chunk of its own (warp ballots), and one barrier
+// publishes the counts; a quota of 0 or of the whole tile needs no rank.
+// Meanwhile cp.async copies the sub-tile's pos and dir (contiguous, 12
+// bytes a lane) and the tile's candidate rows into shared memory, and the
+// results leave through shared memory as 16-byte stores. The NSTTF
+// instance stages its rows at a stride of whole 16-byte words and tests
+// each candidate row against all of a thread's K1_PER lanes at once, so a
+// row's coefficients come from shared memory 16 bytes at a time and once
+// a thread. Each instance's __launch_bounds__ asks for the most resident
+// blocks at which ptxas spills nothing (k1_min_blocks). No tensor cores:
+// the row test is a 3x3 transform, a contraction of depth 3 where wgmma
+// needs at least 8 (TF32), and TF32's 10-bit mantissa would move hit
+// points by about 1e-3 relative, beyond the comparisons' 1e-4 and the
+// 3e-4 self-hit guard. What bounds K1 then is its per-lane float32 work,
+// the row tests above all, more than its bytes (PERF.md, k1_variants.py's
+// diagnostics).
+#include <cuda_pipeline_primitives.h>
 #include <stdint.h>
 
 #include "rows.cuh"
@@ -90,7 +121,18 @@
 namespace {
 
 constexpr int TILE = 3072;            // lanes per tile (= TPU ray tile)
-constexpr int K1_THREADS = 256;       // culled kernel: 12 lanes per thread
+// K1's cut: K1_SPLIT blocks serve one tile, each a sub-tile of K1_SUB
+// contiguous lanes, K1_PER a thread with neighbouring threads on
+// neighbouring lanes
+constexpr int K1_SPLIT = 4;
+constexpr int K1_SUB = TILE / K1_SPLIT;
+constexpr int K1_THREADS = 256;
+constexpr int K1_PER = K1_SUB / K1_THREADS;
+constexpr int K1_WARPS = K1_THREADS / 32;
+constexpr int K1_RAY_FLOATS = 6 * K1_SUB;  // a sub-tile's staged pos, dir
+static_assert(K1_SUB % K1_THREADS == 0 && K1_SUB % 4 == 0,
+              "a sub-tile is whole chunks of threads and whole 16-byte "
+              "copies");
 constexpr int K2_THREADS = 256;
 constexpr int SMEM_DEFAULT = 48 * 1024;
 constexpr int POSE_FLOATS = 21;       // centre, position rot, direction rot
@@ -822,14 +864,6 @@ __device__ __forceinline__ void load_ray(const float* pos, const float* dir,
   r.dz = dir[3 * l + 2];
 }
 
-__device__ __forceinline__ Lane load_lane(const float* pos, const float* dir,
-                                          const float* e, size_t l) {
-  Lane r;
-  load_ray(pos, dir, l, r);
-  r.e = e[l];
-  return r;
-}
-
 __device__ __forceinline__ void store_lane(float* npos, float* ndir,
                                            float* ne, size_t l,
                                            float px, float py, float pz,
@@ -842,6 +876,37 @@ __device__ __forceinline__ void store_lane(float* npos, float* ndir,
   ndir[3 * l + 1] = dy;
   ndir[3 * l + 2] = dz;
   ne[l] = e;
+}
+
+// blocks of each K1 instance that __launch_bounds__ asks to keep
+// resident on one SM: the most at which ptxas keeps every value in
+// registers
+template <bool kGeneral>
+constexpr int k1_min_blocks() {
+  return kGeneral ? 3 : 4;
+}
+
+// the float stride of K1's staged rows: the NSTTF instance pads each row
+// to whole 16-byte words and reads it 16 bytes at a time (staged_row)
+template <bool kGeneral>
+__host__ __device__ __forceinline__ int k1_stride(int K) {
+  return kGeneral ? K : (K + 3) & ~3;
+}
+
+__device__ __forceinline__ const float* staged_row(const float* rows_sm,
+                                                   int slot, int Kp) {
+  return static_cast<const float*>(
+      __builtin_assume_aligned(rows_sm + slot * Kp, 16));
+}
+
+// copies from device to shared memory that complete asynchronously
+// (cp.async): the block issues them, ranks its dead lanes, then waits
+__device__ __forceinline__ void stage16(float* dst, const float* src) {
+  __pipeline_memcpy_async(dst, src, 16);
+}
+
+__device__ __forceinline__ void stage4(float* dst, const float* src) {
+  __pipeline_memcpy_async(dst, src, 4);
 }
 
 struct CulledArgs {
@@ -858,6 +923,7 @@ struct CulledArgs {
   const float* cell_bounds;
   const int* remaining;
   const int* active;
+  const int* order;  // the tiles, most candidate rows first
   const float* srcp;  // source parameters, or nullptr: no regeneration
   uint32_t seed;
   const float *pos, *dir, *e;
@@ -872,47 +938,147 @@ struct CulledArgs {
   Modes m;
 };
 
-// the culled round: one block per tile. kGeneral runs every quadric class
-// and aperture kind through rows.cuh's scan_group and the epilogue's
-// cullable modes (Lambertian, spectral with a wavelength lane, ambient
-// attenuation, backside_miss), kExtra adds the conductor and IAM; the
-// NSTTF instance <false, false> keeps the flat rect loop and the plain
-// reflect epilogue
+// whether a lane of chunk j (K1_THREADS lanes) of the block's sub-tile is
+// reborn this round: the tile's first `remaining` dead lanes in flat lane
+// order are (the engine re-derives the same ranks). With `ranked`, its
+// exclusive rank is the dead lanes of the chunks before (`running`, which
+// moves past this chunk), of the warps before and of the lanes before in
+// its warp; every thread of the block calls it for each chunk in turn
+__device__ __forceinline__ bool k1_reborn(bool dead, int j, bool ranked,
+                                          bool all_reborn, int remaining,
+                                          const int (*warp_dead)[K1_WARPS],
+                                          int& running) {
+  if (!ranked) return dead && all_reborn;
+  const int warp = threadIdx.x >> 5, wl_i = threadIdx.x & 31;
+  const unsigned m = __ballot_sync(0xffffffffu, dead);
+  int woff = 0, tot = 0;
+  for (int w = 0; w < K1_WARPS; ++w) {
+    const int c = warp_dead[1 + j][w];
+    woff += w < warp ? c : 0;
+    tot += c;
+  }
+  const bool reborn =
+      dead && running + woff + __popc(m & ((1u << wl_i) - 1u)) < remaining;
+  running += tot;
+  return reborn;
+}
+
+// a lane's results: its ray back to its shared-memory slots (they leave
+// in 16-byte stores), its energy, its row id and its absorbed energy
+__device__ __forceinline__ void k1_store(const CulledArgs& a, float* pos_sm,
+                                         float* dir_sm, int i_sm, size_t l,
+                                         const Shaded& o, bool live, int sid,
+                                         uint32_t stream, uint32_t t) {
+  pos_sm[3 * i_sm] = o.px;
+  pos_sm[3 * i_sm + 1] = o.py;
+  pos_sm[3 * i_sm + 2] = o.pz;
+  dir_sm[3 * i_sm] = o.dx;
+  dir_sm[3 * i_sm + 1] = o.dy;
+  dir_sm[3 * i_sm + 2] = o.dz;
+  a.ne[l] = o.e;
+  // park_aureole: the hit of a lane reborn this call (it entered dead
+  // and is live) into the aureole is stored encoded
+  const bool parks = a.m.park_aureole && sid >= 0 && a.e[l] <= 0.0f &&
+                     aureole_draw(a.srcp, a.seed, stream, t);
+  a.sid[l] = parks ? -sid - 16 : sid;
+  a.absorbed[l] = live ? o.absorbed : 0.0f;
+}
+
+// the culled round: K1_SPLIT blocks per tile, dispatched heavy-first (block
+// i serves sub-tile i % K1_SPLIT of tile order[i / K1_SPLIT]). kGeneral
+// runs every quadric class and aperture kind through rows.cuh's scan_group
+// and the epilogue's cullable modes (Lambertian, spectral with a
+// wavelength lane, ambient attenuation, backside_miss), kExtra adds the
+// conductor and IAM; the NSTTF instance <false, false> keeps the flat rect
+// loop and the plain reflect epilogue, and tests each candidate row against
+// all of a thread's lanes at once
 template <bool kGeneral, bool kExtra>
-__global__ void __launch_bounds__(K1_THREADS)
+__global__ void __launch_bounds__(K1_THREADS, k1_min_blocks<kGeneral>())
     bounce_culled_kernel(CulledArgs a) {
-  extern __shared__ float smem[];
-  __shared__ int warp_tot[K1_THREADS / 32];
-  const int b = blockIdx.x;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  // dead lanes counted by each warp: [0] in the tile's earlier sub-tiles,
+  // [1 + j] in the block's chunk j of K1_THREADS lanes
+  __shared__ int warp_dead[1 + K1_PER][K1_WARPS];
+  const int b = a.order[blockIdx.x / K1_SPLIT];
+  const int sub = blockIdx.x % K1_SPLIT;
   const int tid = threadIdx.x;
-  const size_t base = (size_t)b * TILE;
+  const size_t tile0 = (size_t)b * TILE;
+  const size_t base = tile0 + (size_t)sub * K1_SUB;  // the sub-tile's lane 0
   if (a.active[b] == 0) {
     // idle tile: state passes through, no hits, no absorption
-    for (int t = tid; t < TILE; t += K1_THREADS) {
+    const float4* pos4 = reinterpret_cast<const float4*>(a.pos + 3 * base);
+    const float4* dir4 = reinterpret_cast<const float4*>(a.dir + 3 * base);
+    const float4* e4 = reinterpret_cast<const float4*>(a.e + base);
+    float4* npos4 = reinterpret_cast<float4*>(a.npos + 3 * base);
+    float4* ndir4 = reinterpret_cast<float4*>(a.ndir + 3 * base);
+    float4* ne4 = reinterpret_cast<float4*>(a.ne + base);
+    for (int i = tid; i < 3 * K1_SUB / 4; i += K1_THREADS) {
+      npos4[i] = pos4[i];
+      ndir4[i] = dir4[i];
+    }
+    for (int i = tid; i < K1_SUB / 4; i += K1_THREADS) ne4[i] = e4[i];
+    for (int t = tid; t < K1_SUB; t += K1_THREADS) {
       const size_t l = base + t;
-      const Lane in = load_lane(a.pos, a.dir, a.e, l);
-      store_lane(a.npos, a.ndir, a.ne, l, in.px, in.py, in.pz, in.dx, in.dy,
-                 in.dz, in.e);
       if (kGeneral && a.nwl != nullptr) a.nwl[l] = a.wl[l];
       a.sid[l] = -1;
       a.absorbed[l] = 0.0f;
     }
     return;
   }
-  // stage this tile's candidate rows (W slots of K floats), their ids and
-  // the spectral table
-  float* rows_sm = smem;
-  int* ids_sm = reinterpret_cast<int*>(smem + a.W * a.K);
-  float* tab_sm = smem + a.W * a.K + a.W;
+  // stage the sub-tile's rays, the tile's candidate rows (W slots of Kp
+  // floats: the NSTTF instance pads each row to whole 16-byte words), their
+  // ids and the spectral table; the copies run while the block ranks its
+  // dead lanes
+  const int Kp = k1_stride<kGeneral>(a.K);
+  float* pos_sm = smem;
+  float* dir_sm = smem + 3 * K1_SUB;
+  float* rows_sm = smem + K1_RAY_FLOATS;
+  int* ids_sm = reinterpret_cast<int*>(rows_sm + a.W * Kp);
+  float* tab_sm = rows_sm + a.W * Kp + a.W;
+  for (int i = tid; i < 3 * K1_SUB / 4; i += K1_THREADS) {
+    stage16(pos_sm + 4 * i, a.pos + 3 * base + 4 * i);
+    stage16(dir_sm + 4 * i, a.dir + 3 * base + 4 * i);
+  }
   const int* list_b = a.lists + (size_t)b * a.W;
-  for (int i = tid; i < a.W * a.K; i += K1_THREADS) {
-    const int slot = i / a.K;
+  for (int i = tid; i < a.W * Kp; i += K1_THREADS) {
+    const int slot = i / Kp, k = i - slot * Kp;
     const int s = list_b[slot];
-    rows_sm[i] = s >= 0 ? a.rows[(size_t)s * a.K + (i - slot * a.K)] : 0.0f;
+    if (s >= 0 && (kGeneral || k < a.K))
+      stage4(rows_sm + i, a.rows + (size_t)s * a.K + k);
+    else
+      rows_sm[i] = 0.0f;
   }
   for (int i = tid; i < a.W; i += K1_THREADS) ids_sm[i] = list_b[i];
   if (kGeneral)
-    for (int i = tid; i < 2 * a.n_tab; i += K1_THREADS) tab_sm[i] = a.tab[i];
+    for (int i = tid; i < 2 * a.n_tab; i += K1_THREADS)
+      stage4(tab_sm + i, a.tab + i);
+  __pipeline_commit();
+
+  // ranks matter only when the quota ends inside the tile: then every warp
+  // counts the dead lanes of the tile's earlier sub-tiles (16-byte loads of
+  // lines the tile's other blocks read too) and of each chunk of its own (a
+  // ballot), and one barrier publishes the counts
+  const int remaining = a.remaining[b];
+  const bool ranked = a.srcp != nullptr && remaining > 0 && remaining < TILE;
+  const bool all_reborn = a.srcp != nullptr && remaining >= TILE;
+  if (ranked) {
+    const int warp = tid >> 5, wl_i = tid & 31;
+    const float4* e4 = reinterpret_cast<const float4*>(a.e + tile0);
+    int prior = 0;
+    for (int i = tid; i < sub * (K1_SUB / 4); i += K1_THREADS) {
+      const float4 v = e4[i];
+      prior += (v.x <= 0.0f) + (v.y <= 0.0f) + (v.z <= 0.0f) + (v.w <= 0.0f);
+    }
+    prior = __reduce_add_sync(0xffffffffu, prior);
+    if (wl_i == 0) warp_dead[0][warp] = prior;
+    for (int j = 0; j < K1_PER; ++j) {
+      const unsigned m =
+          __ballot_sync(0xffffffffu, a.e[base + j * K1_THREADS + tid] <= 0.0f);
+      if (wl_i == 0) warp_dead[1 + j][warp] = __popc(m);
+    }
+  }
+  __pipeline_wait_prior(0);
   __syncthreads();
 
   const Modes& md = a.m;
@@ -925,66 +1091,110 @@ __global__ void __launch_bounds__(K1_THREADS)
     ep.conductor = md.conductor;
     ep.iam_c = md.iam_c;
   }
-  const bool has_band = a.srcp != nullptr && a.srcp[SP_HAS_BAND] != 0.0f;
-  const int remaining = a.remaining[b];
   const uint32_t stream = (uint32_t)a.cells[b];
   const float* cb = a.cell_bounds + 4 * (size_t)b;
-  const int warp = tid >> 5, wl_i = tid & 31;
-  int running = 0;  // dead lanes in the chunks before this one
-  for (int j = 0; j < TILE / K1_THREADS; ++j) {
-    const int t = j * K1_THREADS + tid;  // lane within the tile
-    const size_t l = base + t;
-    Lane in;
-    in.e = a.e[l];
-    // exclusive rank of each dead lane in flat lane order: warp ballot +
-    // a scan of the warp totals (the engine re-derives the same ranks)
-    const bool dead = in.e <= 0.0f;
-    const unsigned m = __ballot_sync(0xffffffffu, dead);
-    const int before = __popc(m & ((1u << wl_i) - 1u));
-    if (wl_i == 0) warp_tot[warp] = __popc(m);
-    __syncthreads();
-    int woff = 0, tot = 0;
-    for (int w = 0; w < K1_THREADS / 32; ++w) {
-      const int c = warp_tot[w];
-      woff += w < warp ? c : 0;
-      tot += c;
+  int running = 0;  // dead lanes of the tile before the current chunk
+  if (ranked)
+    for (int w = 0; w < K1_WARPS; ++w) running += warp_dead[0][w];
+  if (!kGeneral) {
+    // the thread's K1_PER lanes (j * K1_THREADS + tid): reborn lanes draw
+    // their ray into their staged slots; then every candidate row, read
+    // once, meets all of them; then each is shaded
+    unsigned born = 0u;
+#pragma unroll 1
+    for (int j = 0; j < K1_PER; ++j) {
+      const int i_sm = j * K1_THREADS + tid;
+      if (k1_reborn(a.e[base + i_sm] <= 0.0f, j, ranked, all_reborn,
+                    remaining, warp_dead, running)) {
+        born |= 1u << j;
+        sample_cell(a.srcp, cb, a.seed, stream,
+                    (uint32_t)(sub * K1_SUB + i_sm), pos_sm[3 * i_sm],
+                    pos_sm[3 * i_sm + 1], pos_sm[3 * i_sm + 2],
+                    dir_sm[3 * i_sm], dir_sm[3 * i_sm + 1],
+                    dir_sm[3 * i_sm + 2]);
+      }
     }
-    __syncthreads();
-    const int rank = running + woff + before;
-    running += tot;
-    const bool reborn = a.srcp != nullptr && dead && rank < remaining;
-    float wl = kGeneral && a.wl != nullptr ? a.wl[l] : 0.0f;
-    if (reborn) {
-      sample_cell(a.srcp, cb, a.seed, stream, (uint32_t)t, in.px, in.py,
-                  in.pz, in.dx, in.dy, in.dz);
-      in.e = a.srcp[SP_ERAY];
-      if (kGeneral && a.wl != nullptr && has_band)
-        wl = band_wl(a.srcp, a.seed, stream, (uint32_t)t);
-    } else {
-      load_ray(a.pos, a.dir, l, in);
+    Ray q[K1_PER];
+    float t_best[K1_PER];
+    int slot_best[K1_PER];
+#pragma unroll
+    for (int j = 0; j < K1_PER; ++j) {
+      const int i_sm = j * K1_THREADS + tid;
+      q[j] = {pos_sm[3 * i_sm], pos_sm[3 * i_sm + 1], pos_sm[3 * i_sm + 2],
+              dir_sm[3 * i_sm], dir_sm[3 * i_sm + 1], dir_sm[3 * i_sm + 2]};
+      t_best[j] = INFINITY;
+      slot_best[j] = -1;
     }
-    const Ray q = {in.px, in.py, in.pz, in.dx, in.dy, in.dz};
-    Shaded o;
-    int slot_best;
-    if (!kGeneral) {
-      float t_best = INFINITY;
-      slot_best = -1;
-      for (int g = 0; g < a.G; ++g) {
-        const int off = a.gmeta[a.meta_w * g];
-        const int mask = a.gmeta[a.meta_w * g + 1];
-        const int cnt = a.counts[(size_t)b * a.G + g];
-        for (int i = 0; i < cnt; ++i) {
-          const float* r = rows_sm + (off + i) * a.K;
-          const float th = flat_rect_t(r, mask, a.C, to_local(r, q), a.t_eps);
-          if (th < t_best) {
-            t_best = th;
-            slot_best = off + i;
+    for (int g = 0; g < a.G; ++g) {
+      const int off = a.gmeta[a.meta_w * g];
+      const int mask = a.gmeta[a.meta_w * g + 1];
+      const int cnt = a.counts[(size_t)b * a.G + g];
+      for (int i = 0; i < cnt; ++i) {
+        const float* r = staged_row(rows_sm, off + i, Kp);
+#pragma unroll
+        for (int j = 0; j < K1_PER; ++j) {
+          const float th =
+              flat_rect_t(r, mask, a.C, to_local(r, q[j]), a.t_eps);
+          if (th < t_best[j]) {
+            t_best[j] = th;
+            slot_best[j] = off + i;
           }
         }
       }
-      o = shade_flat(slot_best >= 0 ? rows_sm + slot_best * a.K : nullptr,
-                     t_best, in, a.seed, stream, (uint32_t)t, ep);
-    } else {
+    }
+#pragma unroll 1
+    for (int j = 0; j < K1_PER; ++j) {
+      // lane j's winner out of the unrolled arrays, kept in registers
+      float tb = INFINITY;
+      int sb = -1;
+#pragma unroll
+      for (int k = 0; k < K1_PER; ++k) {
+        tb = k == j ? t_best[k] : tb;
+        sb = k == j ? slot_best[k] : sb;
+      }
+      const int i_sm = j * K1_THREADS + tid;
+      const size_t l = base + i_sm;
+      const uint32_t t = (uint32_t)(sub * K1_SUB + i_sm);
+      Lane in;
+      in.px = pos_sm[3 * i_sm];
+      in.py = pos_sm[3 * i_sm + 1];
+      in.pz = pos_sm[3 * i_sm + 2];
+      in.dx = dir_sm[3 * i_sm];
+      in.dy = dir_sm[3 * i_sm + 1];
+      in.dz = dir_sm[3 * i_sm + 2];
+      in.e = (born >> j) & 1u ? a.srcp[SP_ERAY] : a.e[l];
+      const Shaded o = shade_flat(sb >= 0 ? rows_sm + sb * Kp : nullptr, tb,
+                                  in, a.seed, stream, t, ep);
+      const bool live = in.e > 0.0f;
+      k1_store(a, pos_sm, dir_sm, i_sm, l, o, live,
+               sb >= 0 && live ? ids_sm[sb] : -1, stream, t);
+    }
+  } else {
+    const bool has_band = a.srcp != nullptr && a.srcp[SP_HAS_BAND] != 0.0f;
+    for (int j = 0; j < K1_PER; ++j) {
+      const int i_sm = j * K1_THREADS + tid;    // lane within the sub-tile
+      const int t = sub * K1_SUB + i_sm;        // lane within the tile
+      const size_t l = tile0 + t;
+      Lane in;
+      in.e = a.e[l];
+      const bool reborn = k1_reborn(in.e <= 0.0f, j, ranked, all_reborn,
+                                    remaining, warp_dead, running);
+      float wl = a.wl != nullptr ? a.wl[l] : 0.0f;
+      if (reborn) {
+        sample_cell(a.srcp, cb, a.seed, stream, (uint32_t)t, in.px, in.py,
+                    in.pz, in.dx, in.dy, in.dz);
+        in.e = a.srcp[SP_ERAY];
+        if (a.wl != nullptr && has_band)
+          wl = band_wl(a.srcp, a.seed, stream, (uint32_t)t);
+      } else {
+        in.px = pos_sm[3 * i_sm];
+        in.py = pos_sm[3 * i_sm + 1];
+        in.pz = pos_sm[3 * i_sm + 2];
+        in.dx = dir_sm[3 * i_sm];
+        in.dy = dir_sm[3 * i_sm + 1];
+        in.dz = dir_sm[3 * i_sm + 2];
+      }
+      const Ray q = {in.px, in.py, in.pz, in.dx, in.dy, in.dz};
       // each group's candidate slots [off, off + cnt) through the class's
       // row test; the winner is a slot, its normal the global gradient
       Best bb;
@@ -997,23 +1207,23 @@ __global__ void __launch_bounds__(K1_THREADS)
                    a.counts[(size_t)b * a.G + g], a.K, kinds, mg[1], a.C, q,
                    a.t_eps, a.disc_eps, md.backside_miss != 0, bb);
       }
-      slot_best = bb.sid;
-      o = shade<false, false, false, kExtra>(
-          slot_best >= 0 ? rows_sm + slot_best * a.K : nullptr, -1, bb.gx,
-          bb.gy, bb.gz, bb.up, bb.t, in, wl, 1.0f, 0.0f, a.seed, stream,
+      const Shaded o = shade<false, false, false, kExtra>(
+          bb.sid >= 0 ? rows_sm + bb.sid * a.K : nullptr, -1, bb.gx, bb.gy,
+          bb.gz, bb.up, bb.t, in, wl, 1.0f, 0.0f, a.seed, stream,
           (uint32_t)t, ep);
+      if (a.nwl != nullptr) a.nwl[l] = wl;
+      const bool live = in.e > 0.0f;
+      k1_store(a, pos_sm, dir_sm, i_sm, l, o, live,
+               bb.sid >= 0 && live ? ids_sm[bb.sid] : -1, stream,
+               (uint32_t)t);
     }
-    store_lane(a.npos, a.ndir, a.ne, l, o.px, o.py, o.pz, o.dx, o.dy, o.dz,
-               o.e);
-    if (kGeneral && a.nwl != nullptr) a.nwl[l] = wl;
-    const bool live = in.e > 0.0f;
-    const int sid = slot_best >= 0 && live ? ids_sm[slot_best] : -1;
-    // park_aureole: the hit of a lane reborn this call (it entered dead
-    // and is live) into the aureole is stored encoded
-    const bool parks = md.park_aureole && sid >= 0 && a.e[l] <= 0.0f &&
-                       aureole_draw(a.srcp, a.seed, stream, (uint32_t)t);
-    a.sid[l] = parks ? -sid - 16 : sid;
-    a.absorbed[l] = live ? o.absorbed : 0.0f;
+  }
+  __syncthreads();
+  float4* npos4 = reinterpret_cast<float4*>(a.npos + 3 * base);
+  float4* ndir4 = reinterpret_cast<float4*>(a.ndir + 3 * base);
+  for (int i = tid; i < 3 * K1_SUB / 4; i += K1_THREADS) {
+    npos4[i] = reinterpret_cast<const float4*>(pos_sm)[i];
+    ndir4[i] = reinterpret_cast<const float4*>(dir_sm)[i];
   }
 }
 
@@ -1163,6 +1373,27 @@ int launch_plain(const PlainArgs& a, size_t smem, int blocks,
 
 using LaunchPlain = int (*)(const PlainArgs&, size_t, int, cudaStream_t);
 
+using CulledKernel = void (*)(CulledArgs);
+
+// K1's instance for these modes (flat_rect: every group flat with rect
+// apertures; wl_lane: the lanes carry a wavelength) and the bytes of
+// shared memory a block of it stages: the sub-tile's rays, the candidate
+// rows and their ids, and in the general instances the spectral table
+CulledKernel pick_culled(const Modes& m, bool flat_rect, bool wl_lane,
+                         int W, int K, int n_tab, size_t& smem) {
+  const bool extra = m.conductor || m.iam_c != 0.0f;
+  const bool general = extra || !flat_rect || m.lambertian ||
+                       m.ambient_att != 0.0f || wl_lane || m.backside_miss;
+  smem = ((size_t)K1_RAY_FLOATS +
+          (size_t)W * (general ? k1_stride<true>(K) : k1_stride<false>(K)) +
+          (size_t)W +
+          (general ? 2 * (size_t)n_tab : 0)) *
+         sizeof(float);
+  return extra     ? bounce_culled_kernel<true, true>
+         : general ? bounce_culled_kernel<true, false>
+                   : bounce_culled_kernel<false, false>;
+}
+
 // the instance with or without backside_miss: a compile-time switch, so
 // scenes without bifacial rows keep a row loop without the test; the same
 // for energy splitting (kSplit)
@@ -1181,14 +1412,15 @@ int tt_bounce_culled(const void* rows, int S, int K, const void* lists,
                      int W, const void* counts, int G, const void* gmeta,
                      int max_c, const void* cells, const void* cell_bounds,
                      const void* remaining, const void* active,
-                     const void* srcp, int seed, const void* pos,
+                     const void* order, const void* srcp, int seed,
+                     const void* pos,
                      const void* dir, const void* e, void* npos, void* ndir,
                      void* ne, void* sid, void* absorbed, const void* wl,
                      void* nwl, const void* tab, int n_tab, int nb,
                      float t_eps, float disc_eps, int flat_rect,
                      const void* modes, void* stream) {
   (void)S;
-  if (modes == nullptr) return (int)cudaErrorInvalidValue;
+  if (modes == nullptr || order == nullptr) return (int)cudaErrorInvalidValue;
   const Modes& m = *static_cast<const Modes*>(modes);
   const int C = (K - ROW_AP) / 6;
   // the culled kernel serves the cullable kinds only: no refraction,
@@ -1213,6 +1445,7 @@ int tt_bounce_culled(const void* rows, int S, int K, const void* lists,
   a.cell_bounds = static_cast<const float*>(cell_bounds);
   a.remaining = static_cast<const int*>(remaining);
   a.active = static_cast<const int*>(active);
+  a.order = static_cast<const int*>(order);
   a.srcp = static_cast<const float*>(srcp);
   a.seed = (uint32_t)seed;
   a.pos = static_cast<const float*>(pos);
@@ -1230,21 +1463,40 @@ int tt_bounce_culled(const void* rows, int S, int K, const void* lists,
   a.t_eps = t_eps;
   a.disc_eps = disc_eps;
   a.m = m;
-  const bool extra = m.conductor || m.iam_c != 0.0f;
-  const bool general = extra || !flat_rect || m.lambertian ||
-                       m.ambient_att != 0.0f || wl != nullptr ||
-                       m.backside_miss;
-  const size_t smem = (size_t)W * K * sizeof(float) +
-                      (size_t)W * sizeof(int) +
-                      (general ? 2 * (size_t)n_tab * sizeof(float) : 0);
-  auto kernel = extra ? bounce_culled_kernel<true, true>
-                      : general ? bounce_culled_kernel<true, false>
-                                : bounce_culled_kernel<false, false>;
+  size_t smem;
+  const CulledKernel kernel =
+      pick_culled(m, flat_rect != 0, wl != nullptr, W, K, n_tab, smem);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   if (nb > 0)
-    kernel<<<nb, K1_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+    kernel<<<nb * K1_SPLIT, K1_THREADS, smem,
+             static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
+}
+
+// K1's launch geometry for these modes: out[0] blocks per tile, out[1]
+// threads per block, out[2] lanes per block, out[3] bytes of shared
+// memory per block, out[4] blocks resident on one SM (the occupancy
+// calculator, registers and shared memory both counted)
+int tt_k1_geometry(int W, int K, int n_tab, int flat_rect, int wl_lane,
+                   const void* modes, int* out) {
+  if (modes == nullptr || out == nullptr) return (int)cudaErrorInvalidValue;
+  size_t smem;
+  const CulledKernel kernel =
+      pick_culled(*static_cast<const Modes*>(modes), flat_rect != 0,
+                  wl_lane != 0, W, K, n_tab, smem);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  int resident = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                      K1_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = K1_SPLIT;
+  out[1] = K1_THREADS;
+  out[2] = K1_SUB;
+  out[3] = (int)smem;
+  out[4] = resident;
+  return (int)cudaSuccess;
 }
 
 int tt_bounce(const void* rows, int S, int K, int G, const void* gmeta,
