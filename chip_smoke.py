@@ -16,11 +16,15 @@ Phases, each printing its lines:
 3. K1 and K2 against their plain PyTorch versions on the card, on the same
    inputs and random streams: K1 (bounce_reflect_culled) over 64 NSTTF
    tiles with regeneration and slope error, K2 (bounce_reflect) over the
-   same lanes; then each one's time at the benchmark slab (2,101,248
-   lanes) beside its plain version's, K1 dispatching the tiles in the
-   culling's order as the trace does, and K1's launch geometry there
-   (blocks, threads, lanes a block, blocks resident a SM, waves) with
-   the spread of the tiles' candidate rows;
+   same lanes, and on the dead lanes it traces and shades beside the live
+   ones (tests/test_torch_gpu.k2_compare with k2_dead), with each K2
+   instance's registers and spill from ptxas (none may spill); then each
+   one's time at the benchmark slab (2,101,248 lanes) beside its plain
+   version's, K1 dispatching the tiles in the culling's order as the
+   trace does, K1's launch geometry there (blocks, threads, lanes a
+   block, blocks resident a SM, waves) with the spread of the tiles'
+   candidate rows, and K2's (persistent blocks, threads, lanes a chunk,
+   shared bytes, blocks resident a SM);
 4. K3 (nearest_hit) against its plain version: on the MiniDish at
    4,194,304 lanes (the sun's rays, then their second bounce), on the
    NSTTF table, on a table with every quadric class and aperture kind and
@@ -52,9 +56,11 @@ Phases, each printing its lines:
    medium) on the plain streaming megakernel: K2 (bounce_reflect) against
    its plain version at the suite's slab of 700,416 lanes in each mode the
    path runs (regeneration over a half-dead slab, the MiniDish's
-   paraboloid and rect rows, the Lambertian lobe with bivariate slope
-   error, spectral absorptance with ambient attenuation), with ties and
-   edge flips at most 1e-5 of the lanes (tests/test_torch_gpu.k2_compare),
+   paraboloid and rect rows, the drain's half-dead lanes without
+   regeneration, the Lambertian lobe with bivariate slope error, spectral
+   absorptance with ambient attenuation), with ties and edge flips at
+   most 1e-5 of the lanes, dead ones included
+   (tests/test_torch_gpu.k2_compare),
    each timed beside its plain version; then each configuration through
    trace_streaming(culling=None) at the suite's size (128 emission rounds,
    89,653,248 rays, max_path 20, 20 and 8): one untimed short trace, three
@@ -383,11 +389,33 @@ def main(argv) -> None:
                                                      want[2], 0.0)
         rem = torch.full_like(rem, kb.TILE // 4)
     # K2 on the round-2 survivors (reflected rays heading for the tower)
+    # and on the dead lanes beside them, which it traces and shades too
+    from test_torch_gpu import k2_compare, k2_dead, k2_near
     got = kb.bounce_reflect(rows, 21, pos, dirs, e, table.groups, te, **kw)
     want = kb.bounce_reflect_ref(rows, 21, pos, dirs, e, table.groups, te,
                                  **kw)
     torch.cuda.synchronize()
     k2_err, k2_ties = compare("K2", got, want, e > 0.0)
+    n_dead = int((e <= 0.0).sum())
+    d_ties, d_flips, d_err = k2_compare(
+        got, want, k2_near(rows, pos, dirs, table.groups, te), pos, dirs,
+        torch.zeros_like(e, dtype=torch.bool),
+        max_flips=int(1e-5 * n_dead) + 1,
+        dead=k2_dead(rows, 21, pos, dirs, e, table.groups,
+                     dict(kw, regen=False), te))
+    k2_err = max(k2_err, d_err)
+    log(f"K2 vs plain on its {n_dead} dead lanes (traced and shaded too): "
+        f"ties {d_ties}, flips {d_flips}, max abs err {d_err:.2e}")
+    # K2's instances: registers and spill (ptxas), none may spill
+    k2_ptxas = build.ptxas_lines(build.info.get("ptxas", ""),
+                                 "bounce_kernel")
+    for entry, regs, stack, st, ld in k2_ptxas:
+        log(f"  K2 {build.k2_instance_name(entry)}: {regs} registers, "
+            f"{stack} B stack, spill {st} / {ld} B")
+    if build.info.get("ptxas"):
+        check(len(k2_ptxas) == 28, f"{len(k2_ptxas)} K2 instances in ptxas")
+        check(not any(st or ld for _, _, _, st, ld in k2_ptxas),
+              "a K2 instance spills")
 
     # per-call times at the benchmark slab: round-2 state of every tile
     nbb = culling.nb
@@ -439,12 +467,20 @@ def main(argv) -> None:
     for k, (t_k, t_p) in times.items():
         log(f"{k} at {nbb * kb.TILE} lanes: kernel {t_k:.3f} ms, plain "
             f"{t_p:.3f} ms ({card})")
+    geo2 = kb.k2_geometry(rows, nbb * kb.TILE, **kw)
+    n_chunks = -(-nbb * kb.TILE // geo2["chunk"])
+    log(f"K2 launch geometry at {nbb * kb.TILE} lanes: {geo2['blocks']} "
+        f"persistent blocks of {geo2['threads']} threads, chunks of "
+        f"{geo2['chunk']} lanes ({n_chunks}, {n_chunks / geo2['blocks']:.2f}"
+        f" a block), {geo2['smem']} B of shared memory a block, "
+        f"{geo2['resident']} resident a SM on {geo2['sms']} SMs ({card})")
     # the bounds of the timed calls: every lane's results written once
     # (36 B); a lane that carries its ray in reads it once (28 B), a lane
     # that K1 regenerates reads only its energy (4 B); each input table is
     # read once. K1 tests its tile's candidates, shades its live lanes and
     # samples its regenerated ones; K2 (regeneration off) tests every row
-    # (only lanes with energy need the work)
+    # for every lane and shades every lane, dead ones too, as its contract
+    # (bounce_reflect_pallas) does
     n_lanes = nbb * kb.TILE
     live_b = (e > 0.0).view(nbb, kb.TILE).sum(1).cpu()
     regen_b = torch.minimum(kb.TILE - live_b, rem.cpu().to(live_b.dtype))
@@ -455,7 +491,7 @@ def main(argv) -> None:
     k1_bound = bound(36 * n_lanes + 28 * (n_lanes - n_regen) + 4 * n_regen
                      + tables, cand * row_ops("flat", (1,))
                      + (n_live + n_regen) * SHADE_OPS + n_regen * REGEN_OPS)
-    k2_bound = bound(64 * n_lanes + 4 * rows.numel(), n_live * (sum(
+    k2_bound = bound(64 * n_lanes + 4 * rows.numel(), n_lanes * (sum(
         (g[1] - g[0]) * row_ops(g[3], g[2]) for g in table.groups)
         + SHADE_OPS))
     for k, bnd in (("K1", k1_bound), ("K2", k2_bound)):
@@ -880,6 +916,8 @@ TPU_PHYSICS = {1: ("receiver fraction", 0.6008),
 # regeneration)
 BENCH_MODES = (("regeneration over a half-dead slab", 1, 0.5, True),
                ("MiniDish rows", 1, 0.0, False),
+               ("the drain's shape: half dead, no regeneration", 1, 0.5,
+                False),
                ("Lambertian + bivariate slope (config 2)", 2, 0.5, True),
                ("spectral + ambient (config 3)", 3, 0.5, True))
 STAGE_C_MODES = (("lens, Fresnel roulette (config 6)", 6, 0.5, True),
@@ -936,11 +974,13 @@ def k2_bound(table, rows, kw, pos, dirs, energy, want, regen):
     regenerated lane only its energy (4 B, and its wavelength when the
     source has no band to draw one); the rows, the spectral table and the
     media tables read once. Operations, as its data needs them: every row
-    for each lane that carries a ray after regeneration, the epilogue's
-    branches for those lanes (the free path in a scattering medium, the
-    medium lookup), Snell and Fresnel on each refractive hit and the HG
-    direction on each scattered lane, the sample for each regenerated lane,
-    and the table segments each spectral hit scans."""
+    for every lane, and the epilogue's branches for every lane (the free
+    path in a scattering medium, the medium lookup): K2 traces and shades
+    the lanes that enter dead and are not regenerated too, as
+    bounce_reflect_pallas does; Snell and Fresnel on each refractive hit
+    and the HG direction on each scattered lane (as the plain version
+    reports them: a dead lane's sid is -1), the sample for each
+    regenerated lane, and the table segments each spectral hit scans."""
     import torch
     from tracer_tpu_torch.kernels.bounce import media_flags
     n = pos.shape[0]
@@ -950,7 +990,6 @@ def k2_bound(table, rows, kw, pos, dirs, energy, want, regen):
                   for k in ("wavelength", "ref_index", "medium_id"))
     dead = energy <= 0.0
     n_regen = int(dead.sum()) if regen else 0
-    n_traced = n - int(dead.sum()) + n_regen
     band = bool(kw["source_spec"][13]) if regen else False
     nbytes = (n * (36 + 4 * n_lanes + (16 if kw.get("refr_split") else 0))
               + (n - n_regen) * (28 + 4 * n_lanes)
@@ -961,16 +1000,16 @@ def k2_bound(table, rows, kw, pos, dirs, energy, want, regen):
               + (4 * (3 * len(media[0]) + 2 * rows.shape[0]) if media
                  else 0))
     att_on, scat_on = (media_flags(media) if media is not None
-                       else (kw["ambient_att"] > 0.0,
+                       else (kw.get("ambient_att", 0.0) > 0.0,
                              kw.get("ambient_scat", 0.0) > 0.0))
     per_lane = (sum((g[1] - g[0]) * row_ops(g[3], g[2])
                     for g in table.groups)
-                + SHADE_OPS - (0 if kw["slope"] else SLOPE_OPS)
-                + (LAMBERT_OPS if kw["lambertian"] else 0)
+                + SHADE_OPS - (0 if kw.get("slope", True) else SLOPE_OPS)
+                + (LAMBERT_OPS if kw.get("lambertian") else 0)
                 + (ATT_OPS if att_on else 0)
                 + (FREE_OPS if scat_on else 0)
                 + (MEDIA_OPS if media is not None else 0))
-    nops = n_traced * per_lane + n_regen * (
+    nops = n * per_lane + n_regen * (
         REGEN_OPS + (BAND_OPS if spectral else 0))
     kinds = table.opt_kind[want[3].clamp(min=0).long()]
     if kw.get("ref_index") is not None:
@@ -1010,7 +1049,8 @@ def bench_phase(dev, card, kb, kn, p_ref, modes, cfgs):
     import statistics
     import torch
     from test_torch_gpu import (bench_lanes, bench_modes, k2_compare,
-                                k2_near, k2_scene, medium_att, traced_rays)
+                                k2_dead, k2_near, k2_scene, medium_att,
+                                traced_rays)
     from tracer_tpu_torch.models.bench_configs import (BENCH, bench_scene,
                                                        max_rounds)
     from tracer_tpu_torch.engine import energy_closure, trace_streaming
@@ -1033,7 +1073,9 @@ def bench_phase(dev, card, kb, kn, p_ref, modes, cfgs):
                                kw["backside_miss"]), tp,
             td, live, att=medium_att(kw), max_flips=max_flips,
             decisions=lanes["ref_index"] is not None,
-            split=kw["refr_split"])
+            split=kw["refr_split"],
+            dead=k2_dead(rows, 29, pos, dirs, e, table.groups, kw,
+                         F32_T_EPS))
         hits = float((want[3][live] >= 0).float().mean())
         scat = float((want[3][live] == -2).float().mean())
         bnd = k2_bound(table, rows, kw, pos, dirs, e, want, regen)
@@ -1045,7 +1087,8 @@ def bench_phase(dev, card, kb, kn, p_ref, modes, cfgs):
         k2 = time_cuda(call_k, 20)
         p2 = time_cuda(call_p, 3)
         ms, plain_ms = min(k1, k2), min(p1, p2)
-        log(f"K2 {label}: {n} lanes ({int(live.sum())} traced, hit share "
+        log(f"K2 {label}: {n} lanes ({int(live.sum())} live, "
+            f"{n - int(live.sum())} dead, hit share "
             f"{hits:.3f}, scattered {scat:.3f}), rows {table.num_rows} in "
             f"groups {[(g[3], g[2]) for g in table.groups]}, sid ties "
             f"{ties}, flips {flips}, max abs err {err:.2e}; kernel "

@@ -103,16 +103,17 @@ def variants(source: str) -> dict:
     return out
 
 
-def sass_k1(lib_path, build) -> dict:
-    """Each K1 instance's SASS (cuobjdump beside nvcc) and its counts of
-    local stores, local loads and calls."""
+def sass_k1(lib_path, build, what: str = "bounce_culled") -> dict:
+    """Each K1 instance's SASS (cuobjdump beside nvcc; with ``what``, each
+    kernel whose mangled name holds it) and its counts of local stores,
+    local loads and calls."""
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
     text = subprocess.run([str(tool), "-sass", str(lib_path)],
                           capture_output=True, text=True).stdout
     out = {}
     for part in text.split("Function : ")[1:]:
         name = part.split()[0]
-        if "bounce_culled" in name:
+        if what in name:
             out[name] = dict(sass=part, stl=part.count(" STL"),
                              ldl=part.count(" LDL"), call=part.count(" CALL"))
     return out
@@ -153,27 +154,6 @@ def finish_build(name, proc, so, build):
     lib.tt_error_string.argtypes = [ctypes.c_int]
     lib.tt_error_string.restype = ctypes.c_char_p
     return lib, err
-
-
-def ptxas_lines(report: str, what: str) -> list:
-    """(entry, registers, stack, spill stores, spill loads) of each kernel
-    whose mangled name holds ``what``, from nvcc -Xptxas -v."""
-    out, entry, props = [], None, None
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            entry, props = m.group(1), None
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m:
-            props = tuple(int(x) for x in m.groups())
-            continue
-        m = re.search(r"Used (\d+) registers", line)
-        if m and entry and what in entry:
-            out.append((entry, int(m.group(1)), *(props or (0, 0, 0))))
-            entry = None
-    return out
 
 
 def load_parent(path: Path):
@@ -252,13 +232,13 @@ def k1_cases(dev, kb):
 
 
 def differing(got, ref) -> int:
-    """Lanes on which any output differs."""
+    """Lanes on which any output differs (NaN equals NaN)."""
     bad = got[3] != ref[3]
     for g, r in zip(got, ref):
-        if g.dim() == 2:
-            bad |= (g != r).any(1)
-        elif g is not got[3]:
-            bad |= g != r
+        ne = g != r
+        if g.is_floating_point():
+            ne &= ~(g.isnan() & r.isnan())
+        bad |= ne.any(1) if g.dim() == 2 else ne
     return int(bad.sum())
 
 
@@ -326,7 +306,7 @@ def main(argv) -> None:
                 (out / f"k1_sass_{fn[-40:]}.txt").write_text(d["sass"])
     for name, report in reports.items():
         for what in ("bounce_culled", "bounce_kernel", "nearest"):
-            lines = ptxas_lines(report, what)
+            lines = build.ptxas_lines(report, what)
             if what != "bounce_culled" and name != "tree" \
                     and name != "parent":
                 continue
@@ -335,12 +315,13 @@ def main(argv) -> None:
                 if what == "bounce_culled" or (st or ld):
                     log(f"  ptxas {name}: {entry}: {regs} registers, "
                         f"{stack} B stack, spill {st} / {ld} B")
-        regs = [ln[1] for ln in ptxas_lines(report, "bounce_kernel")]
+        regs = [ln[1] for ln in build.ptxas_lines(report,
+                                                      "bounce_kernel")]
         if regs and name in ("tree", "parent"):
             log(f"  ptxas {name}: K2's {len(regs)} instances {min(regs)}-"
                 f"{max(regs)} registers; K3 "
-                + ", ".join(str(ln[1]) for ln in ptxas_lines(report,
-                                                             "nearest")))
+                + ", ".join(str(ln[1]) for ln in build.ptxas_lines(
+                    report, "nearest")))
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def variant_call(lib, pos_args, kw, order):

@@ -38,8 +38,8 @@ from tracer_tpu_torch.kernels import nearest as kn
 from test_torch_gpu import (K1_MODES, K2_MODES, T_EPS, fuzz_assembly,
                             fuzz_rays, k1_call, k1_compare, k1_lanes,
                             k1_live, k1_scene, k1_straddling, k2_compare,
-                            k2_instance, k2_mode, k2_near, k3_compare,
-                            medium_att, traced_rays)
+                            k2_dead, k2_instance, k2_mode, k2_near,
+                            k2_scene, k3_compare, medium_att, traced_rays)
 
 # the suite runs several test processes at once: one torch thread each
 # keeps them from oversubscribing the cores
@@ -62,13 +62,21 @@ _RUNTIME = r"""
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
 struct alignas(16) float4 { float x, y, z, w; };
 inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 gridDim;
 inline std::barrier<>* g_block = nullptr;
 inline std::vector<float> g_dynamic_smem(1 << 16);
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 2 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+// three SMs: K2's persistent blocks each walk several chunks
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 3;
+  return cudaSuccess;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 template <class K> cudaError_t cudaFuncSetAttribute(K, int, int) {
   return cudaSuccess;
@@ -115,6 +123,7 @@ void emulated_launch(K kernel, int grid, int block, size_t smem,
                      cudaStream_t, A args) {
   if (smem / sizeof(float) > g_dynamic_smem.size())
     g_dynamic_smem.resize(smem / sizeof(float));
+  gridDim.x = grid;
   for (int b = 0; b < grid; ++b) {
     std::barrier<> bar(block);
     g_block = &bar;
@@ -176,6 +185,12 @@ _PLANTED = ("const float inv_nr = 1.0f / nrat;",
 # ambient
 _PLANTED_SPLIT = ("o.s_e = o.split ? e_out * r_split : 0.0f;",
                   "o.s_e = o.split ? in.e * r_split : 0.0f;")
+# a K2 that skips the row scan for the lanes that enter dead and are not
+# regenerated (their outputs left as their inputs): k2_compare must
+# reject it on the drain's half-dead lanes
+_PLANTED_DEAD = ("  const bool hit = b.sid >= 0;\n  const Modes& md",
+                 "  const bool hit = b.sid >= 0 && in.e > 0.0f;\n"
+                 "  const Modes& md")
 # the paraboloid's axial gradient with its sign flipped (rows.cuh): the
 # curved field's normals tilt the other way, which k1_compare must reject
 _PLANTED_GRADIENT = ("      glz = qd[8];", "      glz = -qd[8];")
@@ -229,8 +244,8 @@ def _load(proc, so):
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     """The emulated kernels, K2 with _PLANTED, K1 with _PLANTED_GRADIENT,
-    K2 with _PLANTED_SPLIT and K1 with _PLANTED_AUREOLE, built side by
-    side."""
+    K2 with _PLANTED_SPLIT, K1 with _PLANTED_AUREOLE and K2 with
+    _PLANTED_DEAD, built side by side."""
     jobs = (_compile(tmp_path_factory.mktemp("emulated"),
                      ("bounce", "nearest")),
             _compile(tmp_path_factory.mktemp("planted"), ("bounce",),
@@ -240,7 +255,9 @@ def libs(tmp_path_factory):
             _compile(tmp_path_factory.mktemp("planted_split"), ("bounce",),
                      _PLANTED_SPLIT),
             _compile(tmp_path_factory.mktemp("planted_aureole"),
-                     ("bounce",), _PLANTED_AUREOLE))
+                     ("bounce",), _PLANTED_AUREOLE),
+            _compile(tmp_path_factory.mktemp("planted_dead"), ("bounce",),
+                     _PLANTED_DEAD))
     return tuple(_load(*job) for job in jobs)
 
 
@@ -257,10 +274,10 @@ def _k2(lib, rows, seed, pos, dirs, energy, groups, **kw):
     return out
 
 
-def _k2_mode(lib, mode):
+def _k2_mode(lib, mode, n=2 * kb.TILE):
     """K2 through ``lib`` against its plain version in K2_MODES[mode] on
-    two tiles: (k2_compare's results, kw, got, want, live)."""
-    n = 2 * kb.TILE
+    ``n`` lanes (two tiles), the lanes that enter dead and are not
+    regenerated included: (k2_compare's results, kw, got, want, live)."""
     table, spec, rows, pos, dirs, e, kw, regen = k2_mode(mode, n, 3, "cpu")
     got = _k2(lib, rows, 17, pos, dirs, e, table.groups, **kw)
     want = kb.bounce_reflect_ref(rows, 17, pos, dirs, e, table.groups,
@@ -271,7 +288,8 @@ def _k2_mode(lib, mode):
                                         backside_miss=kw["backside_miss"]),
                      tp, td, live, att=medium_att(kw),
                      decisions=kw["ref_index"] is not None,
-                     split=kw["refr_split"])
+                     split=kw["refr_split"],
+                     dead=k2_dead(rows, 17, pos, dirs, e, table.groups, kw))
     return res, kw, got, want, live
 
 
@@ -315,6 +333,78 @@ def test_k2_source_matches_plain(lib, mode):
         assert (s_e[live] > 0.0).float().mean() > 0.3
         if mode == "split_tir":
             assert ((want[2] == 0.0) & (s_e > 0.0)).sum() > 500
+
+
+def test_k2_compare_rejects_planted_dead_lanes(libs):
+    """The drain's half-dead lanes through a K2 that skips the row scan
+    for the lanes that enter dead (_PLANTED_DEAD: their outputs left as
+    their inputs) fail k2_compare: their points and directions are not
+    the plain version's hits, though their sid (-1) and energy (0) agree;
+    the same build passes the live lanes of a regenerating mode."""
+    with pytest.raises(AssertionError):
+        _k2_mode(libs[5], "drain")
+    (_, flips, _), *_ = _k2_mode(libs[5], "regen")
+    assert flips == 0
+
+
+@pytest.mark.parametrize("mode", ("drain", "regen", "split_lens"))
+def test_k2_ragged_chunks(lib, mode):
+    """K2's CUDA source over a lane count that ends inside a chunk (two
+    tiles less five lanes), its persistent blocks each walking several
+    chunks: every lane, dead ones included, within k2_compare's tolerance
+    of the plain version and no flips."""
+    (_, flips, _), kw, got, want, live = _k2_mode(lib, mode,
+                                                  2 * kb.TILE - 5)
+    assert flips == 0 and got[0].shape[0] == 2 * kb.TILE - 5
+    assert (want[3][live] != -1).float().mean() > 0.3
+
+
+def test_k2_source_every_aperture_kind(lib):
+    """K2's CUDA source on the table with every quadric class and every
+    aperture kind, two aperture slots a row (so its scan reads the slot
+    count at run time), a third of the lanes dead: no flips, every lane
+    within k2_compare's tolerance of the plain version, dead ones
+    included."""
+    table, meta = ptt.compile_scene(fuzz_assembly(ptt, 0), device="cpu")
+    n = 4096
+    pos, dirs = (torch.tensor(a) for a in fuzz_rays(meta, n, 5))
+    g = torch.Generator().manual_seed(1)
+    e = torch.where(torch.rand(n, generator=g) < 0.3, 0.0, 1.0)
+    rows = kb.pack_rows(table)
+    assert (rows.shape[1] - kb.ROW_AP) // 6 == 2
+    kw = dict(bivar=True, one_sided=False, slope=False)
+    got = _k2(lib, rows, 17, pos, dirs, e, table.groups, **kw)
+    want = kb.bounce_reflect_ref(rows, 17, pos, dirs, e, table.groups,
+                                 T_EPS, **kw)
+    _, flips, _ = k2_compare(
+        got, want, k2_near(rows, pos, dirs, table.groups), pos, dirs,
+        e > 0.0, dead=k2_dead(rows, 17, pos, dirs, e, table.groups,
+                              dict(kw, regen=False)))
+    assert flips == 0
+    assert (want[3][e > 0.0] >= 0).float().mean() > 0.3
+
+
+def test_k2_geometry_matches_wrapper(lib):
+    """K2's launch geometry is the wrapper's: chunks of whole warps, one
+    lane a thread, the stage kb.k2_stage_floats (the rows padded to
+    16-byte words), and as many persistent blocks as the card keeps
+    resident, never more than there are chunks."""
+    table, *_ = k2_scene(1, kb.TILE, "cpu")
+    rows = kb.pack_rows(table)
+    S, K = rows.shape
+    modes = kb._modes(True, True, True, False, 0.0, False, False, False,
+                      0.0, 0.0, False, (False,) * len(kb.EXTRA_MODES))
+    for chunks in (11, 1):
+        out = (ctypes.c_int * 6)()
+        rc = lib.tt_k2_geometry(S, K, 0, 0, 0, 0, ctypes.addressof(modes),
+                                256 * (chunks - 1) + 3,
+                                ctypes.addressof(out))
+        assert rc == 0
+        blocks, threads, chunk, smem, resident, sms = out
+        assert chunk == threads and threads % 32 == 0
+        n = 256 * (chunks - 1) + 3
+        assert blocks == min(-(-n // chunk), sms * resident)
+        assert (smem, resident, sms) == (4 * kb.k2_stage_floats(S, K), 1, 3)
 
 
 def test_k2_compare_rejects_planted_split_energy(libs):
@@ -474,6 +564,37 @@ def test_k1_tile_order_moves_nothing(lib):
     for other in outs[1:]:
         for g, t in zip(outs[0], other):
             assert torch.equal(g, t)
+
+
+def _offset(t):
+    """A contiguous view of a copy of ``t`` whose data starts 4 bytes past
+    a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype)
+    view = flat[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+def test_k1_unaligned_rays_are_copied(lib):
+    """Rays and energies that start 4 bytes past a 16-byte boundary go to
+    K1's CUDA source as its wrapper hands them on (kb._aligned16: a fresh
+    aligned copy, where the kernel's 16-byte stages need one) and give
+    every output bit for bit the aligned tensors' results."""
+    table, meta, culling, spec = k1_scene("rect", 40, 16 * kb.TILE, "cpu")
+    lanes = k1_lanes(meta, culling, K1_TILES, 3, 0.4, "cpu", spec[13])
+    rem = torch.tensor([kb.TILE, 400, kb.TILE], dtype=torch.int32)
+    act = torch.tensor([1, 1, 0], dtype=torch.int32)
+    args = (table, culling, spec, K1_TILES, 13)
+    views = tuple(_offset(t) for t in lanes[:3])
+    handed = tuple(kb._aligned16(v) for v in views)
+    assert all(h.data_ptr() % 16 == 0 and torch.equal(h, v)
+               for h, v in zip(handed, views))
+    assert kb._aligned16(lanes[0]) is lanes[0]
+    want = k1_call(_k1_fn(lib), *args, lanes, rem, act)
+    got = k1_call(_k1_fn(lib), *args, handed + lanes[3:], rem, act)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_k1_geometry_matches_wrapper(lib):

@@ -265,13 +265,35 @@ def k2_near(rows, pos, dirs, groups, t_eps: float = T_EPS,
     return t1, t2, aux["normal"], aux["kind"]
 
 
+def k2_dead(rows, seed: int, pos, dirs, energy, groups, kw,
+            t_eps: float = T_EPS):
+    """k2_compare's ``dead`` for a K2 call (``kw`` its keywords): the lanes
+    that enter without energy and are not regenerated, which K2 traces and
+    shades all the same, and the sid the plain version reports for each
+    when it carries energy (no decision of K2 depends on a lane's energy);
+    None when there are none."""
+    dead = (energy <= 0.0) & (not kw.get("regen"))
+    if not bool(dead.any()):
+        return None
+    lit = kb.bounce_reflect_ref(rows, seed, pos, dirs,
+                                torch.where(dead, 1.0, energy), groups,
+                                t_eps, **kw)
+    return dead, lit[3]
+
+
 def k2_compare(got, want, near, pos, dirs, live, att=0.0, rtol=1e-5,
-               max_flips=0, decisions=False, split=False):
+               max_flips=0, decisions=False, split=False, dead=None):
     """K2 results (pos, dir, energy, sid, absorbed[, wavelength][, index]
     [, medium id][, s_e, s_dir]) against another version's on the ``live``
-    lanes
+    lanes and, with ``dead`` (k2_dead: the lanes that enter dead and are
+    not regenerated, and the sid each would report with energy), on those
+    lanes too
     (``pos``/``dirs`` the rays each traced after regeneration,
-    traced_rays; ``near`` their k2_near). Ties (best and second-best t
+    traced_rays; ``near`` their k2_near). A dead lane's sid is -1 in both,
+    so it cannot show which row won: there the lit sid stands in for it,
+    and a dead lane whose point, direction, index or medium id lies
+    outside the tolerances below counts as a flip, within the same
+    ``max_flips``; its energy and absorbed energy (0) must match. Ties (best and second-best t
     within 1e-5 of the scale) may pick either row; at most ``max_flips``
     of them, but where the winner is refractive: a lens's two caps meet
     along a seam, where lanes hit both at one point (at most 1% of the
@@ -296,16 +318,25 @@ def k2_compare(got, want, near, pos, dirs, live, att=0.0, rtol=1e-5,
     on them its direction within 10 rtol / cos^2 of the reflection (cos
     from the reflected turn). Returns (ties, flips, max abs error)."""
     t1, t2, normal, kind = near
+    sid_w = want[3]
+    if dead is not None:
+        dead, lit = dead
+        assert (got[3][dead] == -1).all() and (want[3][dead] == -1).all()
+        sid_w = torch.where(dead, lit, want[3])
+        traced = live | dead
+    else:
+        dead = torch.zeros_like(live)
+        traced = live
     scale = 1.0 + pos.abs().amax(dim=1)
-    tie = live & ((t2 - t1) <= 1e-5 * (scale + t1))
+    tie = traced & ((t2 - t1) <= 1e-5 * (scale + t1))
     refr = kind == ptt.materials.K_REFRACTIVE
     n_tie = int((tie & ~refr).sum())
     assert n_tie <= max_flips, ("ties", n_tie)
-    assert int((tie & refr).sum()) <= 0.01 * int(live.sum()), "seam ties"
+    assert int((tie & refr).sum()) <= 0.01 * int(traced.sum()), "seam ties"
     same = got[3] == want[3]
     flips = int((live & ~same & ~tie).sum())
-    ok = live & same & ~tie
-    moved = ok & (want[3] != -1)
+    ok = traced & same & ~tie
+    moved = ok & (sid_w != -1)
     # cos^2 of the incidence angle from the turned direction (1 on misses
     # and scattered lanes); the Lambertian rows' lobes only get a looser
     # scale. A refraction turns the direction by far less than a
@@ -317,15 +348,15 @@ def k2_compare(got, want, near, pos, dirs, live, att=0.0, rtol=1e-5,
     cos_io = torch.minimum((dirs * n_hat).sum(1).abs(),
                            (want[1] * n_hat).sum(1).abs())
     cos2 = torch.where(refr, cos_io ** 2, cos2)
-    cos2 = torch.where(want[3] >= 0, cos2, 1.0).clamp(min=1e-4)
+    cos2 = torch.where(sid_w >= 0, cos2, 1.0).clamp(min=1e-4)
     dist = (want[0] - pos).norm(dim=1)
-    base = (scale + torch.where(want[3] >= 0, t1, dist)) / cos2
+    base = (scale + torch.where(sid_w >= 0, t1, dist)) / cos2
     d_pos = (got[0] - want[0]).abs().amax(dim=1)
     d_dir = (got[1] - want[1]).abs().amax(dim=1)
     # an HG direction leaves at sin = sqrt(1 - cos^2) of the scattering
     # angle, whose rounding grows as 1 / sin near the travel direction
     sin_sc = torch.sqrt((1.0 - (dirs * want[1]).sum(1) ** 2).clamp(min=0.0))
-    c_dir = torch.where(want[3] == -2, sin_sc.clamp(min=1e-4), cos2)
+    c_dir = torch.where(sid_w == -2, sin_sc.clamp(min=1e-4), cos2)
     n_out = len(got) - (2 if split else 0)
     lane_bad = torch.zeros_like(ok)
     for k in range(5, n_out):
@@ -336,7 +367,15 @@ def k2_compare(got, want, near, pos, dirs, live, att=0.0, rtol=1e-5,
         bad = ok & lane_bad
         flips += int(bad.sum())
         ok, moved = ok & ~bad, moved & ~bad
-    assert flips <= max_flips, (flips, torch.nonzero(live & ~same & ~tie)[:5])
+    # a dead lane that met another row than the plain version's, or went
+    # the other way at a refractive row, shows it in its point, its
+    # direction or its lane fields
+    d_bad = ok & dead & ((d_pos > rtol * base) & (sid_w != -1)
+                         | (d_dir > 10 * rtol / c_dir) | lane_bad)
+    flips += int(d_bad.sum())
+    ok, moved = ok & ~d_bad, moved & ~d_bad
+    assert flips <= max_flips, (flips, torch.nonzero(live & ~same & ~tie)[:5],
+                                torch.nonzero(d_bad)[:5])
     assert (d_pos[moved] <= rtol * base[moved]).all(), "pos"
     assert (d_dir[ok] <= 10 * rtol / c_dir[ok]).all(), "dir"
     energies = ((2, "energy"), (4, "absorbed"))
@@ -355,7 +394,8 @@ def k2_compare(got, want, near, pos, dirs, live, att=0.0, rtol=1e-5,
         g, w = got[k][ok], want[k][ok]
         tol = (10 * rtol + att * rtol * base[ok]) * w.abs()
         assert ((g - w).abs() <= tol).all(), name
-    assert not lane_bad[ok if decisions else live].any(), "wl, ri or mid"
+    assert not lane_bad[ok if decisions else live | (ok & dead)].any(), \
+        "wl, ri or mid"
     big = [float((got[k][ok] - want[k][ok]).abs().max()) if ok.any() else 0.0
            for k, _ in ((0, ""), (1, "")) + energies]
     return int(tie.sum()), flips, max(big)
@@ -799,6 +839,50 @@ def test_k1_sub_tile_ranks_and_order_on_gpu(cuda_device, mode):
         assert torch.equal(g, t)
 
 
+def _offset_view(t):
+    """A contiguous view of a copy of ``t`` whose data starts 4 bytes past
+    a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    view = flat[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ("k1", "k2"))
+def test_unaligned_rays_match_aligned_on_gpu(cuda_device, kernel):
+    """Given pos, dirs and energy as contiguous views 4 bytes past a
+    16-byte boundary, K1 (which moves the rays 16 bytes at a time: its
+    wrapper copies them first) and K2 give every output bit for bit the
+    aligned tensors' results."""
+    dev = cuda_device
+    if kernel == "k1":
+        table, meta, culling, spec = k1_scene("rect", 40, 16 * kb.TILE, dev)
+        lanes = k1_lanes(meta, culling, K1_TILES_GPU, 3, 0.4, dev, spec[13])
+        rem = torch.tensor([kb.TILE, 400, kb.TILE], dtype=torch.int32,
+                           device=dev)
+        act = torch.tensor([1, 1, 0], dtype=torch.int32, device=dev)
+        args = (table, culling, spec, K1_TILES_GPU, 13)
+        want = k1_call(kb.bounce_reflect_culled, *args, lanes, rem, act)
+        got = k1_call(kb.bounce_reflect_culled, *args,
+                      tuple(_offset_view(t) for t in lanes[:3]) + lanes[3:],
+                      rem, act)
+    else:
+        table, _, rows, pos, dirs, e, kw, _ = k2_mode("drain_lens",
+                                                      4 * kb.TILE, 3, dev)
+        want = kb.bounce_reflect(rows, 17, pos, dirs, e, table.groups, T_EPS,
+                                 **kw)
+        got = kb.bounce_reflect(rows, 17, _offset_view(pos),
+                                _offset_view(dirs), _offset_view(e),
+                                table.groups, T_EPS, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+K1_TILES_GPU = (3, 4, 5)
+
+
 def test_cpu_tensors_take_the_plain_version():
     """On CPU tensors the wrappers run the plain versions (no launch)."""
     slab = 2 * ((1 << 20) // kb.TILE * kb.TILE + kb.TILE)
@@ -1120,11 +1204,15 @@ K2_MODES = {"regen": (1, 0.5, True, False), "minidish": (1, 0.0, False, False),
             "glazed_ct": ("7g", 0.5, True, False),
             "lens_hg_ct": ("lens_hg_ct", 0.5, True, False),
             "slab_transparent": ("slab_transparent", 0.5, True, False),
-            "box_ls": ("box_ls", 0.5, True, False)}
+            "box_ls": ("box_ls", 0.5, True, False),
+            # the drain's shape: half the lanes dead, none regenerated
+            # (the megakernel's compacted tail, the culled trace's drain)
+            "drain": (1, 0.5, False, False),
+            "drain_lens": (6, 0.5, False, False)}
 K2_MODES.update({f"{m}_bmiss": K2_MODES[m][:3] + (True,) for m in (
     "ambient_hg", "lens", "lens_hg", "slab_media", "media", "cook_torrance",
     "periodic_hg", "glazed_ct", "lens_hg_ct", "slab_transparent",
-    "box_ls", "split_lens", "split_glazed_ct")})
+    "box_ls", "split_lens", "split_glazed_ct", "drain", "drain_lens")})
 
 
 def k2_mode(mode, n: int, seed: int, device):
@@ -1151,10 +1239,12 @@ def test_k2_modes_match_plain_on_gpu(cuda_device, mode):
     absorbing media without scattering, the stage (d)/(e) kinds, rect
     regeneration, bifacial rows, energy splitting (the split lens, TIR
     lanes, a splitting cover), the stage (d)/(e) kinds beside refraction
-    and media ids (MIXED), and every instance's backside_miss twin
-    (k2_compare: edge flips and roulette flips at most 1e-5 of the lanes,
-    ties too but on the lens's seam; the split branch's energy and
-    direction); one launch per call."""
+    and media ids (MIXED), the drain's half-dead lanes without
+    regeneration on config 1's rows and the lens, and every instance's
+    backside_miss twin (k2_compare: edge flips and roulette flips at most
+    1e-5 of the lanes, dead lanes included, ties too but on the lens's
+    seam; the split branch's energy and direction); one launch per
+    call."""
     dev = cuda_device
     n = 64 * kb.TILE
     table, spec, rows, pos, dirs, e, kw, regen = k2_mode(mode, n, 3, dev)
@@ -1171,7 +1261,8 @@ def test_k2_modes_match_plain_on_gpu(cuda_device, mode):
                                   backside_miss=kw["backside_miss"]),
                tp, td, live, att=medium_att(kw), max_flips=int(1e-5 * n) + 1,
                decisions=kw["ref_index"] is not None,
-               split=kw["refr_split"])
+               split=kw["refr_split"],
+               dead=k2_dead(rows, 17, pos, dirs, e, table.groups, kw))
     assert (want[3][live] != -1).float().mean() > 0.1
 
 

@@ -47,8 +47,10 @@ import math
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .accel import _row_geometries, _row_points
+from .kernels.bounce import tile_order
 from . import materials as M
 
 
@@ -60,9 +62,6 @@ class BlockCulling:
             per-group column segments [group_offsets[g], +W_g) so the
             kernel's per-group specialized loops can index them; -1 pads
     counts  (nb, G) int32 valid entries per block per group
-    order   (nb,) int32 the blocks by descending candidate count (a stable
-            argsort of -counts.sum(1)): the order in which K1 dispatches
-            them on the card, so the longest lists start first
     group_offsets (G,) static column offset of each group's segment
     cell_bounds (nb, 4) float32 equal-area source cell of each block: a
             disk's [a0, a1, th0, th1] with a = (r/R)^2 the area fraction
@@ -79,11 +78,15 @@ class BlockCulling:
     demote_rows rows whose surviving rays are parked (wide scatterers)
     park_aureole the closure is sized to the solar-disc cone: the culled
             trace parks the survivors of aureole-born lanes' first bounce
+    order   (nb,) int32 the blocks by descending candidate count (a stable
+            argsort of -counts.sum(1)): the order in which K1 dispatches
+            them on the card, so the longest lists start first; None (a
+            culling built with tracer_tpu's fields) derives it from
+            ``counts``
     """
 
     lists: np.ndarray
     counts: np.ndarray
-    order: np.ndarray
     cell_bounds: np.ndarray
     cell_of_block: np.ndarray
     n_cells: int
@@ -92,6 +95,12 @@ class BlockCulling:
     demote_rows: tuple
     stats: dict
     park_aureole: bool = False
+    order: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        if self.order is None:
+            object.__setattr__(self, "order", tile_order(
+                torch.as_tensor(self.counts)).numpy())
 
     @property
     def nb(self) -> int:
@@ -1098,9 +1107,7 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
                  n_demoted=int(demote.sum()),
                  t_phase={k: round(v, 1) for k, v in t_phase.items()},
                  reduction=float(S / max(n_cand.mean(), 1.0)))
-    return BlockCulling(lists=arr, counts=counts,
-                        order=np.argsort(-n_cand, kind="stable")
-                        .astype(np.int32), cell_bounds=cell_bounds,
+    return BlockCulling(lists=arr, counts=counts, cell_bounds=cell_bounds,
                         cell_of_block=cell_of_block, n_cells=n_cells,
                         age_caps=age_caps, group_offsets=offsets,
                         demote_rows=tuple(int(r) for r in

@@ -624,8 +624,8 @@ def _ambient_bundle(scene, bundle: RayBundle) -> RayBundle:
 def trace_streaming(scene: SceneTable, source_fn, generator: torch.Generator,
                     total_rays: int, max_rounds: int = 10_000,
                     max_path: int = 100, min_energy: float = 1e-6,
-                    t_eps=None, disc_eps: float = 1e-6, culling=None,
-                    fluxspecs: tuple = ()):
+                    t_eps=None, disc_eps: float = 1e-6, block: int = 64,
+                    culling=None, fluxspecs: tuple = ()):
     """Streaming wavefront trace with ray regeneration
     (tracer_tpu/engine.py:1625), on the device that holds ``scene``.
 
@@ -637,6 +637,8 @@ def trace_streaming(scene: SceneTable, source_fn, generator: torch.Generator,
     the per-ray bounce budget. ``fluxspecs`` (device_fluxmap.FluxSpec
     tuple) accumulates receiver flux maps into ``accum.flux``. A
     scene-declared ambient medium is folded into the source first.
+    ``block`` (tracer_tpu's surfaces per scan step of its jnp path) is
+    accepted and ignored: the kernels here scan every row.
 
     Returns (accum, emitted, source_e): energy accumulators, rays
     emitted, total energy emitted, with source_e == absorbed + escaped +

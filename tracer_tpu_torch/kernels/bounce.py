@@ -1018,8 +1018,8 @@ def _culled_modes(bivar, one_sided, slope, lambertian, ambient_att,
 
 def tile_order(counts):
     """The order in which K1 dispatches the tiles: a stable argsort of
-    their candidate rows, most first (culling.BlockCulling.order on the
-    host), as int32 on ``counts``' device."""
+    their candidate rows, most first, as int32 on ``counts``' device
+    (culling.BlockCulling.order holds it for a culling)."""
     return torch.argsort(-counts.sum(1), stable=True).to(torch.int32)
 
 
@@ -1048,6 +1048,51 @@ def k1_geometry(lists, rows, groups, group_offsets, wavelength=None,
     split, threads, sub, smem, resident = out
     return dict(blocks=nb * split, threads=threads, split=split, sub=sub,
                 smem=smem, resident=resident)
+
+
+def _aligned16(t):
+    """``t``, or a fresh contiguous copy of it when its data does not start
+    on a 16-byte boundary (K1 moves the ray state 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def k2_stage_floats(S: int, K: int, n_tab: int = 0, n_media: int = 0) -> int:
+    """The floats a K2 block stages in shared memory (csrc/bounce.cu
+    plain_stage_floats): the rows at a stride of whole 16-byte words, the
+    spectral table, the source pose and, with media, the media table and
+    the rows' side ids."""
+    return (S * (-(-K // 4) * 4) + 2 * n_tab
+            + POSE_FLOATS + 3 * n_media + (2 * S if n_media else 0))
+
+
+def k2_geometry(rows, n: int, spectral_tab=None, ref_index=None,
+                media=None, **modes) -> dict:
+    """K2's launch geometry for a call of ``n`` lanes on ``rows`` with
+    bounce_reflect's keywords (ref_index and media select the instance as
+    the call would): blocks, threads a block, lanes a chunk, bytes of
+    shared memory a block, blocks resident a SM, SMs."""
+    from . import build
+    S, K = rows.shape
+    n_tab = spectral_tab.shape[0] if spectral_tab is not None else 0
+    n_media = len(media[0]) if media is not None else 0
+    scat_on = (media_flags(media)[1] if media is not None
+               else modes.get("ambient_scat", 0.0) > 0.0)
+    m = _modes(modes.get("bivar", True), modes.get("one_sided", True),
+               modes.get("slope", True), modes.get("lambertian", False),
+               modes.get("ambient_att", 0.0), modes.get("refr_frost", False),
+               modes.get("refr_disp", False), scat_on,
+               modes.get("ambient_scat", 0.0), modes.get("ambient_g", 0.0),
+               modes.get("backside_miss", False),
+               tuple(modes.get(k, False) for k in EXTRA_MODES),
+               modes.get("refr_split", False))
+    out = (ctypes.c_int * 6)()
+    lib = build.load()
+    rc = lib.tt_k2_geometry(S, K, n_tab, n_media, int(ref_index is not None),
+                            int(media is not None), ctypes.addressof(m),
+                            int(n), ctypes.addressof(out))
+    build.check(lib, rc, "k2_geometry")
+    return dict(zip(("blocks", "threads", "chunk", "smem", "resident",
+                     "sms"), out))
 
 
 def _ray_outputs(n, device):
@@ -1101,8 +1146,8 @@ def bounce_reflect_culled(rows, lists, counts, cells, cell_bounds,
               ``counts``. It moves no result.
 
     The kernel serves each tile with K1_SPLIT blocks of TILE / K1_SPLIT
-    lanes; pos, dirs and energy must start on 16-byte boundaries (fresh
-    tensors do), since it stages and stores them 16 bytes at a time.
+    lanes and stages and stores the rays 16 bytes at a time: pos, dirs or
+    energy that do not start on a 16-byte boundary are copied first.
 
     The NSTTF's modes (flat rect rows, K_REFLECT) run the kernel's own
     instance; any other mode or class the general one, conductor and IAM
@@ -1148,10 +1193,7 @@ def bounce_reflect_culled(rows, lists, counts, cells, cell_bounds,
     if order is not None:
         _check_device(dev, {"order": order})
         _check("order", order, torch.int32, (nb,))
-    for name in ("pos", "dirs", "energy"):
-        if args[name].data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary "
-                             "(K1 moves it 16 bytes at a time)")
+    pos, dirs, energy = (_aligned16(t) for t in (pos, dirs, energy))
     if (K - ROW_AP) % 6 or (K - ROW_AP) // 6 > MAX_C:
         raise ValueError(f"rows: {K} columns is not 30 + 6 * C with "
                          f"C <= {MAX_C}")
@@ -1331,8 +1373,7 @@ def bounce_reflect(rows, seed: int, pos, dirs, energy, groups,
                              f"the ({S}, {K}) rows table")
     n_tab = spectral_tab.shape[0] if spectral_tab is not None else 0
     n_media = len(media[0]) if media is not None else 0
-    if (S * K + 2 * n_tab + POSE_FLOATS + 3 * n_media
-            + (2 * S if media is not None else 0)) > MAX_STAGE_FLOATS:
+    if k2_stage_floats(S, K, n_tab, n_media) > MAX_STAGE_FLOATS:
         raise NotImplementedError("the rows table exceeds the shared-memory "
                                   "stage (ROADMAP B5)")
     lib = build.load()

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -46,6 +47,8 @@ _SIGNATURES = {
     "tt_bounce": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _P,
                   _P, _P, _I, _P, _P, _I, _P, _P],
+    # S K n_tab n_media refr media modes n out (6 ints)
+    "tt_k2_geometry": [_I, _I, _I, _I, _I, _I, _P, ctypes.c_longlong, _P],
     # rows S K G gmeta max_c pos dir t sid normal local up kind flags p0
     # p1 n t_eps disc_eps need_local backside_miss stream
     "tt_nearest": [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -112,6 +115,35 @@ def load():
     lib.tt_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+def ptxas_lines(report: str, what: str) -> list:
+    """(entry, registers, stack, spill stores, spill loads) of each kernel
+    whose mangled name holds ``what``, from nvcc -Xptxas -v (as
+    info["ptxas"] holds it)."""
+    out, entry, props = [], None, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, props = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            props = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry and what in entry:
+            out.append((entry, int(m.group(1)), *(props or (0, 0, 0))))
+            entry = None
+    return out
+
+
+def k2_instance_name(entry: str) -> str:
+    """<kRefr, kScat, kMedia, kExtra, kBmiss, kSplit> of a K2 instance's
+    mangled name."""
+    flags = re.findall(r"Lb([01])E", entry.split("bounce_kernel", 1)[1])
+    return "<" + ", ".join("ft"[int(f)] for f in flags) + ">"
 
 
 def check(lib, rc: int, what: str) -> None:

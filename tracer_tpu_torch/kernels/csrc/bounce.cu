@@ -27,7 +27,8 @@
 // draw is made again (aureole_draw).
 //
 // tt_bounce (K2) replaces bounce_reflect_pallas (:1693, body
-// _make_fused_kernel :1517), stages (a) to (e): one thread per lane, a
+// _make_fused_kernel :1517), stages (a) to (e): one thread per lane, every
+// lane traced and shaded (a dead one that is not regenerated too), a
 // brute-force loop over every row of the scene with every quadric class
 // and aperture kind (rows.cuh, shared with K1 and K3), then the shade
 // epilogue (_make_shade_epilogue :679): reflect with slope error, the one-sided
@@ -113,6 +114,30 @@
 // 3e-4 self-hit guard. What bounds K1 then is its per-lane float32 work,
 // the row tests above all, more than its bytes (PERF.md, k1_variants.py's
 // diagnostics).
+//
+// K2's cut for this card. Its work is per-lane float32 latency (row
+// tests, the Philox draws, the shade's branches), so what it needs is
+// resident warps and fewer instructions a lane, not bytes: at 80
+// registers a thread (three blocks of 256 a SM; five of 128 for the
+// refractive instances that would spill there, K2Block) no instance
+// spills. Blocks are persistent, as many as the SMs keep resident: each
+// stages the rows (padded to whole 16-byte words, so a row comes out of
+// shared memory in 16-byte reads), the spectral table, the pose and the
+// media tables once, then walks chunks of one lane a thread in a grid
+// stride; no block waits on another. A curved row solves its general
+// quadratic (A and B nonzero) in a branch of its own rather than
+// computing the linear and B == 0 roots' quotients and square root beside
+// it, and takes no root where the discriminant admits none; a flat group
+// whose only aperture is one rect is tested without the loop over the
+// aperture slots, and rows with one aperture slot are scanned with the
+// slot count a constant, so the aperture kinds stay in registers; a
+// spectral table's segment is found by bisection. Each of these decides
+// on the same values as the branch-free form, so the outputs equal the
+// earlier design's bit for bit. Measured and left out (k2_variants.py, PERF.md): staging the
+// rays and energies through shared memory by cp.async (it cost 8-16
+// registers a thread), two lanes a thread, bounding flat rows with an
+// approximate quotient or their signs before the exact test (the branch in
+// the row loop), and 72-register bounds (every instance spills).
 #include <cuda_pipeline_primitives.h>
 #include <stdint.h>
 
@@ -133,7 +158,6 @@ constexpr int K1_RAY_FLOATS = 6 * K1_SUB;  // a sub-tile's staged pos, dir
 static_assert(K1_SUB % K1_THREADS == 0 && K1_SUB % 4 == 0,
               "a sub-tile is whole chunks of threads and whole 16-byte "
               "copies");
-constexpr int K2_THREADS = 256;
 constexpr int SMEM_DEFAULT = 48 * 1024;
 constexpr int POSE_FLOATS = 21;       // centre, position rot, direction rot
 
@@ -319,21 +343,26 @@ __device__ __forceinline__ void sample_disk(const float* sp,
 
 // piecewise-linear value at wl of the table chunk [start, start + length)
 // of (wavelength, absorptance) pairs, clamped to the chunk's edge values
-// (pallas_intersect._interp_row_table)
+// (pallas_intersect._interp_row_table). The chunk's wavelengths ascend,
+// so one segment holds wl, found by bisection in log2(length) steps
 __device__ __forceinline__ float interp_row(float wl, int start, int length,
                                             const float* tab) {
   const int hi = start + length - 1;
   if (wl < tab[2 * start]) return tab[2 * start + 1];
   if (wl >= tab[2 * hi]) return tab[2 * hi + 1];
-  for (int k = start; k < hi; ++k) {
-    const float x0 = tab[2 * k], x1 = tab[2 * k + 2];
-    if (wl >= x0 && wl < x1) {
-      const float w = (wl - x0) / (x1 == x0 ? 1.0f : x1 - x0);
-      const float y0 = tab[2 * k + 1], y1 = tab[2 * k + 3];
-      return y0 + fminf(fmaxf(w, 0.0f), 1.0f) * (y1 - y0);
-    }
+  int k = start, k1 = hi;  // tab[2 k] <= wl < tab[2 k1] where wl is a number
+  while (k1 - k > 1) {
+    const int mid = (k + k1) >> 1;
+    if (tab[2 * mid] <= wl)
+      k = mid;
+    else
+      k1 = mid;
   }
-  return 0.0f;
+  const float x0 = tab[2 * k], x1 = tab[2 * k + 2];
+  if (!(wl >= x0 && wl < x1)) return 0.0f;
+  const float w = (wl - x0) / (x1 == x0 ? 1.0f : x1 - x0);
+  const float y0 = tab[2 * k + 1], y1 = tab[2 * k + 3];
+  return y0 + fminf(fmaxf(w, 0.0f), 1.0f) * (y1 - y0);
 }
 
 // bilinear value at (th, wl) of a (T, W) grid packed into the table
@@ -852,32 +881,6 @@ __device__ __forceinline__ Shaded shade_flat(const float* w, float t_b,
       t_b, in, 0.0f, 1.0f, 0.0f, seed, stream, lane, ep);
 }
 
-// the ray of lane l (its energy is loaded apart: a lane that is
-// regenerated needs only that)
-__device__ __forceinline__ void load_ray(const float* pos, const float* dir,
-                                         size_t l, Lane& r) {
-  r.px = pos[3 * l];
-  r.py = pos[3 * l + 1];
-  r.pz = pos[3 * l + 2];
-  r.dx = dir[3 * l];
-  r.dy = dir[3 * l + 1];
-  r.dz = dir[3 * l + 2];
-}
-
-__device__ __forceinline__ void store_lane(float* npos, float* ndir,
-                                           float* ne, size_t l,
-                                           float px, float py, float pz,
-                                           float dx, float dy, float dz,
-                                           float e) {
-  npos[3 * l] = px;
-  npos[3 * l + 1] = py;
-  npos[3 * l + 2] = pz;
-  ndir[3 * l] = dx;
-  ndir[3 * l + 1] = dy;
-  ndir[3 * l + 2] = dz;
-  ne[l] = e;
-}
-
 // blocks of each K1 instance that __launch_bounds__ asks to keep
 // resident on one SM: the most at which ptxas keeps every value in
 // registers
@@ -1258,45 +1261,112 @@ struct PlainArgs {
   const float* media_rows;  // (S, 2) side-1 and side-2 ids per row
 };
 
-// the floats bounce_kernel stages in shared memory, in this order: the
-// rows, the spectral table, the source pose, and in media mode the media
-// table and the rows' side ids
+// each K2 instance's block: its threads (one lane a thread) and the
+// blocks that __launch_bounds__ asks to keep resident on one SM, the most
+// warps at which ptxas keeps every value in registers. Three blocks of
+// 256 hold 80 registers a thread. The refractive instances that spill
+// there (beside the stage (d)/(e) kinds or media ids with backside_miss,
+// and beside scattering, media ids and the stage (d)/(e) kinds) take up
+// to 87, at which two blocks of 256 fit (16 warps) but five of 128 (20)
+template <bool kRefr, bool kScat, bool kMedia, bool kExtra, bool kBmiss,
+          bool kSplit>
+struct K2Block {
+  static constexpr bool narrow =
+      kRefr && ((kBmiss && (kExtra || kMedia)) || (kScat && kMedia && kExtra));
+  static constexpr int threads = narrow ? 128 : 256;
+  static constexpr int min_blocks = narrow ? 5 : 3;
+};
+
+// the float stride of K2's staged rows: whole 16-byte words, so a row's
+// coefficients come from shared memory 16 bytes at a time
+__host__ __device__ __forceinline__ int k2_stride(int K) {
+  return (K + 3) & ~3;
+}
+
+// the floats a K2 block stages in shared memory, in this order: the rows
+// at k2_stride, the spectral table, the source pose, and in media mode the
+// media table and the rows' side ids
 inline size_t plain_stage_floats(const PlainArgs& a) {
-  return (size_t)a.S * a.K + 2 * (size_t)a.n_tab + POSE_FLOATS +
+  return (size_t)a.S * k2_stride(a.K) + 2 * (size_t)a.n_tab + POSE_FLOATS +
          3 * (size_t)a.n_media + (a.n_media ? 2 * (size_t)a.S : 0);
 }
 
+// rows [first, first + count) of one group (class CLS), staged at sm with
+// stride Kp
+template <int CLS>
+__device__ __forceinline__ void k2_rows(const float* sm, int first,
+                                        int count, int Kp, const int* kinds,
+                                        int rect_mask, int C, const Ray& q,
+                                        float t_eps, float disc_eps,
+                                        bool bmiss_on, Best& b) {
+  for (int i = 0; i < count; ++i) {
+    const float* r =
+        static_cast<const float*>(__builtin_assume_aligned(sm + i * Kp, 16));
+    row_hit_local<CLS, true>(r, first + i, kinds, rect_mask, C,
+                             to_local(r, q), t_eps, disc_eps, bmiss_on, b);
+  }
+}
+
+// the lane's nearest hit over every staged row; kC1: the rows hold one
+// aperture slot, so the aperture kinds stay in registers and their tests
+// need no loop
+template <bool kBmiss, bool kC1>
+__device__ __forceinline__ void k2_scan(const PlainArgs& a,
+                                        const float* rows_sm, int Kp,
+                                        const Ray& q, Best& b) {
+  const int C = kC1 ? 1 : a.C;
+  best_init(b);
+  for (int g = 0; g < a.G; ++g) {
+    const int* m = a.gmeta + g * a.meta_w;
+    int kinds[MAX_C];
+    group_kinds(m, C, kinds);
+    const int mask = rect_mask_of(m, C);
+    const float* sm = rows_sm + m[0] * Kp;
+    const int first = m[0], count = m[1] - m[0];
+    switch (m[2]) {
+      case FLAT:
+        if (mask == 1)
+          k2_rows<FLAT_RECT1>(sm, first, count, Kp, kinds, mask, C, q,
+                              a.t_eps, a.disc_eps, kBmiss, b);
+        else if (mask >= 0)
+          k2_rows<FLAT_RECT>(sm, first, count, Kp, kinds, mask, C, q,
+                             a.t_eps, a.disc_eps, kBmiss, b);
+        else
+          k2_rows<FLAT>(sm, first, count, Kp, kinds, mask, C, q, a.t_eps,
+                        a.disc_eps, kBmiss, b);
+        break;
+      case PARAB:
+        k2_rows<PARAB>(sm, first, count, Kp, kinds, mask, C, q, a.t_eps,
+                       a.disc_eps, kBmiss, b);
+        break;
+      case SPHERE:
+        k2_rows<SPHERE>(sm, first, count, Kp, kinds, mask, C, q, a.t_eps,
+                        a.disc_eps, kBmiss, b);
+        break;
+      default:
+        k2_rows<QUADRIC>(sm, first, count, Kp, kinds, mask, C, q, a.t_eps,
+                         a.disc_eps, kBmiss, b);
+        break;
+    }
+  }
+}
+
+// the shared-memory stage of a K2 block
+struct K2Stage {
+  float *rows, *tab, *pose, *mtab, *mrows;
+  int Kp;
+};
+
+// one lane l: regenerate it if it is dead and regeneration is on, find its
+// nearest hit, shade it, and write its results
 template <bool kRefr, bool kScat, bool kMedia, bool kExtra, bool kBmiss,
           bool kSplit>
-__global__ void __launch_bounds__(K2_THREADS) bounce_kernel(PlainArgs a) {
-  // the block stages every row, the spectral table, the source pose and
-  // the media tables
-  extern __shared__ float smem[];
-  float* rows_sm = smem;
-  float* tab_sm = smem + a.S * a.K;
-  float* pose_sm = tab_sm + 2 * a.n_tab;
-  float* mtab_sm = pose_sm + POSE_FLOATS;
-  float* mrows_sm = mtab_sm + 3 * a.n_media;
-  for (int i = threadIdx.x; i < a.S * a.K; i += K2_THREADS)
-    rows_sm[i] = a.rows[i];
-  for (int i = threadIdx.x; i < 2 * a.n_tab; i += K2_THREADS)
-    tab_sm[i] = a.tab[i];
-  if (a.regen)
-    for (int i = threadIdx.x; i < POSE_FLOATS; i += K2_THREADS)
-      pose_sm[i] = a.pose[i];
-  if (kMedia) {
-    for (int i = threadIdx.x; i < 3 * a.n_media; i += K2_THREADS)
-      mtab_sm[i] = a.media_tab[i];
-    for (int i = threadIdx.x; i < 2 * a.S; i += K2_THREADS)
-      mrows_sm[i] = a.media_rows[i];
-  }
-  __syncthreads();
-  const size_t l = (size_t)blockIdx.x * K2_THREADS + threadIdx.x;
-  if (l >= (size_t)a.n) return;
-  const uint32_t stream = (uint32_t)(l / TILE), lane = (uint32_t)(l % TILE);
+__device__ __forceinline__ void k2_lane(const PlainArgs& a, int l,
+                                        const K2Stage& st) {
+  const uint32_t stream = (uint32_t)l / TILE, lane = (uint32_t)l % TILE;
   // a regenerated lane reads only its energy (and its wavelength when the
-  // source has no band to draw one from); it starts at index 1 in the
-  // ambient medium
+  // source has no band to draw one); it starts at index 1 in the ambient
+  // medium
   Lane in;
   in.e = a.e[l];
   const bool reborn = a.regen && in.e <= 0.0f;
@@ -1304,37 +1374,43 @@ __global__ void __launch_bounds__(K2_THREADS) bounce_kernel(PlainArgs a) {
   float wl = a.wl != nullptr && !drawn_wl ? a.wl[l] : 0.0f;
   float ri = 1.0f, mid = 0.0f;
   if (reborn) {
-    sample_disk(a.srcp, pose_sm, a.seed, stream, lane, in.px, in.py, in.pz,
+    sample_disk(a.srcp, st.pose, a.seed, stream, lane, in.px, in.py, in.pz,
                 in.dx, in.dy, in.dz, wl);
     in.e = a.srcp[SP_ERAY];
   } else {
-    load_ray(a.pos, a.dir, l, in);
+    in.px = a.pos[3 * (size_t)l];
+    in.py = a.pos[3 * (size_t)l + 1];
+    in.pz = a.pos[3 * (size_t)l + 2];
+    in.dx = a.dir[3 * (size_t)l];
+    in.dy = a.dir[3 * (size_t)l + 1];
+    in.dz = a.dir[3 * (size_t)l + 2];
     if (kRefr) ri = a.ri[l];
     if (kMedia) mid = a.mid[l];
   }
   const Ray q = {in.px, in.py, in.pz, in.dx, in.dy, in.dz};
   Best b;
-  best_init(b);
-  for (int g = 0; g < a.G; ++g) {
-    const int* m = a.gmeta + g * a.meta_w;
-    int kinds[MAX_C];
-    group_kinds(m, a.C, kinds);
-    scan_group(m[2], rows_sm + m[0] * a.K, m[0], m[1] - m[0], a.K, kinds,
-               rect_mask_of(m, a.C), a.C, q, a.t_eps, a.disc_eps, kBmiss, b);
-  }
+  if (a.C == 1)
+    k2_scan<kBmiss, true>(a, st.rows, st.Kp, q, b);
+  else
+    k2_scan<kBmiss, false>(a, st.rows, st.Kp, q, b);
   const bool hit = b.sid >= 0;
   const Modes& md = a.m;
   Epi ep = {md.bivar_mode, md.one_sided, md.slope, md.lambertian,
-            a.n_tab ? tab_sm : nullptr, md.ambient_att, md.ambient_scat,
-            md.ambient_g, md.refr_frost, md.refr_disp, mtab_sm, mrows_sm,
+            a.n_tab ? st.tab : nullptr, md.ambient_att, md.ambient_scat,
+            md.ambient_g, md.refr_frost, md.refr_disp, st.mtab, st.mrows,
             a.wl != nullptr, md.cook_torrance, md.lam_specular,
             md.semi_lambertian, md.transparent, md.conductor, md.periodic,
             md.piecewise, md.iam_c};
   const Shaded o = shade<kRefr, kScat, kMedia, kExtra, kSplit>(
-      hit ? rows_sm + b.sid * a.K : nullptr, b.sid, b.gx, b.gy, b.gz, b.up,
+      hit ? st.rows + b.sid * st.Kp : nullptr, b.sid, b.gx, b.gy, b.gz, b.up,
       b.t, in, wl, ri, mid, a.seed, stream, lane, ep);
-  store_lane(a.npos, a.ndir, a.ne, l, o.px, o.py, o.pz, o.dx, o.dy, o.dz,
-             o.e);
+  a.npos[3 * (size_t)l] = o.px;
+  a.npos[3 * (size_t)l + 1] = o.py;
+  a.npos[3 * (size_t)l + 2] = o.pz;
+  a.ndir[3 * (size_t)l] = o.dx;
+  a.ndir[3 * (size_t)l + 1] = o.dy;
+  a.ndir[3 * (size_t)l + 2] = o.dz;
+  a.ne[l] = o.e;
   if (a.nwl != nullptr) a.nwl[l] = wl;
   if (kRefr) a.nri[l] = o.ri;
   if (kMedia) a.nmid[l] = o.mid;
@@ -1345,14 +1421,67 @@ __global__ void __launch_bounds__(K2_THREADS) bounce_kernel(PlainArgs a) {
     // the reflected branch; zero where no live lane split
     const bool sp = live && o.split;
     a.s_e[l] = sp ? o.s_e : 0.0f;
-    a.s_dir[3 * l] = sp ? o.sdx : 0.0f;
-    a.s_dir[3 * l + 1] = sp ? o.sdy : 0.0f;
-    a.s_dir[3 * l + 2] = sp ? o.sdz : 0.0f;
+    a.s_dir[3 * (size_t)l] = sp ? o.sdx : 0.0f;
+    a.s_dir[3 * (size_t)l + 1] = sp ? o.sdy : 0.0f;
+    a.s_dir[3 * (size_t)l + 2] = sp ? o.sdz : 0.0f;
   }
   a.sid[l] = !live ? -1 : (o.scat ? -2 : (hit ? b.sid : -1));
   a.absorbed[l] = live ? o.absorbed : 0.0f;
 }
 
+// K2: persistent blocks, each staging the rows and tables once by cp.async
+// and then walking the chunks of T lanes c = blockIdx.x, + gridDim.x, ...
+// (no block waits on another), one lane a thread. Every lane is traced
+// and shaded, a dead one that is not regenerated too (its sid -1, its
+// absorbed 0), as bounce_reflect_pallas does
+template <bool kRefr, bool kScat, bool kMedia, bool kExtra, bool kBmiss,
+          bool kSplit>
+__global__ void __launch_bounds__(
+    (K2Block<kRefr, kScat, kMedia, kExtra, kBmiss, kSplit>::threads),
+    (K2Block<kRefr, kScat, kMedia, kExtra, kBmiss, kSplit>::min_blocks))
+    bounce_kernel(PlainArgs a) {
+  constexpr int T =
+      K2Block<kRefr, kScat, kMedia, kExtra, kBmiss, kSplit>::threads;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  K2Stage st;
+  st.Kp = k2_stride(a.K);
+  st.rows = smem;
+  st.tab = st.rows + a.S * st.Kp;
+  st.pose = st.tab + 2 * a.n_tab;
+  st.mtab = st.pose + POSE_FLOATS;
+  st.mrows = st.mtab + 3 * a.n_media;
+  for (int i = tid; i < a.S * st.Kp; i += T) {
+    const int s = i / st.Kp, k = i - s * st.Kp;
+    if (k < a.K)
+      stage4(st.rows + i, a.rows + (size_t)s * a.K + k);
+    else
+      st.rows[i] = 0.0f;
+  }
+  for (int i = tid; i < 2 * a.n_tab; i += T)
+    stage4(st.tab + i, a.tab + i);
+  if (a.regen)
+    for (int i = tid; i < POSE_FLOATS; i += T)
+      stage4(st.pose + i, a.pose + i);
+  if (kMedia) {
+    for (int i = tid; i < 3 * a.n_media; i += T)
+      stage4(st.mtab + i, a.media_tab + i);
+    for (int i = tid; i < 2 * a.S; i += T)
+      stage4(st.mrows + i, a.media_rows + i);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  const int n_chunks = ((int)a.n + T - 1) / T;
+  for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+    const int l = c * T + tid;
+    if (l < (int)a.n)
+      k2_lane<kRefr, kScat, kMedia, kExtra, kBmiss, kSplit>(a, l, st);
+  }
+}
+
+// dynamic shared memory above 48 KB needs the attribute
 template <typename Kernel>
 cudaError_t allow_smem(Kernel k, size_t bytes) {
   if (bytes <= SMEM_DEFAULT) return cudaSuccess;
@@ -1360,18 +1489,61 @@ cudaError_t allow_smem(Kernel k, size_t bytes) {
                               (int)bytes);
 }
 
+// the card's SMs (asked once)
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 0;
+  }
+  return sms;
+}
+
+// K2's launch geometry for n lanes: out[0] blocks, out[1] threads a block,
+// out[2] lanes a chunk, out[3] bytes of shared memory a block, out[4]
+// blocks resident a SM (the occupancy calculator, registers and shared
+// memory both counted), out[5] SMs
+struct K2Geometry {
+  int blocks, threads, chunk, smem, resident, sms;
+};
+
+// one launch of a K2 instance: as many blocks as the card keeps resident
+// (fewer when there are fewer chunks), each walking its chunks
 template <bool kRefr, bool kScat, bool kMedia, bool kExtra, bool kBmiss,
           bool kSplit>
-int launch_plain(const PlainArgs& a, size_t smem, int blocks,
-                 cudaStream_t st) {
+int launch_plain(const PlainArgs& a, cudaStream_t st, K2Geometry* geo) {
   auto kernel = bounce_kernel<kRefr, kScat, kMedia, kExtra, kBmiss, kSplit>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (blocks > 0) kernel<<<blocks, K2_THREADS, smem, st>>>(a);
+  constexpr int T =
+      K2Block<kRefr, kScat, kMedia, kExtra, kBmiss, kSplit>::threads;
+  const size_t smem = plain_stage_floats(a) * sizeof(float);
+  // the occupancy of this instance, asked again only when the stage grows
+  // or shrinks
+  static size_t known_smem = (size_t)-1;
+  static int resident = 0;
+  if (smem != known_smem) {
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, T,
+                                                        smem);
+    if (err != cudaSuccess) return (int)err;
+    known_smem = smem;
+  }
+  const int sms = sm_count();
+  if (resident < 1 || sms < 1) return (int)cudaErrorInvalidValue;
+  const int chunks = (int)((a.n + T - 1) / T);
+  const int blocks = chunks < sms * resident ? chunks : sms * resident;
+  if (geo != nullptr) {
+    *geo = {blocks, T, T, (int)smem, resident, sms};
+    return (int)cudaSuccess;
+  }
+  if (blocks > 0) kernel<<<blocks, T, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-using LaunchPlain = int (*)(const PlainArgs&, size_t, int, cudaStream_t);
+using LaunchPlain = int (*)(const PlainArgs&, cudaStream_t, K2Geometry*);
 
 using CulledKernel = void (*)(CulledArgs);
 
@@ -1402,6 +1574,39 @@ template <bool kRefr, bool kScat, bool kMedia, bool kExtra,
 LaunchPlain pick_plain(bool bmiss) {
   return bmiss ? launch_plain<kRefr, kScat, kMedia, kExtra, true, kSplit>
                : launch_plain<kRefr, kScat, kMedia, kExtra, false, kSplit>;
+}
+
+// K2's instance for these modes (refr, media: the lanes carry an index,
+// a medium id), or nullptr for a combination no trace dispatches: media
+// ride the refractive mode; the stage (d)/(e) kinds run alone, in an
+// ambient HG medium, or beside refraction and media ids; splitting beside
+// refraction alone; each with and without backside_miss
+LaunchPlain pick_k2(const Modes& m, bool refr, bool media) {
+  const bool extra = m.cook_torrance || m.lam_specular ||
+                     m.semi_lambertian || m.transparent || m.conductor ||
+                     m.periodic || m.piecewise || m.iam_c != 0.0f;
+  const bool bm = m.backside_miss != 0;
+  const bool split = m.refr_split != 0;
+  switch ((refr ? 1 : 0) | (m.scat ? 2 : 0) | (media ? 4 : 0) |
+          (extra ? 8 : 0)) {
+    case 0: return pick_plain<false, false, false, false>(bm);
+    case 1:
+      return split ? pick_plain<true, false, false, false, true>(bm)
+                   : pick_plain<true, false, false, false>(bm);
+    case 2: return pick_plain<false, true, false, false>(bm);
+    case 3: return pick_plain<true, true, false, false>(bm);
+    case 5: return pick_plain<true, false, true, false>(bm);
+    case 7: return pick_plain<true, true, true, false>(bm);
+    case 8: return pick_plain<false, false, false, true>(bm);
+    case 9:
+      return split ? pick_plain<true, false, false, true, true>(bm)
+                   : pick_plain<true, false, false, true>(bm);
+    case 10: return pick_plain<false, true, false, true>(bm);
+    case 11: return pick_plain<true, true, false, true>(bm);
+    case 13: return pick_plain<true, false, true, true>(bm);
+    case 15: return pick_plain<true, true, true, true>(bm);
+    default: return nullptr;
+  }
 }
 
 }  // namespace
@@ -1513,9 +1718,6 @@ int tt_bounce(const void* rows, int S, int K, int G, const void* gmeta,
   const bool refr = ri != nullptr, media = mid != nullptr;
   if (modes == nullptr) return (int)cudaErrorInvalidValue;
   const Modes& m = *static_cast<const Modes*>(modes);
-  const bool extra = m.cook_torrance || m.lam_specular ||
-                     m.semi_lambertian || m.transparent || m.conductor ||
-                     m.periodic || m.piecewise || m.iam_c != 0.0f;
   if (max_c != MAX_C || C > MAX_C || (wl == nullptr) != (nwl == nullptr) ||
       (wl != nullptr && n_tab < 1) || (regen && (!srcp || !pose)) ||
       refr != (nri != nullptr) || media != (nmid != nullptr) ||
@@ -1563,39 +1765,39 @@ int tt_bounce(const void* rows, int S, int K, int G, const void* gmeta,
   a.media_tab = static_cast<const float*>(media_tab);
   a.n_media = media ? n_media : 0;
   a.media_rows = static_cast<const float*>(media_rows);
-  const size_t smem = plain_stage_floats(a) * sizeof(float);
-  const int blocks = (n + K2_THREADS - 1) / K2_THREADS;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the instances the traces dispatch (media ride the refractive mode;
-  // the stage (d)/(e) kinds run alone, in an ambient HG medium, or beside
-  // refraction and media ids; splitting beside refraction alone), each
-  // with and without backside_miss
-  const bool bm = m.backside_miss != 0;
-  const bool split = m.refr_split != 0;
-  LaunchPlain launch = nullptr;
-  switch ((refr ? 1 : 0) | (m.scat ? 2 : 0) | (media ? 4 : 0) |
-          (extra ? 8 : 0)) {
-    case 0: launch = pick_plain<false, false, false, false>(bm); break;
-    case 1:
-      launch = split ? pick_plain<true, false, false, false, true>(bm)
-                     : pick_plain<true, false, false, false>(bm);
-      break;
-    case 2: launch = pick_plain<false, true, false, false>(bm); break;
-    case 3: launch = pick_plain<true, true, false, false>(bm); break;
-    case 5: launch = pick_plain<true, false, true, false>(bm); break;
-    case 7: launch = pick_plain<true, true, true, false>(bm); break;
-    case 8: launch = pick_plain<false, false, false, true>(bm); break;
-    case 9:
-      launch = split ? pick_plain<true, false, false, true, true>(bm)
-                     : pick_plain<true, false, false, true>(bm);
-      break;
-    case 10: launch = pick_plain<false, true, false, true>(bm); break;
-    case 11: launch = pick_plain<true, true, false, true>(bm); break;
-    case 13: launch = pick_plain<true, false, true, true>(bm); break;
-    case 15: launch = pick_plain<true, true, true, true>(bm); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return launch(a, smem, blocks, st);
+  const LaunchPlain launch = pick_k2(m, refr, media);
+  if (launch == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(a, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// K2's launch geometry for n lanes of a call with these modes, (S, K)
+// rows, n_tab table rows and n_media media (refr, media: the lanes carry
+// an index, a medium id): out[0] blocks, out[1] threads a block, out[2]
+// lanes a chunk, out[3] bytes of shared memory a block, out[4] blocks
+// resident a SM (the occupancy calculator, registers and shared memory
+// both counted), out[5] SMs
+int tt_k2_geometry(int S, int K, int n_tab, int n_media, int refr,
+                   int media, const void* modes, long long n, int* out) {
+  if (modes == nullptr || out == nullptr) return (int)cudaErrorInvalidValue;
+  const LaunchPlain launch =
+      pick_k2(*static_cast<const Modes*>(modes), refr != 0, media != 0);
+  if (launch == nullptr) return (int)cudaErrorInvalidValue;
+  PlainArgs a = {};
+  a.S = S;
+  a.K = K;
+  a.n = n;
+  a.n_tab = n_tab;
+  a.n_media = media ? n_media : 0;
+  K2Geometry g;
+  const int err = launch(a, nullptr, &g);
+  if (err != 0) return err;
+  out[0] = g.blocks;
+  out[1] = g.threads;
+  out[2] = g.chunk;
+  out[3] = g.smem;
+  out[4] = g.resident;
+  out[5] = g.sms;
+  return (int)cudaSuccess;
 }
 
 const char* tt_error_string(int err) {

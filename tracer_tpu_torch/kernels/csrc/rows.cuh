@@ -32,8 +32,10 @@ constexpr float HEX_X = 0.8660254037844386f;   // sqrt(3) / 2
 constexpr float HEX_T = 0.5773502691896257f;   // tan(pi / 6)
 
 // the quadric classes of the group metadata; FLAT_RECT is the template
-// instance of a flat group with rect-or-none apertures only
-enum { FLAT = 0, PARAB = 1, SPHERE = 2, QUADRIC = 3, FLAT_RECT = 4 };
+// instance of a flat group with rect-or-none apertures only, FLAT_RECT1
+// (K2's) of one whose only aperture is a rect in slot 0
+enum { FLAT = 0, PARAB = 1, SPHERE = 2, QUADRIC = 3, FLAT_RECT = 4,
+       FLAT_RECT1 = 5 };
 
 enum {
   AP_NONE = 0, AP_RECT = 1, AP_RADIAL = 2, AP_ZRANGE = 3, AP_ANGRANGE = 4,
@@ -175,19 +177,27 @@ __device__ __forceinline__ float flat_rect_t(const float* r, int rect_mask,
   return ok ? t_hit : INFINITY;
 }
 
-// fold row s (packed row r, quadric class CLS) into the lane's winner
-template <int CLS>
-__device__ __forceinline__ void row_hit(const float* r, int s,
-                                        const int* kinds, int rect_mask,
-                                        int C, const Ray& q, float t_eps,
-                                        float disc_eps, bool bmiss_on,
-                                        Best& b) {
-  const Local v = to_local(r, q);
+// fold row s (packed row r, quadric class CLS) into the lane's winner,
+// the ray already in the row's local frame (v = to_local(r, q)). With
+// kSolve a curved row solves the general quadratic (A and B nonzero: every
+// row but a degenerate one) in a branch of its own, without the linear and
+// B == 0 roots' quotients and square root, and takes no root where its
+// discriminant admits none; the values that decide are the branch-free
+// form's, so is the winner, bit for bit
+template <int CLS, bool kSolve = false>
+__device__ __forceinline__ void row_hit_local(const float* r, int s,
+                                              const int* kinds,
+                                              int rect_mask, int C,
+                                              const Local& v, float t_eps,
+                                              float disc_eps, bool bmiss_on,
+                                              Best& b) {
   const float vx = v.vx, vy = v.vy, vz = v.vz, ddx = v.ddx, ddy = v.ddy,
               ddz = v.ddz;
   float t_surf;
   if (CLS == FLAT_RECT) {
     t_surf = flat_rect_t(r, rect_mask, C, v, t_eps);
+  } else if (CLS == FLAT_RECT1) {
+    t_surf = flat_rect_t(r, 1, 1, v, t_eps);
   } else if (CLS == FLAT) {
     const float t_hit = -vz / (ddz == 0.0f ? 1.0f : ddz);
     const float t_thr = t_eps * (1.0f + fabsf(vx) + fabsf(vy) + fabsf(vz));
@@ -222,17 +232,29 @@ __device__ __forceinline__ void row_hit(const float* r, int s,
     }
     const bool is_lin = A == 0.0f, is_b0 = B == 0.0f;
     const float disc = B * B - 4.0f * A * Cq;
-    const float sq = sqrtf(fmaxf(disc, 0.0f));
-    const float qq = -0.5f * (B + (B >= 0.0f ? 1.0f : -1.0f) * sq);
-    const float safe_a = is_lin ? 1.0f : A;
-    const float m_ca = -Cq / safe_a;
-    const float sqrt_mca = sqrtf(fmaxf(m_ca, 0.0f));
-    const float t_lin = -Cq / (is_b0 ? 1.0f : B);
-    const float t0 = is_lin ? t_lin : (is_b0 ? -sqrt_mca : qq / safe_a);
-    const float t1 =
-        is_lin ? t_lin : (is_b0 ? sqrt_mca : Cq / (qq == 0.0f ? 1.0f : qq));
-    const bool root_ok = is_lin ? fabsf(B) > 1e-7f
-                                : (is_b0 ? m_ca >= 0.0f : disc >= disc_eps);
+    float t0 = 0.0f, t1 = 0.0f;
+    bool root_ok;
+    if (kSolve && !is_lin && !is_b0) {
+      root_ok = disc >= disc_eps;
+      if (root_ok) {
+        const float sq = sqrtf(fmaxf(disc, 0.0f));
+        const float qq = -0.5f * (B + (B >= 0.0f ? 1.0f : -1.0f) * sq);
+        t0 = qq / A;
+        t1 = Cq / (qq == 0.0f ? 1.0f : qq);
+      }
+    } else {
+      const float sq = sqrtf(fmaxf(disc, 0.0f));
+      const float qq = -0.5f * (B + (B >= 0.0f ? 1.0f : -1.0f) * sq);
+      const float safe_a = is_lin ? 1.0f : A;
+      const float m_ca = -Cq / safe_a;
+      const float sqrt_mca = sqrtf(fmaxf(m_ca, 0.0f));
+      const float t_lin = -Cq / (is_b0 ? 1.0f : B);
+      t0 = is_lin ? t_lin : (is_b0 ? -sqrt_mca : qq / safe_a);
+      t1 = is_lin ? t_lin
+                  : (is_b0 ? sqrt_mca : Cq / (qq == 0.0f ? 1.0f : qq));
+      root_ok = is_lin ? fabsf(B) > 1e-7f
+                       : (is_b0 ? m_ca >= 0.0f : disc >= disc_eps);
+    }
     const float t_thr = t_eps * (1.0f + sqrtf(vx * vx + vy * vy + vz * vz));
     const bool ok0 = root_ok && t0 > t_thr &&
                      ap_ok(kinds, C, r, vx + t0 * ddx, vy + t0 * ddy,
@@ -252,7 +274,7 @@ __device__ __forceinline__ void row_hit(const float* r, int s,
   b.kf = r[ROW_KIND];
   b.p0 = r[ROW_P0];
   b.p1 = r[ROW_P0 + 1];
-  if (CLS == FLAT || CLS == FLAT_RECT) {
+  if (CLS == FLAT || CLS == FLAT_RECT || CLS == FLAT_RECT1) {
     b.lx = vx + t_surf * ddx;
     b.ly = vy + t_surf * ddy;
     b.lz = 0.0f;
@@ -285,6 +307,16 @@ __device__ __forceinline__ void row_hit(const float* r, int s,
     b.gy = r[1] * glx + r[4] * gly + r[7] * glz;
     b.gz = r[2] * glx + r[5] * gly + r[8] * glz;
   }
+}
+
+template <int CLS>
+__device__ __forceinline__ void row_hit(const float* r, int s,
+                                        const int* kinds, int rect_mask,
+                                        int C, const Ray& q, float t_eps,
+                                        float disc_eps, bool bmiss_on,
+                                        Best& b) {
+  row_hit_local<CLS>(r, s, kinds, rect_mask, C, to_local(r, q), t_eps,
+                     disc_eps, bmiss_on, b);
 }
 
 template <int CLS>

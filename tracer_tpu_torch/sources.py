@@ -313,24 +313,51 @@ def oblique_rect_pillbox_pallas_spec(num_rays: int, center,
 def disk_bundle(generator, num_rays: int, center, direction,
                 radius: float, ang_range: float,
                 flux: Optional[float] = None, radius_in: float = 0.0,
-                angular_span=(0.0, 2.0 * np.pi), rays_direction=None,
+                angular_span=(0.0, 2.0 * np.pi),
+                x_cut: Optional[float] = None, rays_direction=None,
                 procs: int = 1, dtype=torch.float32,
                 device=None) -> RayBundle:
     """Uniform disk (or annular wedge) source with pillbox divergence
-    (tracer_tpu/sources.py:432 without the chord cut). Energy per ray =
-    flux * pi (R^2 - Ri^2) / n * cos(2 arcsin(|rays_dir - dir|/2))."""
+    (tracer_tpu/sources.py:432). Energy per ray =
+    flux * pi (R^2 - Ri^2) / n * cos(2 arcsin(|rays_dir - dir|/2)).
+
+    x_cut - keep only x < x_cut (a chord-cut disc): x is drawn by the
+    inverse CDF of the chord-length density 2 sqrt(R^2 - x^2) on
+    [-R, min(x_cut, R)], tabulated on 4097 points and interpolated, and y
+    uniform along the chord, as tracer_tpu draws them; it needs
+    radius_in == 0 and the full angular span."""
     device = resolve(device)
     center = _as_row3(center)
     direction = _as_row3(direction)
     rays_direction = (direction if rays_direction is None
                       else _as_row3(rays_direction))
+    if x_cut is not None and (radius_in != 0.0 or tuple(angular_span)
+                              != (0.0, 2.0 * np.pi)):
+        raise NotImplementedError("x_cut combines only with a plain disc")
     a = lambertian_directions(generator, num_rays, ang_range, dtype, device)
     directions = _rotate_rows(spatial.rotation_to_z(rays_direction), a)
-    u = _uniform(generator, num_rays, dtype, device)
-    thetas = _uniform(generator, num_rays, dtype, device, *angular_span)
-    rs = torch.sqrt(radius_in ** 2 + u * (radius ** 2 - radius_in ** 2))
-    verts_local = torch.stack([rs * torch.cos(thetas), rs * torch.sin(thetas),
-                               torch.zeros_like(rs)], dim=1)
+    if x_cut is not None:
+        xs_t = np.linspace(-radius, min(x_cut, radius), 4097)
+        pdf = 2.0 * np.sqrt(np.maximum(radius ** 2 - xs_t ** 2, 0.0))
+        cdf = np.concatenate([[0.0], np.cumsum((pdf[1:] + pdf[:-1]) / 2.0
+                                               * np.diff(xs_t))])
+        inv = torch.as_tensor(np.interp(np.linspace(0.0, 1.0, 4097),
+                                        cdf / cdf[-1], xs_t),
+                              dtype=dtype, device=device)
+        u = _uniform(generator, num_rays, dtype, device) * 4096
+        i0 = u.long().clamp(0, 4095)
+        fr = u - i0.to(dtype)
+        xs = inv[i0] * (1 - fr) + inv[i0 + 1] * fr
+        half = torch.sqrt((radius ** 2 - xs ** 2).clamp(min=0.0))
+        ys = _uniform(generator, num_rays, dtype, device, -1.0, 1.0) * half
+        verts_local = torch.stack([xs, ys, torch.zeros_like(xs)], dim=1)
+    else:
+        u = _uniform(generator, num_rays, dtype, device)
+        thetas = _uniform(generator, num_rays, dtype, device, *angular_span)
+        rs = torch.sqrt(radius_in ** 2 + u * (radius ** 2 - radius_in ** 2))
+        verts_local = torch.stack([rs * torch.cos(thetas),
+                                   rs * torch.sin(thetas),
+                                   torch.zeros_like(rs)], dim=1)
     verts = (_rotate_rows(spatial.rotation_to_z(direction), verts_local)
              + torch.as_tensor(center, dtype=dtype, device=device))
     if flux is not None:
