@@ -26,10 +26,14 @@ Phases, each printing its lines:
    candidate rows, and K2's (persistent blocks, threads, lanes a chunk,
    shared bytes, blocks resident a SM);
 4. K3 (nearest_hit) against its plain version: on the MiniDish at
-   4,194,304 lanes (the sun's rays, then their second bounce), on the
-   NSTTF table, on a table with every quadric class and aperture kind and
-   on the same with 2,000 more rows (groups longer than one staged chunk)
-   at 2,101,248 lanes; each one's time beside the plain version's;
+   4,194,304 lanes (the sun's rays with and without the local hit point,
+   whose zeros it checks, then their second bounce), on the NSTTF table,
+   on a table with every quadric class and aperture kind and on the same
+   with 2,000 more rows (groups that stream through several staged
+   parts) at 2,101,248 lanes; each one's time beside the plain version's
+   and its launch geometry (blocks, threads, chunks a block, the table
+   staged whole or streamed, shared bytes, blocks resident a SM), with
+   each K3 instance's registers and spill from ptxas (none may spill);
 5. the NSTTF main path at benchmark size: NSTTF scene -> culling ->
    trace_streaming of 537,919,488 rays (slab 2,101,248, max_path 8,
    min_energy 1e-6) with the 50x50 receiver flux map, under bench.py's
@@ -509,7 +513,8 @@ def main(argv) -> None:
     del pos, dirs, e, o
 
     # ---- phase 4: K3 against its plain version
-    record["kernels"].append(k3_phase(dev, card, table, source_fn, kn))
+    record["kernels"].append(k3_phase(dev, card, table, source_fn, kn,
+                                       build))
 
     fspec = flux_plan(meta, "receiver", resolution=50)
     if profiling:
@@ -668,19 +673,17 @@ def head(bundle, n, device=None, dtype=None):
     return RayBundle(**out)
 
 
-def k3_phase(dev, card, nsttf_table, nsttf_source, kn):
-    """K3 against its plain version on the card (sid equal off ties, t
-    and aux within 1e-5 of their scale: tests/test_torch_gpu.k3_compare),
-    then its time beside the plain version's. Returns its JSON entry with
-    the MiniDish's numbers (the main path's shape); launches are filled in
-    by the MiniDish phase; its max_abs_err is the largest difference in
-    t, normal, local hit and up_dot over the MiniDish's lanes (the other
-    tables' are printed)."""
+def k3_cases(dev, nsttf_table, nsttf_source):
+    """(label, table, pos, dirs, keywords) of phase 4's K3 calls: the
+    MiniDish's sun rays (with and without the local hit point) and their
+    second bounce at 4,194,304 lanes, and at the NSTTF slab (2,101,248
+    lanes) the NSTTF table under its Buie sun, the table with every
+    quadric class and aperture kind, and the same with 2,000 more rows
+    (groups that stream through several staged parts)."""
     import torch
     import tracer_tpu_torch as ptt
     from tracer_tpu_torch.engine import TraceAccum, _bounce_step
-    from tracer_tpu_torch.kernels.bounce import pack_rows
-    from test_torch_gpu import fuzz_assembly, fuzz_rays, k3_compare
+    from test_torch_gpu import fuzz_assembly, fuzz_rays
     _, md_table, _ = minidish_scene(dev)
     sun = minidish_sun(MD_LANES, dev)
     second, _, _ = _bounce_step(
@@ -691,29 +694,84 @@ def k3_phase(dev, card, nsttf_table, nsttf_source, kn):
                          device=dev)
     fz_table, fz_meta = ptt.compile_scene(fuzz_assembly(ptt, 0), device=dev)
     fz = [torch.as_tensor(a, device=dev) for a in fuzz_rays(fz_meta, slab, 5)]
-    # groups of ~500 rows: each spans two of the kernel's staged chunks
     big_table, big_meta = ptt.compile_scene(
         fuzz_assembly(ptt, 1, extra=2000), device=dev)
     big = [torch.as_tensor(a, device=dev)
            for a in fuzz_rays(big_meta, slab, 6)]
-    cases = (("MiniDish sun rays", md_table, sun.pos, sun.dir),
-             ("MiniDish second bounce", md_table, second.pos, second.dir),
-             ("NSTTF Buie rays", nsttf_table, helio.pos, helio.dir),
-             ("every class and aperture", fz_table, fz[0], fz[1]),
-             ("every class, 2,017 rows", big_table, big[0], big[1]))
+
+    def kw(table, need_local=True):
+        return dict(need_local=need_local,
+                    backside_miss="bifacial" in table.features)
+    return (("MiniDish sun rays", md_table, sun.pos, sun.dir, kw(md_table)),
+            ("MiniDish sun rays, need_local off", md_table, sun.pos,
+             sun.dir, kw(md_table, False)),
+            ("MiniDish second bounce", md_table, second.pos, second.dir,
+             kw(md_table)),
+            ("NSTTF Buie rays", nsttf_table, helio.pos, helio.dir,
+             kw(nsttf_table)),
+            ("every class and aperture", fz_table, fz[0], fz[1],
+             kw(fz_table)),
+            ("every class, 2,017 rows", big_table, big[0], big[1],
+             kw(big_table)))
+
+
+def k3_bound(table, n):
+    """(ms, what sets it) of one K3 call of n lanes on ``table``: each
+    lane's 24 bytes of ray read once and 52 bytes of results written once,
+    and its test of every row."""
+    return bound(n * (24 + 52), n * sum((g[1] - g[0]) * row_ops(g[3], g[2])
+                                        for g in table.groups))
+
+
+def k3_geometry_line(kn, rows, n, kw) -> str:
+    geo = kn.k3_geometry(rows, n, kw["backside_miss"])
+    chunks = -(-n // geo["threads"])
+    staged = ("the table staged whole" if geo["part"] >= rows.shape[0]
+              else f"the table streamed in parts of {geo['part']} rows")
+    return (f"{geo['blocks']} blocks of {geo['threads']} threads, one lane "
+            f"a thread ({chunks / geo['blocks']:.2f} chunks a block), "
+            f"{staged}, {geo['smem']} B of shared memory a block, "
+            f"{geo['resident']} resident a SM on {geo['sms']} SMs")
+
+
+def k3_phase(dev, card, nsttf_table, nsttf_source, kn, build):
+    """K3 against its plain version on the card (sid equal off ties, t
+    and aux within 1e-5 of their scale: tests/test_torch_gpu.k3_compare;
+    without need_local the local points zeros), then its time beside the
+    plain version's, with its launch geometry and each K3 instance's
+    registers and spill from ptxas (none may spill). Returns its JSON
+    entry with the MiniDish's numbers (the main path's shape); launches
+    are filled in by the MiniDish phase; its max_abs_err is the largest
+    difference in t, normal, local hit and up_dot over the MiniDish's
+    lanes (the other tables' are printed)."""
+    import torch
+    from tracer_tpu_torch.kernels.bounce import pack_rows
+    from test_torch_gpu import k3_compare
+    k3_ptxas = build.ptxas_lines(build.info.get("ptxas", ""),
+                                 "nearest_kernel")
+    for entry, regs, stack, st, ld in k3_ptxas:
+        log(f"  K3 {build.k3_instance_name(entry)}: {regs} registers, "
+            f"{stack} B stack, spill {st} / {ld} B")
+    if build.info.get("ptxas"):
+        check(len(k3_ptxas) == 4, f"{len(k3_ptxas)} K3 instances in ptxas")
+        check(not any(st or ld for _, _, _, st, ld in k3_ptxas),
+              "a K3 instance spills")
     out = None
-    for label, tab, pos, dirs in cases:
+    md_rows = None
+    for label, tab, pos, dirs, kw in k3_cases(dev, nsttf_table,
+                                              nsttf_source):
         n = pos.shape[0]
         rows = pack_rows(tab)
         args = (rows, pos, dirs, tab.groups, F32_T_EPS)
-        kw = dict(need_local=True,
-                  backside_miss="bifacial" in tab.features)
         got = kn.nearest_hit(*args, **kw)
         want = kn.nearest_hit_ref(*args, **kw)
         torch.cuda.synchronize()
-        ties, flips = k3_compare(got, want, kn.nearest_two_t(*args), pos,
-                                 dirs, rtol=1e-5,
-                                 max_flips=int(1e-5 * n) + 1)
+        ties, flips = k3_compare(got, want, kn.nearest_two_t(
+            *args, backside_miss=kw["backside_miss"]), pos, dirs, rtol=1e-5,
+            max_flips=int(1e-5 * n) + 1)
+        if not kw["need_local"]:
+            check(not bool(got[2]["local"].any()),
+                  f"K3 {label}: local points not zeros")
         hit = (want[1] >= 0) & (got[1] == want[1])
         errs = {"t": float((got[0] - want[0]).abs()[hit].max())}
         errs.update({k: float((got[2][k] - want[2][k]).abs()[hit].max())
@@ -726,22 +784,22 @@ def k3_phase(dev, card, nsttf_table, nsttf_source, kn):
         k1 = time_cuda(call_k, 20)
         k2 = time_cuda(call_k, 20)
         p2 = time_cuda(call_p, 3)
-        ops = n * sum((g[1] - g[0]) * row_ops(g[3], g[2])
-                      for g in tab.groups)
-        bnd = bound(n * (24 + 52), ops)
+        bnd = k3_bound(tab, n)
         log(f"K3 {label}: {n} lanes, {tab.num_rows} rows, hits "
             f"{float((hit).float().mean()):.3f}, sid ties {ties}, edge "
             f"flips {flips}, max abs err "
             + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
             + f"; kernel "
             f"{min(k1, k2):.4f} ms, plain {min(p1, p2):.3f} ms, bound "
-            f"{bnd[0]:.4f} ms ({bnd[1]}) ({card})")
+            f"{bnd[0]:.4f} ms ({bnd[1]}); "
+            f"{k3_geometry_line(kn, rows, n, kw)} ({card})")
         if out is None:
+            md_rows = rows
             out = kernel_entry(
                 "nearest_hit", "tracer_tpu_torch/kernels/csrc/nearest.cu",
                 "tracer_tpu/kernels/pallas_intersect.py:583", 0, err,
                 min(k1, k2), min(p1, p2), bnd)
-        elif tab is md_table:
+        elif torch.equal(rows, md_rows):
             out["max_abs_err"] = max(out["max_abs_err"], err)
     return out
 

@@ -119,24 +119,29 @@ def sass_k1(lib_path, build, what: str = "bounce_culled") -> dict:
     return out
 
 
-def start_build(name, edits, build, out_dir):
-    """nvcc on an edited copy of csrc/ into out_dir (bounce.cu only: the
-    variants differ in K1 alone). Returns (process, library path)."""
+def start_build(name, edits, build, out_dir, source="bounce.cu"):
+    """nvcc on an edited copy of csrc/ into out_dir: ``source`` alone (the
+    variants differ in one kernel), each (old, new) edit made in whichever
+    of the copy's sources and headers holds ``old``. Returns (process,
+    library path)."""
     if out_dir.exists():
         shutil.rmtree(out_dir)
     shutil.copytree(build._CSRC, out_dir)
-    src = out_dir / "bounce.cu"
-    text = src.read_text()
+    texts = {p: p.read_text() for p in sorted(out_dir.iterdir())
+             if p.suffix in (".cu", ".cuh")}
     for old, new in edits:
-        if old not in text:
+        holders = [p for p, text in texts.items() if old in text]
+        if not holders:
             raise SystemExit(f"k1_variants: {name}: {old!r} not in the "
                              "source")
-        text = text.replace(old, new)
-    src.write_text(text)
+        for p in holders:
+            texts[p] = texts[p].replace(old, new)
+    for p, text in texts.items():
+        p.write_text(text)
     so = out_dir / "libk1.so"
     proc = subprocess.Popen(
         [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
-         "-o", str(so), str(src)], stdout=subprocess.PIPE,
+         "-o", str(so), str(out_dir / source)], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
     return proc, so
 
@@ -151,8 +156,9 @@ def finish_build(name, proc, so, build):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = ctypes.c_int
-    lib.tt_error_string.argtypes = [ctypes.c_int]
-    lib.tt_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "tt_error_string"):      # bounce.cu's
+        lib.tt_error_string.argtypes = [ctypes.c_int]
+        lib.tt_error_string.restype = ctypes.c_char_p
     return lib, err
 
 

@@ -100,26 +100,24 @@ SCAN = (("""  int k = start, k1 = hi;  // tab[2 k] <= wl < tab[2 k1] where wl is
   return 0.0f;
 """),)
 RECT_LOOP = (("""        if (mask == 1)
-          k2_rows<FLAT_RECT1>(sm, first, count, Kp, kinds, mask, C, q,
-                              a.t_eps, a.disc_eps, kBmiss, b);
+          rows_of_class<FLAT_RECT1>(at, first, count, Kp, kinds, mask, C,
+                                    t_eps, disc_eps, bmiss_on, lane);
         else if (mask >= 0)""", "        if (mask >= 0)"),)
 SLOTS = (("""  if (a.C == 1)
-    k2_scan<kBmiss, true>(a, st.rows, st.Kp, q, b);
+    scan_groups<true, false>(a.gmeta, a.G, a.meta_w, a.C, st.rows, st.Kp, 0,
+                             a.S, a.t_eps, a.disc_eps, kBmiss, winner);
   else
-    k2_scan<kBmiss, false>(a, st.rows, st.Kp, q, b);""",
-          "  k2_scan<kBmiss, false>(a, st.rows, st.Kp, q, b);"),)
+""", ""),)
 # K2Block's lines
 THREADS = "  static constexpr int threads = narrow ? 128 : 256;"
 MIN_BLOCKS = "  static constexpr int min_blocks = narrow ? 5 : 3;"
 ONE_CHUNK = (("  const int blocks = chunks < sms * resident ? chunks : sms "
               "* resident;", "  const int blocks = chunks;"),)
 # diagnostics, whose results differ by design
-NO_ROWS = (("  for (int g = 0; g < a.G; ++g) {\n"
-            "    const int* m = a.gmeta + g * a.meta_w;\n"
-            "    int kinds[MAX_C];\n    group_kinds(m, C, kinds);",
+NO_ROWS = (("  for (int g = 0; g < G; ++g) {\n"
+            "    const int* m = gmeta + g * meta_w;",
             "  for (int g = 0; g < 0; ++g) {\n"
-            "    const int* m = a.gmeta + g * a.meta_w;\n"
-            "    int kinds[MAX_C];\n    group_kinds(m, C, kinds);"),)
+            "    const int* m = gmeta + g * meta_w;"),)
 NO_REGEN = (("  const bool reborn = a.regen && in.e <= 0.0f;",
              "  const bool reborn = false && in.e <= 0.0f;"),)
 NO_SHADE = (("  const Shaded o = shade<kRefr, kScat, kMedia, kExtra, kSplit>("

@@ -10,18 +10,20 @@ FMA contraction, the emulated kernels follow the plain versions' float32
 arithmetic step for step, so the comparison is exact apart from the
 libm calls. A warp's ballot or sum is every lane's vote gathered through
 the block's barrier, so K1 (whose dead-lane rank is a ballot and a scan)
-runs too; an asynchronous copy to shared memory (cp.async) is queued and
-made when its thread waits for it, so a kernel that reads staged data
-before its wait and barrier reads stale memory here. What the emulation
-cannot show: the device compiler's own
-output, the timing of real warps, and speed. tests/test_torch_gpu.py and
-chip_smoke.py hold the built kernels against the same plain versions on
-the card. Three more builds with planted errors show that the comparisons
+runs too, and a warp's barrier is the block's; an asynchronous copy to
+shared memory (cp.async) is queued and made when its thread waits for
+it, so a kernel that reads staged data before its wait and barrier reads
+stale memory here. What the emulation cannot show: the device compiler's
+own output, the timing of real warps, and speed. tests/test_torch_gpu.py
+and chip_smoke.py hold the built kernels against the same plain versions
+on the card. More builds with planted errors show that the comparisons
 reject a kernel that is slightly wrong: K2 with Snell's law 0.1% off, K2
-with the split branch's energy taken before the medium's attenuation, K1
-(and the row code it shares) with the sign of a paraboloid's axial
-gradient flipped, and K1 with its aureole flag set on lanes that were not
-reborn.
+with the split branch's energy taken before the medium's attenuation, K2
+skipping the row scan of dead lanes, K1 (and the row code it shares)
+with the sign of a paraboloid's axial gradient flipped, K1 with its
+aureole flag set on lanes that were not reborn, K3 testing a streamed
+part of the table before its copies land, and K3 keeping the later row
+on ties.
 """
 import ctypes
 import re
@@ -88,6 +90,9 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int,
   return cudaSuccess;
 }
 inline void __syncthreads() { g_block->arrive_and_wait(); }
+// a warp's barrier: the block's, which every thread of a block reaches as
+// often as a warp's in the kernels
+inline void __syncwarp(unsigned = 0xffffffffu) { __syncthreads(); }
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return (unsigned)(((unsigned long long)a * b) >> 32);
 }
@@ -118,6 +123,7 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline void sincosf(float x, float* s, float* c) { *s = sinf(x); *c = cosf(x); }
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
 template <class K, class A>
 void emulated_launch(K kernel, int grid, int block, size_t smem,
                      cudaStream_t, A args) {
@@ -198,30 +204,46 @@ _PLANTED_GRADIENT = ("      glz = qd[8];", "      glz = -qd[8];")
 # not: k1_compare must reject the encoded sids of lanes that carried
 # their ray in
 _PLANTED_AUREOLE = ("a.e[l] <= 0.0f &&", "a.e[l] < 1e30f &&")
+# a K3 that tests each streamed part of the table before its cp.async
+# copies have landed (it waits after the part's rows): k3_compare must
+# reject the rows it reads stale
+_PLANTED_K3_WAIT = (
+    ("        __pipeline_wait_prior(1);\n        __syncthreads();\n"
+     "        scan_groups<kC1, true>(", "        scan_groups<kC1, true>("),
+    ("        // every lane is done with the buffer before part p + 2 lands "
+     "in it\n", "        __pipeline_wait_prior(1);\n"
+     "        __syncthreads();\n"))
+# a K3 that keeps the later row on ties (<= for <): a lane that misses
+# every row keeps the last one, which k3_compare must reject
+_PLANTED_K3_TIES = ("    if (th < t) {", "    if (th <= t) {")
 
 
 def _compile(d, names, planted=None):
     """Start g++ on the emulable sources ``names`` (csrc/*.cu stems) in
-    directory ``d``, with the ``planted`` (old, new) text swap in whichever
-    source or header holds it. Returns (process, library path)."""
+    directory ``d``, with the ``planted`` (old, new) text swap, or each of
+    a tuple of them, in whichever source or header holds it. Returns
+    (process, library path)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the CUDA sources for the CPU")
     (d / "cuda_runtime.h").write_text(_RUNTIME)
     (d / "cuda_pipeline_primitives.h").write_text(_PIPELINE)
     srcs = []
-    found = planted is None
+    swaps = (() if planted is None else
+             (planted,) if isinstance(planted[0], str) else planted)
+    found = [False] * len(swaps)
     for p in sorted(build._CSRC.iterdir()):
         text = p.read_text()
-        if planted is not None and planted[0] in text:
-            text = text.replace(*planted)
-            found = True
+        for i, swap in enumerate(swaps):
+            if swap[0] in text:
+                text = text.replace(*swap)
+                found[i] = True
         if p.suffix != ".cu":
             (d / p.name).write_text(text)
         elif p.stem in names:
             srcs.append(str(d / (p.stem + ".cpp")))
             (d / (p.stem + ".cpp")).write_text(_emulable(text))
-    assert found, planted
+    assert all(found), planted
     so = d / "libemulated.so"
     proc = subprocess.Popen(
         [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
@@ -244,8 +266,9 @@ def _load(proc, so):
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     """The emulated kernels, K2 with _PLANTED, K1 with _PLANTED_GRADIENT,
-    K2 with _PLANTED_SPLIT, K1 with _PLANTED_AUREOLE and K2 with
-    _PLANTED_DEAD, built side by side."""
+    K2 with _PLANTED_SPLIT, K1 with _PLANTED_AUREOLE, K2 with
+    _PLANTED_DEAD, K3 with _PLANTED_K3_WAIT and K3 with _PLANTED_K3_TIES,
+    built side by side."""
     jobs = (_compile(tmp_path_factory.mktemp("emulated"),
                      ("bounce", "nearest")),
             _compile(tmp_path_factory.mktemp("planted"), ("bounce",),
@@ -257,7 +280,11 @@ def libs(tmp_path_factory):
             _compile(tmp_path_factory.mktemp("planted_aureole"),
                      ("bounce",), _PLANTED_AUREOLE),
             _compile(tmp_path_factory.mktemp("planted_dead"), ("bounce",),
-                     _PLANTED_DEAD))
+                     _PLANTED_DEAD),
+            _compile(tmp_path_factory.mktemp("planted_k3_wait"),
+                     ("nearest",), _PLANTED_K3_WAIT),
+            _compile(tmp_path_factory.mktemp("planted_k3_ties"),
+                     ("nearest",), _PLANTED_K3_TIES))
     return tuple(_load(*job) for job in jobs)
 
 
@@ -450,6 +477,147 @@ def test_k3_source_matches_plain(lib):
     ties, flips = k3_compare(got, kn.nearest_hit_ref(*args),
                              kn.nearest_two_t(*args), pos, dirs)
     assert flips == 0 and ties <= 1e-4 * n
+
+
+def _k3_case(case):
+    """(table, pos, dirs, keywords) of K3 case ``case`` (K3_CASES)."""
+    import math
+    import numpy as np
+    from tracer_tpu_torch.models.tau_minidish import MiniDish
+    from tracer_tpu_torch.sources import solar_disk_bundle
+    from test_torch_gpu import bifacial_assembly
+    if case in ("minidish", "minidish_local_off"):
+        asm = MiniDish(5.0, 6.25, 0.9, 6.95, 0.4, 0.7, 0.9)
+        asm.set_transform(ptt.spatial.rotx(-np.pi / 4))
+        table, _ = ptt.compile_scene(asm, device="cpu")
+        x = -1.0 / math.sqrt(2.0)
+        sun = solar_disk_bundle(torch.Generator().manual_seed(42), 4096,
+                                [0.0, 7.0, 7.0], [0.0, x, x], 3.0, 0.005,
+                                flux=1000.0, device="cpu")
+        return (table, sun.pos.contiguous(), sun.dir.contiguous(),
+                dict(need_local=case == "minidish"))
+    asm, n, seed = {
+        "ragged": (fuzz_assembly(ptt, 0), 4091, 7),
+        "bifacial": (bifacial_assembly(ptt), 4096, 8),
+        "streamed": (fuzz_assembly(ptt, 1, extra=300), 4093, 9),
+        "many_rows": (fuzz_assembly(ptt, 2, extra=100, every_kind=False),
+                      4095, 10),
+        "streamed_one_slot": (fuzz_assembly(ptt, 3, extra=400,
+                                            every_kind=False), 4093, 11),
+    }[case]
+    table, meta = ptt.compile_scene(asm, device="cpu")
+    pos, dirs = (torch.tensor(a) for a in fuzz_rays(meta, n, seed))
+    return table, pos, dirs, dict(backside_miss="bifacial" in
+                                  table.features)
+
+
+# K3's cases through its CUDA source: the MiniDish's rows under its sun,
+# with and without the local hit point, a lane count that ends inside a
+# chunk and a 16-byte word, the bifacial plates with backside_miss, a
+# table of two aperture slots that streams through the stage in three
+# parts, groups spanning them, and tables of one slot and 100 or 400 rows,
+# staged whole or streamed (the winner's aux made from the stage or from
+# device memory); every count but the MiniDish's ragged
+K3_CASES = ("minidish", "minidish_local_off", "ragged", "bifacial",
+            "streamed", "many_rows", "streamed_one_slot")
+
+
+def _k3_mode(lib, case):
+    """K3 through ``lib`` against its plain version in K3 case ``case``:
+    (k3_compare's ties, got, want, table, rows)."""
+    table, pos, dirs, kw = _k3_case(case)
+    rows = kb.pack_rows(table)
+    args = (rows, pos, dirs, table.groups, T_EPS)
+    rc, got = kn.launch_k3(lib, *args, None, **kw)
+    assert rc == 0, rc
+    want = kn.nearest_hit_ref(*args, **kw)
+    ties, flips = k3_compare(got, want, kn.nearest_two_t(
+        *args, backside_miss=kw.get("backside_miss", False)), pos, dirs)
+    assert flips == 0 and ties <= 1e-4 * pos.shape[0] + 1
+    return ties, got, want, table, rows
+
+
+@pytest.mark.parametrize("case", K3_CASES)
+def test_k3_source_cases(lib, case):
+    """K3's CUDA source against its plain version in each K3 case: no
+    flips, ties within 1e-4 of the lanes, aux within k3_compare's
+    tolerance; hits on at least a quarter of the lanes; the local point
+    zeros without need_local (every other output as with it); the
+    bifacial rows rejecting back-side arrivals (the winner moves to the
+    plate's other face on over 100 lanes); the streamed table longer
+    than two of its parts (csrc/nearest.cu: rows beyond K3_TABLE_FLOATS),
+    with a group that crosses a part's end."""
+    _, got, want, table, rows = _k3_mode(lib, case)
+    assert (want[1] >= 0).float().mean() > 0.25
+    if case == "minidish_local_off":
+        assert torch.equal(got[2]["local"],
+                           torch.zeros_like(got[2]["local"]))
+        _, with_local, *_ = _k3_mode(lib, "minidish")
+        assert torch.equal(got[0], with_local[0])
+        assert torch.equal(got[1], with_local[1])
+        for k in ("normal", "up_dot", "kind", "flags", "p0", "p1"):
+            assert torch.equal(got[2][k], with_local[2][k]), k
+    if case == "bifacial":
+        no_bmiss = kn.nearest_hit_ref(rows, *_k3_case(case)[1:3],
+                                      table.groups, T_EPS)
+        assert (no_bmiss[1] != want[1]).sum() > 100
+    if case.startswith("streamed"):
+        geo = _k3_geometry(lib, rows, 4096)
+        part = geo["part"]
+        assert 2 * part < rows.shape[0] < 3 * part
+        assert any(g[0] // part != (g[1] - 1) // part for g in table.groups)
+
+
+def _k3_geometry(lib, rows, n, backside_miss=False):
+    out = (ctypes.c_int * 6)()
+    rc = lib.tt_k3_geometry(*rows.shape, int(backside_miss), n,
+                            ctypes.addressof(out))
+    assert rc == 0
+    return dict(zip(("blocks", "threads", "smem", "resident", "sms",
+                     "part"), out))
+
+
+def test_k3_geometry_matches_wrapper(lib):
+    """K3's launch geometry: chunks of whole warps, one lane a thread; on
+    a table staged whole as many persistent blocks as the card keeps
+    resident and never more than there are chunks, on a streamed one a
+    block a chunk; and a stage of each warp's two ray buffers and the
+    table (whole at its padded stride, or two streamed parts)."""
+    for extra, every, n in ((0, True, 4091), (300, True, 4093),
+                            (0, True, 100), (100, False, 9000),
+                            (400, False, 4093), (60, False, 999)):
+        table, _ = ptt.compile_scene(fuzz_assembly(ptt, 1, extra=extra,
+                                                   every_kind=every),
+                                     device="cpu")
+        rows = kb.pack_rows(table)
+        S, K = rows.shape
+        geo = _k3_geometry(lib, rows, n)
+        Kp = -(-K // 4) * 4
+        assert geo["threads"] % 32 == 0
+        chunks = -(-n // geo["threads"])
+        whole = geo["part"] == S
+        assert geo["blocks"] == (min(chunks, geo["sms"] * geo["resident"])
+                                 if whole else chunks)
+        table_floats = S * Kp if whole else 2 * geo["part"] * Kp
+        assert geo["smem"] == 4 * (12 * geo["threads"] + table_floats)
+
+
+def test_k3_compare_rejects_planted_wait(libs):
+    """The streamed table through a K3 that tests each part before its
+    cp.async copies have landed (_PLANTED_K3_WAIT) fails k3_compare: the
+    stage still holds another part's rows."""
+    with pytest.raises(AssertionError):
+        _k3_mode(libs[6], "streamed")
+
+
+@pytest.mark.parametrize("case", ("ragged", "many_rows"))
+def test_k3_compare_rejects_planted_ties(libs, case):
+    """The every-class table and a table of one slot and 100 rows through
+    a K3 that keeps the later row on ties (_PLANTED_K3_TIES) fail
+    k3_compare: lanes that miss every row come back with the last row's
+    id."""
+    with pytest.raises(AssertionError):
+        _k3_mode(libs[7], case)
 
 
 # K1 on three tiles of a 16-tile culling over 40 pads: two traced (a third

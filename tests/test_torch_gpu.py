@@ -76,12 +76,13 @@ UNBOUNDED = (3, 4, 5, 8, 9, 12, 13)
 CLASSES = ("flat", "parab", "sphere", "quadric")
 
 
-def fuzz_assembly(pkg, seed: int, extra: int = 0):
+def fuzz_assembly(pkg, seed: int, extra: int = 0, every_kind=True):
     """A scene with every quadric class and every aperture kind, built
     with the package ``pkg`` (tracer_tpu or tracer_tpu_torch, which share
     the host API): one K_REFLECT row per aperture kind on a rotating
     class, plus one more row of each class, plus ``extra`` rect rows of
-    random classes (groups of hundreds of rows), each at a random pose."""
+    random classes (groups of hundreds of rows), each at a random pose.
+    Without ``every_kind``, the rect rows alone (one aperture slot)."""
     G, M, sp, sc = pkg.geometry, pkg.materials, pkg.spatial, pkg.scene
     rng = np.random.default_rng(seed)
     base = {"flat": G.flat, "parab": lambda: G.paraboloid(1.2, 0.9),
@@ -89,6 +90,8 @@ def fuzz_assembly(pkg, seed: int, extra: int = 0):
             "quadric": lambda: G.ellipsoid(0.9, 0.6, 0.7)}
     cases = [(k, CLASSES[(k + seed) % 4]) for k in AP_PARAMS]
     cases += [(int(rng.integers(1, 14)), c) for c in CLASSES]
+    if not every_kind:
+        cases = []
     cases += [(G.AP_RECT, CLASSES[int(c)])
               for c in rng.integers(0, 4, extra)]
     surfs = []
@@ -915,15 +918,16 @@ def test_cpu_tensors_take_the_plain_version():
 def test_nearest_hit_matches_plain_on_gpu(cuda_device, need_local):
     """K3 against its plain version on the card, on a table with every
     quadric class and aperture kind, on the same with 2,000 more rows
-    (groups that span several of the kernel's staged chunks) and on the
+    (groups that span several of the kernel's streamed parts) and on the
     NSTTF table: sid equal off ties, t and aux within 1e-5 of their scale
     (k3_compare); one launch per call."""
     dev = cuda_device
     table, meta = ptt.compile_scene(fuzz_assembly(ptt, 0), device=dev)
     big, big_meta = ptt.compile_scene(fuzz_assembly(ptt, 1, extra=2000),
                                       device=dev)
-    chunk = kn.STAGE_FLOATS // kb.row_width(big)
-    assert max(g[1] - g[0] for g in big.groups) > chunk
+    part = kn.k3_geometry(kb.pack_rows(big), 1 << 16)["part"]
+    assert part < big.num_rows
+    assert max(g[1] - g[0] for g in big.groups) > part
     nsttf_table, nsttf_meta, _ = nsttf.build_scene(device=dev)
     for tab, met, n in ((table, meta, 1 << 18), (big, big_meta, 1 << 16),
                         (nsttf_table, nsttf_meta, 1 << 16)):
@@ -940,6 +944,59 @@ def test_nearest_hit_matches_plain_on_gpu(cuda_device, need_local):
         ties, flips = k3_compare(got, want, kn.nearest_two_t(*args), pos,
                                  dirs, max_flips=int(1e-5 * n) + 1)
         assert ties <= 1e-4 * n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", (0, 2000))
+def test_nearest_hit_ragged_and_local_off_on_gpu(cuda_device, extra):
+    """K3 on lane counts that end inside a chunk and a 16-byte word, on
+    the table with every class and aperture kind and its 2,017-row
+    version (streamed): within
+    k3_compare of the plain version; without need_local the local points
+    are zeros and every other output equals the call with it, bit for
+    bit."""
+    dev = cuda_device
+    table, meta = ptt.compile_scene(fuzz_assembly(ptt, 1, extra=extra),
+                                    device=dev)
+    rows = kb.pack_rows(table)
+    for n in ((1 << 16) - 3, 1_000_003):
+        pos, dirs = (torch.tensor(a, device=dev)
+                     for a in fuzz_rays(meta, n, seed=11))
+        args = (rows, pos, dirs, table.groups, T_EPS)
+        got = kn.nearest_hit(*args)
+        off = kn.nearest_hit(*args, need_local=False)
+        want = kn.nearest_hit_ref(*args)
+        torch.cuda.synchronize()
+        assert got[0].shape == (n,) and (want[1] >= 0).float().mean() > 0.3
+        k3_compare(got, want, kn.nearest_two_t(*args), pos, dirs,
+                   max_flips=int(1e-5 * n) + 1)
+        assert not bool(off[2]["local"].any())
+        assert torch.equal(off[0], got[0]) and torch.equal(off[1], got[1])
+        for k in ("normal", "up_dot", "kind", "flags", "p0", "p1"):
+            assert torch.equal(off[2][k], got[2][k]), k
+
+
+@pytest.mark.cuda
+def test_k3_geometry_on_gpu(cuda_device):
+    """K3's grid on a table staged whole is the card's resident blocks: as
+    many blocks as the occupancy calculator keeps resident a SM times the
+    SMs (never more than there are chunks); on a streamed table a block a
+    chunk. Every block's stage fits the SM's shared memory."""
+    dev = cuda_device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for extra in (0, 2000):
+        table, _ = ptt.compile_scene(fuzz_assembly(ptt, 1, extra=extra),
+                                     device=dev)
+        rows = kb.pack_rows(table)
+        for n in (1 << 22, 1000):
+            geo = kn.k3_geometry(rows, n)
+            chunks = -(-n // geo["threads"])
+            assert geo["sms"] == sms and geo["resident"] >= 1
+            assert geo["blocks"] == (
+                min(chunks, sms * geo["resident"])
+                if geo["part"] == table.num_rows else chunks)
+            assert (geo["part"] == table.num_rows) == (extra == 0)
+            assert geo["smem"] <= 232448
 
 
 # the stage (d)/(e) scenes (stage_de_assembly) and their sources: centre,

@@ -53,6 +53,8 @@ _SIGNATURES = {
     # p1 n t_eps disc_eps need_local backside_miss stream
     "tt_nearest": [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                    _P, _P, _P, _I, _F, _F, _I, _I, _P],
+    # S K backside_miss n out (6 ints)
+    "tt_k3_geometry": [_I, _I, _I, _I, _P],
 }
 
 
@@ -143,6 +145,13 @@ def k2_instance_name(entry: str) -> str:
     """<kRefr, kScat, kMedia, kExtra, kBmiss, kSplit> of a K2 instance's
     mangled name."""
     flags = re.findall(r"Lb([01])E", entry.split("bounce_kernel", 1)[1])
+    return "<" + ", ".join("ft"[int(f)] for f in flags) + ">"
+
+
+def k3_instance_name(entry: str) -> str:
+    """<kC1, kBmiss> of a K3 instance's mangled name (the earlier,
+    untemplated kernel: <>)."""
+    flags = re.findall(r"Lb([01])E", entry.split("nearest_kernel", 1)[-1])
     return "<" + ", ".join("ft"[int(f)] for f in flags) + ">"
 
 

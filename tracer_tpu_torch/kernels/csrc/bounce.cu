@@ -158,7 +158,6 @@ constexpr int K1_RAY_FLOATS = 6 * K1_SUB;  // a sub-tile's staged pos, dir
 static_assert(K1_SUB % K1_THREADS == 0 && K1_SUB % 4 == 0,
               "a sub-tile is whole chunks of threads and whole 16-byte "
               "copies");
-constexpr int SMEM_DEFAULT = 48 * 1024;
 constexpr int POSE_FLOATS = 21;       // centre, position rot, direction rot
 
 // source parameter block (kernels/bounce.py:source_params)
@@ -1291,66 +1290,6 @@ inline size_t plain_stage_floats(const PlainArgs& a) {
          3 * (size_t)a.n_media + (a.n_media ? 2 * (size_t)a.S : 0);
 }
 
-// rows [first, first + count) of one group (class CLS), staged at sm with
-// stride Kp
-template <int CLS>
-__device__ __forceinline__ void k2_rows(const float* sm, int first,
-                                        int count, int Kp, const int* kinds,
-                                        int rect_mask, int C, const Ray& q,
-                                        float t_eps, float disc_eps,
-                                        bool bmiss_on, Best& b) {
-  for (int i = 0; i < count; ++i) {
-    const float* r =
-        static_cast<const float*>(__builtin_assume_aligned(sm + i * Kp, 16));
-    row_hit_local<CLS, true>(r, first + i, kinds, rect_mask, C,
-                             to_local(r, q), t_eps, disc_eps, bmiss_on, b);
-  }
-}
-
-// the lane's nearest hit over every staged row; kC1: the rows hold one
-// aperture slot, so the aperture kinds stay in registers and their tests
-// need no loop
-template <bool kBmiss, bool kC1>
-__device__ __forceinline__ void k2_scan(const PlainArgs& a,
-                                        const float* rows_sm, int Kp,
-                                        const Ray& q, Best& b) {
-  const int C = kC1 ? 1 : a.C;
-  best_init(b);
-  for (int g = 0; g < a.G; ++g) {
-    const int* m = a.gmeta + g * a.meta_w;
-    int kinds[MAX_C];
-    group_kinds(m, C, kinds);
-    const int mask = rect_mask_of(m, C);
-    const float* sm = rows_sm + m[0] * Kp;
-    const int first = m[0], count = m[1] - m[0];
-    switch (m[2]) {
-      case FLAT:
-        if (mask == 1)
-          k2_rows<FLAT_RECT1>(sm, first, count, Kp, kinds, mask, C, q,
-                              a.t_eps, a.disc_eps, kBmiss, b);
-        else if (mask >= 0)
-          k2_rows<FLAT_RECT>(sm, first, count, Kp, kinds, mask, C, q,
-                             a.t_eps, a.disc_eps, kBmiss, b);
-        else
-          k2_rows<FLAT>(sm, first, count, Kp, kinds, mask, C, q, a.t_eps,
-                        a.disc_eps, kBmiss, b);
-        break;
-      case PARAB:
-        k2_rows<PARAB>(sm, first, count, Kp, kinds, mask, C, q, a.t_eps,
-                       a.disc_eps, kBmiss, b);
-        break;
-      case SPHERE:
-        k2_rows<SPHERE>(sm, first, count, Kp, kinds, mask, C, q, a.t_eps,
-                        a.disc_eps, kBmiss, b);
-        break;
-      default:
-        k2_rows<QUADRIC>(sm, first, count, Kp, kinds, mask, C, q, a.t_eps,
-                         a.disc_eps, kBmiss, b);
-        break;
-    }
-  }
-}
-
 // the shared-memory stage of a K2 block
 struct K2Stage {
   float *rows, *tab, *pose, *mtab, *mrows;
@@ -1389,10 +1328,14 @@ __device__ __forceinline__ void k2_lane(const PlainArgs& a, int l,
   }
   const Ray q = {in.px, in.py, in.pz, in.dx, in.dy, in.dz};
   Best b;
+  best_init(b);
+  BestLane winner = {q, b};
   if (a.C == 1)
-    k2_scan<kBmiss, true>(a, st.rows, st.Kp, q, b);
+    scan_groups<true, false>(a.gmeta, a.G, a.meta_w, a.C, st.rows, st.Kp, 0,
+                             a.S, a.t_eps, a.disc_eps, kBmiss, winner);
   else
-    k2_scan<kBmiss, false>(a, st.rows, st.Kp, q, b);
+    scan_groups<false, false>(a.gmeta, a.G, a.meta_w, a.C, st.rows, st.Kp,
+                              0, a.S, a.t_eps, a.disc_eps, kBmiss, winner);
   const bool hit = b.sid >= 0;
   const Modes& md = a.m;
   Epi ep = {md.bivar_mode, md.one_sided, md.slope, md.lambertian,
@@ -1479,27 +1422,6 @@ __global__ void __launch_bounds__(
     if (l < (int)a.n)
       k2_lane<kRefr, kScat, kMedia, kExtra, kBmiss, kSplit>(a, l, st);
   }
-}
-
-// dynamic shared memory above 48 KB needs the attribute
-template <typename Kernel>
-cudaError_t allow_smem(Kernel k, size_t bytes) {
-  if (bytes <= SMEM_DEFAULT) return cudaSuccess;
-  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-// the card's SMs (asked once)
-inline int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 0;
-  }
-  return sms;
 }
 
 // K2's launch geometry for n lanes: out[0] blocks, out[1] threads a block,

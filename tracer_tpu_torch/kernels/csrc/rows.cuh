@@ -1,21 +1,30 @@
-// The packed scene rows and the per-row intersection that K2 (bounce.cu,
-// tt_bounce) and K3 (nearest.cu) share: the row layout of
-// kernels/rows.py:pack_rows, every aperture kind of the TPU kernels'
-// _ap_ok_static (tracer_tpu/kernels/pallas_intersect.py:92) and every
-// quadric class of _surface_body (:232).
+// The packed scene rows and the per-row intersection that K1 and K2
+// (bounce.cu, tt_bounce_culled and tt_bounce) and K3 (nearest.cu,
+// tt_nearest) share: the row layout of kernels/rows.py:pack_rows, every
+// aperture kind of the TPU kernels' _ap_ok_static
+// (tracer_tpu/kernels/pallas_intersect.py:92) and every quadric class of
+// _surface_body (:232).
 //
 // Per row, the hit distance of its group's class -- "flat" (t = -v_z/d_z,
 // |d_z| > 1e-7, L1 self-hit guard t_eps (1 + |vx| + |vy| + |vz|)),
 // "parab", "sphere" or "quadric" (stable q-formula, linear and B == 0
 // branches, disc >= disc_eps, L2 guard) -- with every aperture kind of
 // the group's signature, and F_BACKSIDE_MISS rows rejecting local +Z
-// arrivals when backside_miss is on. The running minimum uses a strict
-// `<`, so ties keep the earlier row. A group's class and aperture kinds
-// are uniform across a block, so the switches never diverge; each class
-// is its own template instance. A flat group whose apertures are all rect
-// or none (every NSTTF heliostat) takes its own instance, FLAT_RECT, whose
-// aperture test is a bit mask in a register (flat_rect_t, which K1 uses
-// too) rather than a switch over the kinds.
+// arrivals when backside_miss is on (row_t_local); then the winner's data
+// (row_aux). The running minimum uses a strict `<`, so ties keep the
+// earlier row. A group's class and aperture kinds are uniform across a
+// block, so the switches never diverge; each class is its own template
+// instance. A flat group whose apertures are all rect or none (every
+// NSTTF heliostat) takes its own instance, FLAT_RECT, whose aperture test
+// is a bit mask in a register (flat_rect_t, which K1 uses too) rather
+// than a switch over the kinds, and one whose only aperture is a rect in
+// slot 0 FLAT_RECT1.
+//
+// K2 and K3 run the same group dispatch (scan_groups, rows_of_class) over
+// rows staged at a stride of whole 16-byte words, each with its own lane
+// state: K2 one ray and its whole winner (BestLane), K3 one ray and only
+// its winner's distance, row and group (nearest.cu). K1 keeps its own
+// loops (scan_group here, and its NSTTF instance's in bounce.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -177,20 +186,20 @@ __device__ __forceinline__ float flat_rect_t(const float* r, int rect_mask,
   return ok ? t_hit : INFINITY;
 }
 
-// fold row s (packed row r, quadric class CLS) into the lane's winner,
-// the ray already in the row's local frame (v = to_local(r, q)). With
-// kSolve a curved row solves the general quadratic (A and B nonzero: every
-// row but a degenerate one) in a branch of its own, without the linear and
-// B == 0 roots' quotients and square root, and takes no root where its
+// hit distance on row r (quadric class CLS) of the ray already in the
+// row's local frame (v = to_local(r, q)), +inf on a miss. With kSolve a
+// curved row solves the general quadratic (A and B nonzero: every row but
+// a degenerate one) in a branch of its own, without the linear and B == 0
+// roots' quotients and square root, and takes no root where its
 // discriminant admits none; the values that decide are the branch-free
-// form's, so is the winner, bit for bit
+// form's, so is the distance, bit for bit
 template <int CLS, bool kSolve = false>
-__device__ __forceinline__ void row_hit_local(const float* r, int s,
-                                              const int* kinds,
-                                              int rect_mask, int C,
-                                              const Local& v, float t_eps,
-                                              float disc_eps, bool bmiss_on,
-                                              Best& b) {
+__device__ __forceinline__ float row_t_local(const float* r,
+                                             const int* kinds,
+                                             int rect_mask, int C,
+                                             const Local& v, float t_eps,
+                                             float disc_eps,
+                                             bool bmiss_on) {
   const float vx = v.vx, vy = v.vy, vz = v.vz, ddx = v.ddx, ddy = v.ddy,
               ddz = v.ddz;
   float t_surf;
@@ -267,7 +276,18 @@ __device__ __forceinline__ void row_hit_local(const float* r, int s,
   // F_BACKSIDE_MISS is bit 4 of kind*1024 + flags
   if (bmiss_on && ((static_cast<int>(r[ROW_KIND]) >> 4) & 1) && ddz > 0.0f)
     t_surf = INFINITY;
-  if (!(t_surf < b.t)) return;
+  return t_surf;
+}
+
+// the winner's data when row s (packed row r, class CLS, the ray in its
+// local frame v) is hit at t_surf: the hit, its row, local d_z, optics
+// kind and params, local hit point and unnormalised global gradient
+template <int CLS>
+__device__ __forceinline__ void row_aux(const float* r, int s,
+                                        const Local& v, float t_surf,
+                                        Best& b) {
+  const float vx = v.vx, vy = v.vy, vz = v.vz, ddx = v.ddx, ddy = v.ddy,
+              ddz = v.ddz;
   b.t = t_surf;
   b.sid = s;
   b.up = ddz;
@@ -307,6 +327,22 @@ __device__ __forceinline__ void row_hit_local(const float* r, int s,
     b.gy = r[1] * glx + r[4] * gly + r[7] * glz;
     b.gz = r[2] * glx + r[5] * gly + r[8] * glz;
   }
+}
+
+// fold row s (packed row r, quadric class CLS) into the lane's winner,
+// the ray already in the row's local frame (v = to_local(r, q)); kSolve
+// as row_t_local's
+template <int CLS, bool kSolve = false>
+__device__ __forceinline__ void row_hit_local(const float* r, int s,
+                                              const int* kinds,
+                                              int rect_mask, int C,
+                                              const Local& v, float t_eps,
+                                              float disc_eps, bool bmiss_on,
+                                              Best& b) {
+  const float t_surf = row_t_local<CLS, kSolve>(r, kinds, rect_mask, C, v,
+                                                t_eps, disc_eps, bmiss_on);
+  if (!(t_surf < b.t)) return;
+  row_aux<CLS>(r, s, v, t_surf, b);
 }
 
 template <int CLS>
@@ -368,6 +404,119 @@ __device__ __forceinline__ void group_kinds(const int* m, int C,
                                             int kinds[MAX_C]) {
 #pragma unroll
   for (int c = 0; c < MAX_C; ++c) kinds[c] = c < C ? m[3 + c] : AP_NONE;
+}
+
+// rows [first, first + count) of one group (class CLS), staged at sm with
+// a stride of Kp floats (whole 16-byte words), folded into the lane state
+// ``lane`` (its fold<CLS>(row, row id, kinds, rect mask, C, t_eps,
+// disc_eps, bmiss_on))
+template <int CLS, class Lane>
+__device__ __forceinline__ void rows_of_class(const float* sm, int first,
+                                              int count, int Kp,
+                                              const int* kinds,
+                                              int rect_mask, int C,
+                                              float t_eps, float disc_eps,
+                                              bool bmiss_on, Lane& lane) {
+  for (int i = 0; i < count; ++i) {
+    const float* r =
+        static_cast<const float*>(__builtin_assume_aligned(sm + i * Kp, 16));
+    lane.template fold<CLS>(r, first + i, kinds, rect_mask, C, t_eps,
+                            disc_eps, bmiss_on);
+  }
+}
+
+// every group's rows (gmeta: G rows of meta_w ints, first row, end row,
+// class, kinds) that the stage at sm holds, into the lane state: with
+// kClip the stage holds rows [r0, r1) and each group is cut to them,
+// without it the whole table from row 0. kC1: the rows hold one aperture
+// slot (C is 1), so the aperture kinds stay in registers and their tests
+// need no loop. The lane state hears of each group before and after its
+// rows (enter(g), leave(g))
+template <bool kC1, bool kClip, class Lane>
+__device__ __forceinline__ void scan_groups(const int* gmeta, int G,
+                                            int meta_w, int C_rows,
+                                            const float* sm, int Kp, int r0,
+                                            int r1, float t_eps,
+                                            float disc_eps, bool bmiss_on,
+                                            Lane& lane) {
+  const int C = kC1 ? 1 : C_rows;
+  for (int g = 0; g < G; ++g) {
+    const int* m = gmeta + g * meta_w;
+    int kinds[MAX_C];
+    group_kinds(m, C, kinds);
+    const int mask = rect_mask_of(m, C);
+    const int first = kClip ? max(m[0], r0) : m[0];
+    const int count = (kClip ? min(m[1], r1) : m[1]) - first;
+    const float* at = sm + (first - r0) * Kp;
+    lane.enter(g);
+    // a flat group whose only aperture is a rect in slot 0 takes
+    // FLAT_RECT1, one with rect or no apertures FLAT_RECT
+    switch (m[2]) {
+      case FLAT:
+        if (mask == 1)
+          rows_of_class<FLAT_RECT1>(at, first, count, Kp, kinds, mask, C,
+                                    t_eps, disc_eps, bmiss_on, lane);
+        else if (mask >= 0)
+          rows_of_class<FLAT_RECT>(at, first, count, Kp, kinds, mask, C,
+                                   t_eps, disc_eps, bmiss_on, lane);
+        else
+          rows_of_class<FLAT>(at, first, count, Kp, kinds, mask, C, t_eps,
+                              disc_eps, bmiss_on, lane);
+        break;
+      case PARAB:
+        rows_of_class<PARAB>(at, first, count, Kp, kinds, mask, C, t_eps,
+                             disc_eps, bmiss_on, lane);
+        break;
+      case SPHERE:
+        rows_of_class<SPHERE>(at, first, count, Kp, kinds, mask, C, t_eps,
+                              disc_eps, bmiss_on, lane);
+        break;
+      default:
+        rows_of_class<QUADRIC>(at, first, count, Kp, kinds, mask, C, t_eps,
+                               disc_eps, bmiss_on, lane);
+        break;
+    }
+    lane.leave(g);
+  }
+}
+
+// K2's lane state: one ray and its whole winner (Best), updated row by row
+struct BestLane {
+  const Ray& q;
+  Best& b;
+  __device__ __forceinline__ void enter(int) {}
+  __device__ __forceinline__ void leave(int) {}
+  template <int CLS>
+  __device__ __forceinline__ void fold(const float* r, int s,
+                                       const int* kinds, int rect_mask,
+                                       int C, float t_eps, float disc_eps,
+                                       bool bmiss_on) {
+    row_hit_local<CLS, true>(r, s, kinds, rect_mask, C, to_local(r, q),
+                             t_eps, disc_eps, bmiss_on, b);
+  }
+};
+
+// shared memory above 48 KB a block is dynamic and needs the attribute
+constexpr int SMEM_DEFAULT = 48 * 1024;
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel k, size_t bytes) {
+  if (bytes <= SMEM_DEFAULT) return cudaSuccess;
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// the card's SMs (asked once)
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 0;
+  }
+  return sms;
 }
 
 }  // namespace

@@ -17,10 +17,12 @@ curved rows only; its jnp path, which this follows, to every row (ROADMAP
 C records the difference).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises. ``nearest_hit.launches`` counts launches.
+launches the kernel or raises. ``nearest_hit.launches`` counts launches;
+``k3_geometry`` reports a call's launch geometry.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -31,7 +33,6 @@ from .rows import ROW_AP, ROW_KIND, ROW_P0, _check, _check_device, _rows_t
 
 CLASSES = {"flat": 0, "parab": 1, "sphere": 2, "quadric": 3}
 MAX_C = 8                  # aperture slots per row the kernel takes
-STAGE_FLOATS = 12 * 1024   # floats of rows staged per chunk (nearest.cu)
 
 def nearest_hit_ref(rows, pos, dirs, groups, t_eps: float,
                     disc_eps: float = 1e-6, need_local: bool = True,
@@ -130,9 +131,26 @@ def nearest_hit(rows, pos, dirs, groups, t_eps: float,
                                backside_miss=backside_miss)
     from . import build
     dev = pos.device
+    _check_device(dev, dict(rows=rows, pos=pos, dirs=dirs))
+    lib = build.load()
+    rc, out = launch_k3(lib, rows, pos, dirs, groups, t_eps,
+                        torch.cuda.current_stream(dev).cuda_stream, disc_eps,
+                        need_local, backside_miss)
+    build.check(lib, rc, "nearest_hit")
+    nearest_hit.launches += 1
+    return out
+
+
+def launch_k3(lib, rows, pos, dirs, groups, t_eps: float, stream,
+              disc_eps: float = 1e-6, need_local: bool = True,
+              backside_miss: bool = False):
+    """Marshal one call of the library's ``tt_nearest`` (checked
+    arguments, tensors on one device; ``stream`` the CUDA stream, None for
+    the default). Returns (the C function's error code, nearest_hit's
+    results)."""
+    dev = pos.device
     n = pos.shape[0]
     S, K = rows.shape
-    _check_device(dev, dict(rows=rows, pos=pos, dirs=dirs))
     for name, t, shape in (("rows", rows, (S, K)), ("pos", pos, (n, 3)),
                            ("dirs", dirs, (n, 3))):
         _check(name, t, torch.float32, shape)
@@ -145,27 +163,42 @@ def nearest_hit(rows, pos, dirs, groups, t_eps: float,
             raise ValueError(f"group ({start}, {end}, {sig}) does not fit "
                              f"the ({S}, {K}) rows table")
     gmeta = _group_meta(tuple(groups), dev)
+    # the kernel stages the rays 16 bytes at a time
+    from .bounce import _aligned16
+    pos, dirs = _aligned16(pos), _aligned16(dirs)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     t = torch.empty((n,), **f32)
     sid = torch.empty((n,), **i32)
-    normal = torch.empty((n, 3), **f32)
-    local = (torch.empty((n, 3), **f32) if need_local
-             else torch.zeros((n, 3), **f32))
+    normal, local = torch.empty((n, 3), **f32), torch.empty((n, 3), **f32)
     up, p0, p1 = (torch.empty((n,), **f32) for _ in range(3))
     kind, flags = torch.empty((n,), **i32), torch.empty((n,), **i32)
-    lib = build.load()
     rc = lib.tt_nearest(
         rows.data_ptr(), S, K, len(groups), gmeta.data_ptr(), MAX_C,
         pos.data_ptr(), dirs.data_ptr(), t.data_ptr(), sid.data_ptr(),
         normal.data_ptr(), local.data_ptr(), up.data_ptr(),
         kind.data_ptr(), flags.data_ptr(), p0.data_ptr(), p1.data_ptr(), n,
         float(t_eps), float(disc_eps), int(need_local), int(backside_miss),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, rc, "nearest_hit")
-    nearest_hit.launches += 1
-    return t, sid, dict(normal=normal, local=local, up_dot=up, kind=kind,
-                        flags=flags, p0=p0, p1=p1)
+        stream)
+    return rc, (t, sid, dict(normal=normal, local=local, up_dot=up,
+                             kind=kind, flags=flags, p0=p0, p1=p1))
 
 
 nearest_hit.launches = 0
+
+
+def k3_geometry(rows, n: int, backside_miss: bool = False) -> dict:
+    """K3's launch geometry for a call of ``n`` lanes on ``rows``
+    (csrc/nearest.cu K3Geometry): blocks, threads a block (a lane each, a
+    chunk a block at a time), bytes of shared memory a block, blocks
+    resident a SM, SMs, and rows a staged part (the table's rows when it
+    is staged whole)."""
+    from . import build
+    S, K = rows.shape
+    out = (ctypes.c_int * 6)()
+    lib = build.load()
+    rc = lib.tt_k3_geometry(S, K, int(backside_miss), int(n),
+                            ctypes.addressof(out))
+    build.check(lib, rc, "k3_geometry")
+    return dict(zip(("blocks", "threads", "smem", "resident", "sms",
+                     "part"), out))
