@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py             # every phase, about twelve minutes
+    python3 chip_smoke.py             # every phase, about thirteen minutes
     python3 chip_smoke.py --profile   # plus a torch.profiler breakdown
                                       # of one NSTTF bench-size trace
 
@@ -160,7 +160,28 @@ Phases, each printing its lines:
    culling (rounds, drains, aureole-parked lanes), three timed parked
    ones, under bench.py's guards and within 3 combined binomial sigma of
    phase 5's receiver; and the rect-source NSTTF with a parked culling
-   once, under phase 10's guards against its unculled trace.
+   once, under phase 10's guards against its unculled trace;
+13. the unfused bounce (K3, the volumetric media and the shade of every
+   optics kind) at the suite's 700,416 rays: config 2's flux map
+   (benchmarks/suite.py:174-181: ray_tracer with record="tags", reps 20,
+   then surface_fluxmap at resolution 20; its peak in suns printed beside
+   the TPU's recorded 6201, which came from 30M rays), each bounce's full
+   record copied to the host on the same scene (bytes and ms);
+   trace_fused on configs 3, 7, 8, 8b and 7g, on phase 9's conductor,
+   IAM c = 2, piecewise and periodic scenes and on three scenes of its
+   own (mixed IAM exponents, a splitting face over a scattering sheet, a
+   dispersive splitting face), config 8b's profiled; ray_tracer on the
+   split lens (its bundle grows by the reflected branches); the general
+   streaming path on its three scenes (16 slabs of rays, K3 and the
+   shade every round). Guards: closure below 1e-4; K3 launched once a
+   bounce, K1 and K2 never on the bundle traces and K2 never on the
+   general path's unfused rounds; every share within 3 combined
+   binomial sigma of the plain megakernel's on the card (phases 7-9 and
+   11, or an 8-round megakernel trace here for phase 9's scenes), of
+   phase 11's split stream for the split lens (less the culled shares),
+   of trace_fused for the general path, and of a float64 CPU ray_tracer
+   on the first 65,536 rays for the mixed exponents; the flux map's
+   cells times their areas summing to the receiver's absorbed energy.
 
 Every kernel's launch count is set to 0 just before a main path runs and
 read just after. The line before the last is the kernels' JSON record;
@@ -582,7 +603,7 @@ def main(argv) -> None:
             # the record keeps config 1's regeneration mode
             entry.update({k: k2[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by")})
-    entry["launches"] += general_phase(dev, card, kb, kn, 7, physics[7])
+    entry["launches"] += general_phase(dev, card, kb, kn, 7, physics[7])[0]
 
     # ---- phase 10: K1's other modes, K2's rect regeneration and
     # backside_miss, then the curved and the rect-source fields
@@ -603,7 +624,9 @@ def main(argv) -> None:
     k2 = bench_phase(dev, card, kb, kn, p_ref, PHASE11_K2_MODES, ("7g",))
     entry["launches"] += k2["launches"]
     entry["max_abs_err"] = max(entry["max_abs_err"], k2["max_abs_err"])
-    entry["launches"] += general_phase(dev, card, kb, kn, "6s", physics[6])
+    physics.update(k2["physics"])
+    l2, split_stream = general_phase(dev, card, kb, kn, "6s", physics[6])
+    entry["launches"] += l2
     log(f"phase 11: {time.perf_counter() - t11:.1f} s")
 
     # ---- phase 12: aureole parking: K1 with parking against its plain
@@ -618,6 +641,13 @@ def main(argv) -> None:
     k1["launches"] += l1
     entry["launches"] += l2
     log(f"phase 12: {time.perf_counter() - t12:.1f} s")
+
+    # ---- phase 13: the unfused bounce (K3, the media and the shade of
+    # every optics kind) on the record path, trace_fused and the general
+    # streaming path
+    l2, l3 = unfused_phase(dev, card, kb, kn, physics, split_stream)
+    entry["launches"] += l2
+    record["kernels"][2]["launches"] += l3
     for k in record["kernels"]:
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
     print(json.dumps(record))
@@ -1293,7 +1323,8 @@ def general_phase(dev, card, kb, kn, cfg, mega):
     megakernel's by up to the culled share of the source besides the 3
     sigma (tests/test_torch_split.py::
     test_split_stream_culls_second_reflections shows it on the CPU).
-    Returns K2's launches."""
+    Returns K2's launches and (meta, the last call's fractions of the
+    source by row, rays emitted, culled share of the source)."""
     import math
     import statistics
     import torch
@@ -1360,7 +1391,7 @@ def general_phase(dev, card, kb, kn, cfg, mega):
     profile_path(f"{label}, {prof_rounds * n} rays,",
                  lambda: run(seed_prof, prof_rounds * n), "K2",
                  "bounce_kernel", card)
-    return launches
+    return launches, (meta, p, em, float(accum.culled) / se)
 
 
 # K2's modes of phase 10: (label, scene (test_torch_gpu.k2_scene), dead
@@ -1872,6 +1903,349 @@ def aureole_trace_phase(dev, card, kb, kn, culling0, t_culling0, unparked,
         f"{closure:.1e}; K1 launches {r1}, K2 launches {r2}; wall "
         f"{wall:.3f} s, {em / wall / 1e6:.1f} Mrays/s ({card})")
     return l1 + r1, l2 + r2
+
+
+# phase 13's scenes beside the bench configurations and phase 9's: name
+# -> the beam (centre, direction, radius, pillbox half-angle, wavelength
+# band) of benchmarks/suite.py's config it borrows
+PHASE13_SCENES = {"mixed_iam": 7, "split_sheet": 6, "dispersive_split": 6}
+PHASE13_BANDS = {"dispersive_split": (4e-7, 7e-7)}
+# phase 9's stage (d)/(e) scenes that phase 13 traces on trace_fused
+PHASE13_STAGE_DE = ("conductor", "iam_c2", "piecewise_2d", "periodic_hg")
+TPU_FLUX_PEAK_SUNS = 6201     # config 2's peak, a 30M-ray TPU run (README)
+
+
+def phase13_assembly(name):
+    """The assembly of one of PHASE13_SCENES: "mixed_iam", two IAM rows
+    with exponents 1 and 2 (a mirror and a Lambertian plate) side by side
+    under config 7's beam in its dome; "split_sheet", an energy-splitting
+    glass face over a scattering, absorbing sheet over a Lambertian
+    floor; "dispersive_split", a dispersive splitting face over an
+    absorber."""
+    import tracer_tpu_torch as ptt
+    G, M, sc = ptt.geometry, ptt.materials, ptt.scene
+    if name == "mixed_iam":
+        surfs = [sc.Surface(G.round_plate(0.3),
+                            M.iam(M.reflective(0.1), 1.0, c=1.0),
+                            location=[-0.3, 0.4, 0.0], name="iam1"),
+                 sc.Surface(G.round_plate(0.3),
+                            M.iam(M.lambertian(0.3), 0.5, c=2.0),
+                            location=[0.3, 0.4, 0.5], name="iam2"),
+                 sc.Surface(G.hemisphere(3.0), M.absorber(one_sided=False),
+                            name="dome")]
+    elif name == "split_sheet":
+        surfs = [sc.Surface(G.round_plate(0.5), o, location=[0, 0, -i],
+                            name=nm)
+                 for i, (nm, o) in enumerate((
+                     ("glass", M.refractive_homogenous(1.0, 1.5,
+                                                       single_ray=False)),
+                     ("sheet", M.scattering_interface(0.3, att_inside=0.2)),
+                     ("floor", M.lambertian(0.6))))]
+    else:
+        surfs = [sc.Surface(G.round_plate(0.5), M.refractive_material(
+            1.0, ([4e-7, 7e-7], [1.6, 1.4]), single_ray=False),
+            name="glass"),
+                 sc.Surface(G.round_plate(0.5), M.absorber(one_sided=False),
+                            location=[0.0, 0.0, -1.0], name="rec")]
+    return sc.Assembly([sc.AssembledObject(surfs)])
+
+
+def disk_source(n, beam, band=None, spec=None):
+    """source_fn(generator, device=None) of n pillbox disk rays of
+    ``beam`` (centre, direction, radius, half-angle) at 1000 W/m^2, their
+    wavelengths uniform in ``band``; ``spec`` its pallas_spec."""
+    import torch
+    from tracer_tpu_torch.sources import disk_bundle
+
+    def source_fn(generator, device=None):
+        b = disk_bundle(generator, n, *beam, flux=1000.0, device=device)
+        if band is None:
+            return b
+        wl = band[0] + (band[1] - band[0]) * torch.rand(
+            n, generator=generator, device=generator.device)
+        return b.replace(wavelength=wl.to(b.pos.device))
+    source_fn.num_rays = n
+    if spec is not None:
+        source_fn.pallas_spec = spec
+    return source_fn
+
+
+def fractions(accum, source_e):
+    """Per-row shares of the source, then the medium's."""
+    se = float(source_e)
+    return (list(accum.absorbed.double().cpu().numpy() / se)
+            + [float(accum.medium) / se])
+
+
+def within_sigma(label, p, n_p, q, n_q, slack=0.0):
+    """Every share of ``p`` (n_p rays) within 3 combined binomial sigma
+    of ``q``'s (n_q rays), plus ``slack``."""
+    import math
+    for i, (a, b) in enumerate(zip(p, q)):
+        sig = math.sqrt(max(b * (1 - b), 1e-12) * (1 / n_p + 1 / n_q))
+        check(abs(a - b) < 3 * sig + slack, f"{label}: share {i} {a} vs "
+              f"{b} +- {sig} (+ {slack})")
+
+
+def record_bytes(rec) -> int:
+    import torch
+    n = 0
+    for v in rec.__dict__.values():
+        for t in (v if isinstance(v, tuple) else (v,)):
+            if torch.is_tensor(t):
+                n += t.numel() * t.element_size()
+    return n
+
+
+def unfused_phase(dev, card, kb, kn, physics, split_stream):
+    """Phase 13: the unfused bounce (K3, the volumetric media and the
+    shade of every optics kind) at the suite's 700,416 rays. Config 2's
+    flux map through ray_tracer(record="tags") (benchmarks/suite.py
+    :174-181, reps 20, resolution 20) with its peak in suns beside the
+    TPU's recorded one; each bounce's record copied to the host (bytes,
+    ms) on the same scene; trace_fused on configs 3, 7, 8, 8b and 7g,
+    phase 9's conductor, IAM c = 2, piecewise and periodic scenes and
+    PHASE13_SCENES, one of them profiled; ray_tracer on the split lens
+    (config 6s); the general streaming path on PHASE13_SCENES (16
+    emission rounds). Guards: closure below 1e-4; K3 launched once a
+    bounce and K1 and K2 never on the bundle traces, K2 never on the
+    general path's unfused bounce; every share within 3 combined binomial
+    sigma of the plain megakernel's on the card for the same
+    configuration (phases 7-9 and 11, or a megakernel trace of 8 rounds
+    here for phase 9's scenes), of phase 11's split stream for the split
+    lens (less both traces' culled shares), of trace_fused on the same
+    scene for the general path, and of a float64 CPU ray_tracer on the
+    first 65,536 rays for the mixed IAM scene. Returns the launches of K2
+    (the megakernel references) and of K3."""
+    import numpy as np
+    import torch
+    from test_torch_gpu import STAGE_DE, stage_de_assembly, stage_de_spec
+    from tracer_tpu_torch import engine as eng_mod
+    from tracer_tpu_torch.analysis.fluxmap import areas_of, surface_fluxmap
+    from tracer_tpu_torch.engine import (TraceAccum, TraceOptions,
+                                         TracerEngine, energy_closure,
+                                         trace_fused, trace_streaming)
+    from tracer_tpu_torch.models.bench_configs import (BENCH, bench_scene,
+                                                       max_rounds)
+    from tracer_tpu_torch.scene import compile_scene
+    import tracer_tpu_torch as ptt
+    t13 = time.perf_counter()
+    n = BENCH_SLAB
+    launches = {"k2": 0, "k3": 0}
+
+    def start():
+        reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
+                       kn.nearest_hit)
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def bundle_checks(label, bounces, max_bounces, alive):
+        """K3 once a bounce, K1 and K2 never; returns K3's launches."""
+        l3 = kn.nearest_hit.launches
+        check(kb.bounce_reflect_culled.launches == kb.bounce_reflect.launches
+              == 0, f"{label}: K1 or K2 launched on a bundle trace")
+        check(l3 == bounces if bounces is not None
+              else (l3 == max_bounces if alive else 1 <= l3 <= max_bounces),
+              f"{label}: {l3} K3 launches for {bounces} bounces "
+              f"(max {max_bounces}, alive {alive})")
+        launches["k3"] += l3
+        return l3
+
+    # config 2's flux map on the record path, at the suite's size
+    table, meta, source_fn = bench_scene(2, n, dev)
+    bundle = source_fn(torch.Generator().manual_seed(3), device=dev)
+    t0 = start()
+    res = TracerEngine(table, meta).ray_tracer(
+        bundle, generator=torch.Generator(device=dev).manual_seed(4),
+        opts=TraceOptions(max_bounces=20, record="tags"))
+    wall = time.perf_counter() - t0
+    l3 = kn.nearest_hit.launches
+    bundle_checks("config 2 ray_tracer", None, 20,
+                  bool(res.final.alive.any()))
+    check(l3 > max(int(r.bounce) for r in res.records),
+          "config 2 ray_tracer: fewer K3 launches than tagged bounces")
+    bal = res.energy_balance()
+    src = bal["source"]
+    check(abs(bal["closure"]) < 1e-4 * src, f"config 2 ray_tracer: "
+          f"closure {bal['closure'] / src}")
+    flux, _ = surface_fluxmap(res, "rec", resolution=20)
+    geom = meta.surfaces[meta.index_of("rec")].geometries[0]
+    rec_w = float(res.absorbed_by_logical()[meta.index_of("rec")])
+    mapped = float((flux * areas_of(geom.kind, geom.extent, 20)).sum())
+    check(np.isfinite(flux).all() and flux.shape == (20, 20)
+          and abs(mapped - rec_w) < 1e-4 * rec_w,
+          f"config 2 flux map: {mapped} W mapped of {rec_w}")
+    meta2, p2, em2 = physics[2]
+    d, d_mega = rec_w / src, surface_fraction(meta2, p2, "rec")
+    within_sigma("config 2 ray_tracer receiver", [d], n, [d_mega], em2)
+    log(f"config 2 flux map (ray_tracer, record=\"tags\"): {n} rays, {l3} "
+        f"bounces (K3 launches), {len(res.records)} tagged bounces, receiver "
+        f"{d:.5f} of the source (megakernel {d_mega:.5f}), closure "
+        f"{bal['closure'] / src:.1e}, peak {flux.max() / 1000.0:.1f} suns "
+        f"(the TPU recorded {TPU_FLUX_PEAK_SUNS} from 30M rays), map "
+        f"{mapped:.3f} W of {rec_w:.3f}; wall {wall:.3f} s ({card})")
+    del res
+
+    # each bounce's full record copied to the host on the same scene
+    accum = TraceAccum.zeros(table.num_rows, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, copies = bundle, []
+    for i in range(20):
+        b, accum, rec = eng_mod._bounce_step(table, b, accum, gen, 1e-6,
+                                             None, 1e-6, 64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec.replace(bounce=i).to("cpu")
+        copies.append((record_bytes(rec), time.perf_counter() - t0))
+        if not bool(b.alive.any()):
+            break
+    log("config 2 records to the host (BounceRecord.to, record=True): "
+        + ", ".join(f"{nb / 1e6:.1f} MB {dt * 1e3:.2f} ms"
+                    for nb, dt in copies)
+        + f"; {sum(nb for nb, _ in copies) / sum(dt for _, dt in copies) / 1e9:.2f}"
+        f" GB/s over {len(copies)} bounces ({card})")
+
+    # trace_fused on the bench configurations, phase 9's scenes and
+    # phase 13's own, against the megakernel's shares
+    def fused(label, table, bundle, max_bounces, seed=11):
+        t0 = start()
+        final, acc = trace_fused(
+            table, bundle, torch.Generator(device=dev).manual_seed(seed),
+            max_bounces=max_bounces)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        l3 = bundle_checks(label, None, max_bounces,
+                           bool(final.alive.any()))
+        src = float(bundle.total_energy())
+        left = float(final.total_energy())
+        closure = (src - float(acc.absorbed.double().sum())
+                   - float(acc.escaped) - float(acc.culled)
+                   - float(acc.medium) - left) / src
+        check(abs(closure) < 1e-4, f"{label}: closure {closure}")
+        for k in ("absorbed", "escaped", "culled", "medium"):
+            check(bool(torch.isfinite(getattr(acc, k)).all()),
+                  f"{label}: {k} not finite")
+        return fractions(acc, src), l3, wall, closure
+
+    def show(label, p, q, l3, wall, closure, extra="", rays=n,
+             what="bounces"):
+        log(f"{label}: {rays} rays, {l3} {what} (K3 launches), closure "
+            f"{closure:.1e}, shares " + ", ".join(f"{x:.5f}" for x in p)
+            + f" (reference " + ", ".join(f"{x:.5f}" for x in q)
+            + f"){extra}; wall {wall:.3f} s ({card})")
+
+    for cfg in (3, 7, 8, "8b", "7g"):
+        table, meta, source_fn = bench_scene(cfg, n, dev)
+        bundle = source_fn(torch.Generator().manual_seed(30), device=dev)
+        p, l3, wall, closure = fused(f"config {cfg} trace_fused", table,
+                                     bundle, BENCH[cfg]["max_path"])
+        _, q, em = physics[cfg]
+        within_sigma(f"config {cfg} trace_fused", p, n, q, em)
+        show(f"config {cfg} trace_fused", p, q, l3, wall, closure)
+        if cfg == "8b":
+            profile_path("config 8b trace_fused", lambda: trace_fused(
+                table, bundle, torch.Generator(device=dev).manual_seed(12),
+                max_bounces=BENCH[cfg]["max_path"]), "K3", "nearest_kernel",
+                card, top=16)
+    for name in PHASE13_STAGE_DE:
+        table, _ = compile_scene(stage_de_assembly(ptt, name), device=dev)
+        beam, band = STAGE_DE[name][:4], STAGE_DE[name][4]
+        src_fn = disk_source(n, beam, band, stage_de_spec(name, n))
+        t0 = start()
+        acc, em, se = trace_streaming(table, src_fn,
+                                      torch.Generator().manual_seed(31),
+                                      8 * n, max_rounds=max_rounds(7, 8),
+                                      max_path=20)
+        check(kb.bounce_reflect.launches > 0 and kn.nearest_hit.launches
+              == 0, f"{name}: the megakernel reference did not run on K2")
+        launches["k2"] += kb.bounce_reflect.launches
+        check(abs(energy_closure(acc, se)) < 1e-4, f"{name}: megakernel "
+              f"closure {energy_closure(acc, se)}")
+        q = fractions(acc, se)
+        bundle = src_fn(torch.Generator().manual_seed(32), device=dev)
+        p, l3, wall, closure = fused(f"{name} trace_fused", table, bundle,
+                                     20)
+        within_sigma(f"{name} trace_fused", p, n, q, int(em))
+        show(f"{name} trace_fused", p, q, l3, wall, closure,
+             f", megakernel reference {int(em)} rays")
+    custom = {}
+    for name, cfg in PHASE13_SCENES.items():
+        table, meta = compile_scene(phase13_assembly(name), device=dev)
+        c = BENCH[cfg]
+        src_fn = disk_source(n, (c["center"], c["direction"], c["radius"],
+                                 c["ang_range"]), PHASE13_BANDS.get(name))
+        bundle = src_fn(torch.Generator().manual_seed(33), device=dev)
+        p, l3, wall, closure = fused(f"{name} trace_fused", table, bundle,
+                                     20)
+        custom[name] = (table, meta, src_fn, bundle, p)
+        log(f"{name} trace_fused: {n} rays, {l3} bounces (K3 launches), "
+            f"closure {closure:.1e}, shares "
+            + ", ".join(f"{x:.5f}" for x in p) + f"; wall {wall:.3f} s "
+            f"({card})")
+    # the mixed exponents against a float64 CPU ray_tracer
+    table, meta, _, bundle, p = custom["mixed_iam"]
+    ref = TracerEngine(phase13_assembly("mixed_iam"), dtype=torch.float64,
+                       device="cpu").ray_tracer(
+        head(bundle, MD_CPU, "cpu", torch.float64),
+        opts=TraceOptions(t_eps=F32_T_EPS, record=False, max_bounces=20))
+    q = list(ref.accum.absorbed.double().numpy()
+             / ref.energy_balance()["source"]) + [0.0]
+    within_sigma("mixed_iam trace_fused vs float64", p, n, q, MD_CPU)
+    check(min(p[:2]) > 0.005, f"mixed_iam: IAM rows' shares {p[:2]}")
+
+    # ray_tracer on the split lens: the host splitter
+    table, meta, source_fn = bench_scene("6s", n, dev)
+    bundle = source_fn(torch.Generator().manual_seed(34), device=dev)
+    t0 = start()
+    res = TracerEngine(table, meta).ray_tracer(
+        bundle, reps=BENCH["6s"]["max_path"],
+        generator=torch.Generator(device=dev).manual_seed(35))
+    wall = time.perf_counter() - t0
+    l3 = bundle_checks("split lens ray_tracer", len(res.records),
+                       BENCH["6s"]["max_path"], None)
+    bal = res.energy_balance()
+    src = bal["source"]
+    check(abs(bal["closure"]) < 1e-4 * src,
+          f"split lens ray_tracer: closure {bal['closure'] / src}")
+    d = float(res.absorbed_by_logical()[meta.index_of("rec")]) / src
+    meta_s, p_s, em_s, culled_s = split_stream
+    d_s = surface_fraction(meta_s, p_s, "rec")
+    culled = bal["culled"] / src
+    within_sigma("split lens ray_tracer receiver", [d], n, [d_s], em_s,
+                 slack=max(culled, culled_s))
+    check(0.75 < d < 0.98, f"split lens ray_tracer: receiver {d}")
+    log(f"split lens ray_tracer: {n} rays grew to {res.final.num_rays} in "
+        f"{len(res.records)} bounces ({l3} K3 launches), receiver {d:.5f} "
+        f"(split stream {d_s:.5f}), culled {culled:.5f} (stream "
+        f"{culled_s:.5f}), closure {bal['closure'] / src:.1e}; wall "
+        f"{wall:.3f} s ({card})")
+    del res
+
+    # the general streaming path's unfused bounce
+    for name, (table, meta, src_fn, _, q) in custom.items():
+        total = 16 * n
+        t0 = start()
+        acc, em, se = trace_streaming(table, src_fn,
+                                      torch.Generator().manual_seed(36),
+                                      total, max_rounds=16 * 20 + 80,
+                                      max_path=20)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        l3 = kn.nearest_hit.launches
+        check(kb.bounce_reflect.launches == kb.bounce_reflect_culled.launches
+              == 0 and l3 > 0, f"{name} general path: K2 "
+              f"{kb.bounce_reflect.launches}, K3 {l3} launches")
+        launches["k3"] += l3
+        check(int(em) == total, f"{name} general path: emitted {int(em)}")
+        closure = energy_closure(acc, se)
+        check(abs(closure) < 1e-4, f"{name} general path: closure "
+              f"{closure}")
+        p = fractions(acc, se)
+        within_sigma(f"{name} general path", p, total, q, n)
+        show(f"{name} general path", p, q, l3, wall, closure,
+             ", the reference trace_fused's", rays=total, what="rounds")
+    log(f"phase 13: {time.perf_counter() - t13:.1f} s")
+    return launches["k2"], launches["k3"]
 
 
 def check_trace(label, accum, emitted, source_e, total, energy_closure):

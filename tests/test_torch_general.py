@@ -9,9 +9,11 @@ tracer_tpu on the CPU:
   path;
 * the fused branch's record (t 0 on hits, no local point or normal) and
   its gate, tracer_tpu's _iam_mode, _where_ray_fields, the residual of a
-  trace cut by max_rounds, and the refusals left (mixed IAM exponents;
-  scenes the unfused bounce does not shade); energy splitting now
-  streams (tests/test_torch_split.py).
+  trace cut by max_rounds; mixed IAM exponents and a spec-less source
+  over a scattering sheet trace on the general path's unfused bounce (K3
+  and the shade), the mixed exponents within 3 sigma of tracer_tpu's
+  trace_streaming; the refusal left (float64 tables, ROADMAP A4). Energy
+  splitting streams too (tests/test_torch_split.py).
 """
 import jax
 import jax.numpy as jnp
@@ -105,9 +107,10 @@ def test_general_path_residual_at_max_rounds():
 def test_fused_step_record_and_gate():
     """_bounce_step without need_local takes the fused branch on a config-7
     scene: hits carry t 0, no local point or normal; ray_tracer's default
-    need_local keeps the unfused branch (which refuses Cook-Torrance
-    rows). Volumetric media and float64 tables fail the gate; bifacial
-    rows pass it (K2 takes backside_miss)."""
+    need_local keeps the unfused branch, K3 and the shade, which shades
+    the Cook-Torrance rows with their distance, local point and normal.
+    Volumetric media and float64 tables fail the gate; bifacial rows pass
+    it (K2 takes backside_miss)."""
     table, _, source_fn = bench_scene(7, SLAB, "cpu")
     assert engine._fused_ok(table)
     b = source_fn(torch.Generator().manual_seed(2), device="cpu")
@@ -120,9 +123,16 @@ def test_fused_step_record_and_gate():
     assert (rec.t[hit] == 0.0).all() and torch.isinf(rec.t[~hit]).all()
     assert not rec.local.any() and not rec.normal.any()
     assert torch.equal(nb.alive, hit & (rec.e_out > 1e-6))
-    with pytest.raises(NotImplementedError, match="A9"):
-        engine._bounce_step(table, b, acc, torch.Generator(), 1e-6, None,
-                            1e-6, 64)
+    nb, acc, rec = engine._bounce_step(table, b, acc, torch.Generator(),
+                                       1e-6, None, 1e-6, 64)
+    hit_u = rec.sid >= 0
+    assert abs(float(hit_u.float().mean()) - float(hit.float().mean())) \
+        < 0.01
+    assert torch.isfinite(rec.t[hit_u]).all() and (rec.t[hit_u] > 0).all()
+    assert rec.local[hit_u].abs().sum(1).gt(0).all()
+    np.testing.assert_allclose(rec.normal[hit_u].norm(dim=1).numpy(), 1.0,
+                               rtol=1e-5)
+    assert torch.equal(nb.alive, hit_u & (rec.e_out > 1e-6))
     G, M = ptt.geometry, ptt.materials
 
     def scene(optics, **kw):
@@ -175,28 +185,67 @@ def test_where_ray_fields_moves_every_state_field():
 
 
 def test_streaming_refusals_left():
-    """Mixed IAM exponents (ROADMAP A10) raise on every streaming path;
-    energy splitting traces on both sources (the general path); a
-    spec-less source over a volumetric scene raises on the general path's
-    unfused bounce (A9)."""
+    """Mixed IAM exponents (K2 takes one) trace on the general path's
+    unfused bounce from both sources, within 3 combined binomial sigma of
+    tracer_tpu's trace_streaming per plate; a spec-less source over a
+    scattering sheet traces there too; energy splitting traces on both
+    sources. Every closure below 1e-5. Float64 tables still raise naming
+    ROADMAP A4."""
     _, _, source_fn = bench_scene(7, SLAB, "cpu")
     G, M = ptt.geometry, ptt.materials
 
-    def scene(*optics):
-        return ptt.compile_scene(ptt.Assembly([ptt.AssembledObject([
-            ptt.Surface(G.round_plate(0.5), o, location=[0, 0, i])
-            for i, o in enumerate(optics)])]), device="cpu")[0]
-    mixed = scene(M.iam(M.reflective(0.1), 1.0, c=1.0),
-                  M.iam(M.reflective(0.1), 1.0, c=2.0))
+    def build(pkg, *optics):
+        # side by side under the beam (it crosses z = 0 about y = 0.4)
+        return pkg.Assembly([pkg.AssembledObject([
+            pkg.Surface(pkg.geometry.round_plate(0.3), o,
+                        location=[0.6 * i - 0.3, 0.4, 0.5 * i])
+            for i, o in enumerate(optics)])])
+
+    def scene(*optics, dtype=torch.float32):
+        return ptt.compile_scene(build(ptt, *optics), dtype=dtype,
+                                 device="cpu")[0]
+
+    def mixed_optics(pkg):
+        M_ = pkg.materials
+        return (M_.iam(M_.reflective(0.1), 1.0, c=1.0),
+                M_.iam(M_.lambertian(0.3), 0.5, c=2.0))
+    mixed = scene(*mixed_optics(ptt))
+    assert "iam_nonmirror" in mixed.features
     split = scene(M.refractive_homogenous(1.0, 1.5, single_ray=False))
     for src in (source_fn, without_spec(source_fn)):
-        with pytest.raises(NotImplementedError, match="A10"):
-            trace_streaming(mixed, src, torch.Generator(), TOTAL)
+        acc, em, se = trace_streaming(mixed, src,
+                                      torch.Generator().manual_seed(4),
+                                      TOTAL, max_rounds=40, max_path=8)
+        assert int(em) == TOTAL
+        assert abs(energy_closure(acc, se)) < 1e-5
         acc, em, se = trace_streaming(split, src, torch.Generator(), SLAB,
                                       max_rounds=20, max_path=4)
         assert int(em) == SLAB
         assert abs(energy_closure(acc, se)) < 1e-5
+    acc_mixed, em, se = trace_streaming(mixed, source_fn,
+                                        torch.Generator().manual_seed(5),
+                                        TOTAL, max_rounds=40, max_path=8)
+    p = acc_mixed.absorbed.double().numpy() / float(se)
+    jt, _ = tracer_tpu.compile_scene(
+        build(tracer_tpu, *mixed_optics(tracer_tpu)), dtype=jnp.float32)
+    c = BENCH[7]
+
+    def jax_source(key):
+        return _disk(tracer_tpu, SLAB, c["center"], c["direction"],
+                     c["radius"], c["ang_range"], key)
+    ja, jem, jse = jax_engine.trace_streaming(
+        jt, jax_source, jax.random.PRNGKey(0), total_rays=TOTAL,
+        max_rounds=40, max_path=8)
+    q = np.asarray(ja.absorbed, np.float64) / float(jse)
+    sig = np.sqrt(q * (1 - q) * (1 / int(em) + 1 / int(jem)))
+    assert (np.abs(p - q) <= 3 * sig).all(), (p, q, sig)
+    assert p.min() > 0.005
     box = scene(M.scattering_interface(0.3), M.reflective(0.2))
-    with pytest.raises(NotImplementedError, match="A9"):
-        trace_streaming(box, without_spec(source_fn), torch.Generator(),
-                        TOTAL)
+    acc, em, se = trace_streaming(box, without_spec(source_fn),
+                                  torch.Generator().manual_seed(6), TOTAL,
+                                  max_rounds=60, max_path=16)
+    assert int(em) == TOTAL
+    assert abs(energy_closure(acc, se)) < 1e-5
+    with pytest.raises(NotImplementedError, match="A4"):
+        trace_streaming(scene(M.reflective(0.1), dtype=torch.float64),
+                        source_fn, torch.Generator(), TOTAL)

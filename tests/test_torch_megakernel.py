@@ -294,13 +294,13 @@ def test_trace_streaming_matches_jax(cfg):
 
 
 def test_unported_streaming_modes_raise():
-    """Mixed IAM exponents, the culling layouts of tracer_tpu's mesh
-    builds and float64 traces raise naming their ROADMAP items; K2's
-    refr_split needs ref_index (ValueError, as tracer_tpu asserts); a
-    cullable scene traces culled, with aureole parking too, an
-    energy-splitting scene on the general path, single-ray refraction,
-    the spec's HG medium and the stage (d) kinds on the plain
-    megakernel."""
+    """The culling layouts of tracer_tpu's mesh builds and float64 traces
+    raise naming their ROADMAP items; K2's refr_split needs ref_index
+    (ValueError, as tracer_tpu asserts); mixed IAM exponents trace on the
+    general path's unfused bounce, closing to 1e-5; a cullable scene
+    traces culled, with aureole parking too, an energy-splitting scene on
+    the general path, single-ray refraction, the spec's HG medium and the
+    stage (d) kinds on the plain megakernel."""
     table, meta, source_fn = bench_scene(2, SLAB, "cpu")
     G, M = ptt.geometry, ptt.materials
 
@@ -322,8 +322,10 @@ def test_unported_streaming_modes_raise():
         ptt.Surface(G.round_plate(0.5), M.iam(M.reflective(0.1), 1.0, c=c),
                     location=[0.0, 0.0, c]) for c in (1.0, 2.0)])]),
         device="cpu")[0]
-    with pytest.raises(NotImplementedError, match="A10"):
-        trace_streaming(mixed, source_fn, torch.Generator(), TOTAL)
+    acc, emitted, se = trace_streaming(mixed, source_fn, torch.Generator(),
+                                       SLAB, max_rounds=8, max_path=4)
+    assert int(emitted) == SLAB
+    assert abs(energy_closure(acc, se)) < 1e-5
     # config 2's dish and Lambertian absorber are cullable ...
     culling = build_block_culling(table, meta, source_fn.pallas_spec, SLAB)
     acc, emitted, _ = trace_streaming(table, source_fn, torch.Generator(),

@@ -270,9 +270,11 @@ def test_trace_fused_matches_jax(precision):
 
 
 def test_generator_and_unported_options():
-    """ray_tracer's accel, float64 on a missing device and unported optics
-    raise; a None generator is one seeded with 0 (no randomness is drawn
-    on the MiniDish, so the result does not depend on it)."""
+    """ray_tracer's accel raises (ROADMAP A10); a None generator is one
+    seeded with 0 (no randomness is drawn on the MiniDish, so the result
+    does not depend on it); a Lambertian plate, refused before the shade
+    had its other kinds, now absorbs its share of each ray and scatters
+    the rest back up."""
     _, _, pa, pe, pr = _runs("f64")
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         pe.ray_tracer(pr.source, accel=True)
@@ -283,8 +285,14 @@ def test_generator_and_unported_options():
     G, M, sc = ptt.geometry, ptt.materials, ptt.scene
     lam = sc.Assembly([sc.AssembledObject([sc.Surface(
         G.rect_plate(1.0, 1.0), M.lambertian(0.5))])])
-    eng = TracerEngine(lam, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        eng.ray_tracer(ptt.RayBundle.create(torch.zeros((2, 3)),
-                                            torch.ones((2, 3)),
-                                            device="cpu"))
+    eng = TracerEngine(lam, dtype=torch.float64, device="cpu")
+    res = eng.ray_tracer(ptt.RayBundle.create(
+        torch.tensor([[0.1, 0.2, 1.0], [-0.3, 0.1, 2.0]]),
+        torch.tensor([[0.0, 0.0, -1.0], [0.3, 0.0, -1.0]]) / torch.tensor(
+            [[1.0], [1.09 ** 0.5]]), dtype=torch.float64, device="cpu"))
+    bal = res.energy_balance()
+    assert bal["absorbed"] == pytest.approx(1.0, rel=1e-12)
+    assert bal["escaped"] == pytest.approx(1.0, rel=1e-12)
+    assert abs(bal["closure"]) < 1e-12
+    out = res.records[0].dir_out
+    assert (out[:, 2] > 0).all()

@@ -24,8 +24,11 @@ refr_split mode and the general streaming path's split stream.
   split stream; at the bench's energy a ray, the second reflections
   that fall below min_energy and are culled;
 * the dispatch: a split scene streams on the general path even with a
-  spec; with volumetric media, with dispersion, and through the
-  host-stepped ray_tracer it raises naming ROADMAP A9.
+  spec, on K2's refr_split where it fuses; with volumetric media or
+  dispersion on K3 and the shade's split mode (the splitting sheet
+  within 3 sigma of tracer_tpu's trace_streaming), and the host-stepped
+  ray_tracer splits the lens (tests/test_torch_unfused_traces.py holds
+  its splitter against tracer_tpu's).
 
 The CUDA kernel runs only on a GPU: tests/test_torch_gpu.py and
 tests/test_torch_emulated.py hold it against the same plain version.
@@ -489,29 +492,60 @@ def test_split_scene_with_spec_takes_the_general_path(monkeypatch):
 
 
 def test_split_refusals_name_a9():
-    """Splitting scenes the fused branch cannot take raise naming ROADMAP
-    A9 (tracer_tpu sends them to its jnp shade): with volumetric media
-    (a scattering sheet), with dispersive interfaces, and the host-stepped
-    ray_tracer on the split lens (its splitter needs the unfused shade's
-    refractive kind)."""
-    G, M = ptt.geometry, ptt.materials
+    """Splitting scenes that K2 does not take, refused before the shade
+    had its split mode, now trace: with volumetric media (a scattering
+    sheet behind the splitting face) and with dispersive interfaces, on
+    both sources, on the general path's unfused bounce (K3 and the shade,
+    never K2's fused branch); every closure below 1e-5. The scattering
+    sheet's fractions lie within 3 combined binomial sigma of tracer_tpu's
+    trace_streaming. The host-stepped ray_tracer splits the lens."""
     _, _, source_fn = bench_scene(6, SLAB, "cpu")
 
-    def scene(*optics):
-        return ptt.compile_scene(ptt.Assembly([ptt.AssembledObject([
-            ptt.Surface(G.round_plate(0.5), o, location=[0, 0, -i])
-            for i, o in enumerate(optics)])]), device="cpu")[0]
-    split = M.refractive_homogenous(1.0, 1.5, single_ray=False)
-    volumetric = scene(split, M.scattering_interface(0.3))
-    dispersive = scene(M.refractive_material(
-        1.0, ([4e-7, 7e-7], [1.6, 1.4]), single_ray=False))
+    def build(pkg, *optics):
+        return pkg.Assembly([pkg.AssembledObject([
+            pkg.Surface(pkg.geometry.round_plate(0.5), o, location=[0, 0, -i])
+            for i, o in enumerate(optics)])])
+
+    def volumetric_optics(pkg):
+        M_ = pkg.materials
+        return (M_.refractive_homogenous(1.0, 1.5, single_ray=False),
+                M_.scattering_interface(0.3, att_inside=0.2),
+                M_.lambertian(0.6))
+    M = ptt.materials
+    volumetric = ptt.compile_scene(build(ptt, *volumetric_optics(ptt)),
+                                   device="cpu")[0]
+    dispersive = ptt.compile_scene(build(ptt, M.refractive_material(
+        1.0, ([4e-7, 7e-7], [1.6, 1.4]), single_ray=False)),
+        device="cpu")[0]
     assert {"split", "volumetric"} <= set(volumetric.features)
     assert {"split", "dispersive"} <= set(dispersive.features)
+    assert not engine._fused_ok(volumetric, split_mode=True)
+    assert not engine._fused_ok(dispersive, split_mode=True)
     for table in (volumetric, dispersive):
         for src in (source_fn, without_spec(source_fn)):
-            with pytest.raises(NotImplementedError, match="A9"):
-                trace_streaming(table, src, torch.Generator(), TOTAL)
+            acc, em, se = trace_streaming(table, src,
+                                          torch.Generator().manual_seed(1),
+                                          TOTAL, max_rounds=80, max_path=20)
+            assert int(em) == TOTAL
+            assert abs(energy_closure(acc, se)) < 1e-5
+            if table is volumetric and src is source_fn:
+                p = acc.absorbed.double().numpy() / float(se)
+                p = np.append(p, float(acc.medium) / float(se))
+    jt, _ = tracer_tpu.compile_scene(
+        build(tracer_tpu, *volumetric_optics(tracer_tpu)),
+        dtype=jnp.float32)
+    ja, jem, jse = jax_engine.trace_streaming(
+        jt, jax_source(SLAB, LENS_BEAM), jax.random.PRNGKey(2),
+        total_rays=TOTAL, max_rounds=80, max_path=20)
+    q = np.append(np.asarray(ja.absorbed, np.float64),
+                  float(ja.medium)) / float(jse)
+    sig = np.sqrt(np.maximum(q * (1 - q), 1e-12)
+                  * (1 / TOTAL + 1 / int(jem)))
+    assert (np.abs(p - q) <= 3 * sig).all(), (p, q, sig)
+    assert p[-1] > 0.005 and p[2] > 0.1
     eng = TracerEngine(split_lens(ptt)[0], device="cpu")
     assert "split" in eng.scene.features
-    with pytest.raises(NotImplementedError, match="A9"):
-        eng.ray_tracer(_disk(ptt, 64, *LENS_BEAM, torch.Generator()))
+    res = eng.ray_tracer(_disk(ptt, 64, *LENS_BEAM, torch.Generator()))
+    assert res.final.num_rays > 64
+    assert abs(res.energy_balance()["closure"]) < 1e-5 * float(
+        res.source.total_energy())

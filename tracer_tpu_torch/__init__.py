@@ -1,16 +1,18 @@
 """tracer_tpu_torch: the PyTorch / CUDA port of tracer_tpu.
 
-Three slices run end to end:
+The slices that run end to end:
 
 * the NSTTF heliostat-field trace: scene build (scene, models.nsttf),
   per-tile relevancy culling (culling), the culled streaming trace
   (engine.trace_streaming) on two hand-written CUDA kernels for Hopper
   (kernels/csrc/bounce.cu), and the receiver flux map
   (analysis.device_fluxmap);
-* the TAU MiniDish (models.tau_minidish) through the host-stepped
-  engine.TracerEngine.ray_tracer, with per-bounce records, and
-  engine.trace_fused, on the nearest-hit kernel (kernels/csrc/nearest.cu)
-  and the shade pass (kernels/shade.py);
+* the TAU MiniDish (models.tau_minidish), and any scene of any optics
+  kind, through the host-stepped engine.TracerEngine.ray_tracer, with
+  per-bounce records and energy splitting that grows the bundle, and
+  engine.trace_fused, on the nearest-hit kernel (kernels/csrc/nearest.cu),
+  the volumetric media step and the shade pass (kernels/shade.py); the
+  host flux map over the records (analysis.fluxmap);
 * bench configurations 1-3 (the MiniDish, a slope-error dish over a
   Lambertian absorber, a spectral mirror in an attenuating medium)
   through the plain streaming megakernel, engine.trace_streaming without

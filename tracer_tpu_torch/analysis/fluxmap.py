@@ -1,10 +1,20 @@
-"""Flux-map binning per geometry kind: the uniform bin edges and exact
-cell areas that the device flux map needs (the PyTorch port's copy of
-tracer_tpu/analysis/fluxmap.py:40-200; the host flux map over trace
-records is not ported yet)."""
+"""Flux maps per geometry kind (the PyTorch port's NumPy copy of
+tracer_tpu/analysis/fluxmap.py): each kind projects local hit points to
+(u, v) (``uv_project``), bins them on uniform edges (``edges_of``) and
+divides by exact cell areas (``areas_of``). The device flux map
+(device_fluxmap.py) takes the edges and areas; :func:`fluxmap` and
+:func:`surface_fluxmap` bin a trace's records on the host.
+
+The paraboloid's cell areas include the 1 / (12 a^2) factor of the exact
+integral, as tracer_tpu's do (the reference omits it)."""
 from __future__ import annotations
 
 import numpy as np
+
+
+def _polar_angles(x, y):
+    a = np.arctan2(y, x)
+    return np.where(a < 0.0, a + 2.0 * np.pi, a)
 
 
 # kinds binned directly in local cartesian (x, y)
@@ -15,6 +25,21 @@ _POLAR = ("round", "cut_round", "parabolic_dish")
 _AXIAL = ("finite_cylinder", "rect_cut_cylinder", "conical_frustum")
 # kinds binned in spherical (theta, phi); need R for the z -> theta map
 _SPHERICAL = ("sphere", "hemisphere", "spherical_rect_facet")
+
+
+def uv_project(kind: str, extent: dict, local):
+    """The kind's 2-D binning coordinates of local hit points (n, 3)."""
+    x, y, z = local[:, 0], local[:, 1], local[:, 2]
+    if kind in _CARTESIAN:
+        return x, y
+    if kind in _POLAR:
+        return np.hypot(x, y), _polar_angles(x, y)
+    if kind in _AXIAL:
+        return z, _polar_angles(x, y)
+    if kind in _SPHERICAL:
+        return (np.arccos(np.clip(z / extent["R"], -1.0, 1.0)),
+                _polar_angles(x, y))
+    raise NotImplementedError(f"no fluxmap for geometry kind {kind}")
 
 
 def edges_of(kind: str, extent: dict, resolution: int):
@@ -151,3 +176,36 @@ def _cell_fraction_outside(ue, ve, keep_fn, nsub: int = 8) -> np.ndarray:
     Vb = np.broadcast_to(V, (len(uu), len(vv), nsub, nsub))
     keep = keep_fn(Ub, Vb)
     return keep.mean(axis=(2, 3))
+
+
+def supported_kinds() -> tuple:
+    return _CARTESIAN + _POLAR + _AXIAL + _SPHERICAL
+
+
+def fluxmap(geom, eners, local, resolution: int = 40):
+    """Flux map on a surface's natural mesh: ``geom`` the surface's
+    Geometry (its kind and extent), ``eners`` (n,) absorbed energy per
+    hit, ``local`` (n, 3) local hit points. Returns (flux (nu, nv), (u
+    edges, v edges))."""
+    eners = np.asarray(eners, dtype=float)
+    local = np.atleast_2d(np.asarray(local, dtype=float))
+    if local.size == 0:
+        local = np.zeros((0, 3))
+    kind, extent = geom.kind, geom.extent
+    u, v = uv_project(kind, extent, local)
+    ue, ve = edges_of(kind, extent, resolution)
+    hist = np.histogram2d(u, v, bins=[ue, ve], weights=eners)[0]
+    areas = areas_of(kind, extent, resolution)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        flux = np.where(areas > 0, hist / np.maximum(areas, 1e-300), 0.0)
+    return flux, (ue, ve)
+
+
+def surface_fluxmap(result, surface, resolution: int = 40):
+    """Flux map of the energy absorbed on a logical surface (index or
+    name) of an engine.TraceResult, from its records."""
+    sidx = (result.meta.index_of(surface) if isinstance(surface, str)
+            else surface)
+    hits = result.hits_of(sidx)
+    return fluxmap(result.meta.surfaces[sidx].geometries[0],
+                   hits["absorbed"], hits["local"], resolution)

@@ -70,8 +70,22 @@ class RayBundle:
     def replace(self, **changes) -> "RayBundle":
         return dataclasses.replace(self, **changes)
 
+    def concat(self, other: "RayBundle") -> "RayBundle":
+        """The two bundles' rays, ``self``'s first, along the ray axis."""
+        return concatenate_rays([self, other])
+
 
 FIELDS = tuple(f.name for f in dataclasses.fields(RayBundle))
+
+
+def concatenate_rays(bundles) -> RayBundle:
+    """Concatenate a sequence of bundles along the ray axis
+    (tracer_tpu/bundle.py:168)."""
+    bundles = list(bundles)
+    if not bundles:
+        raise ValueError("no bundles to concatenate")
+    return RayBundle(**{f: torch.cat([getattr(b, f) for b in bundles])
+                        for f in FIELDS})
 
 
 def bundle_from_jax(numpy_fields: dict, device=None,

@@ -21,19 +21,21 @@
     the scene's refractive rows need them; the emission loop stops once
     ``total_rays`` are emitted and a compacted tail drains the survivors;
   - for any other source, and for scenes with energy-splitting
-    interfaces, the general path: every round the source draws a slab
-    whose rays refill the free lanes, around one fused K2 bounce
-    (_bounce_step's fused branch); in a splitting scene each lane's
-    reflected branch waits in its overflow slot until the lane is free.
+    interfaces or mixed IAM exponents, the general path: every round the
+    source draws a slab whose rays refill the free lanes, around one
+    bounce (_bounce_step: K2's fused branch where the scene allows it,
+    else K3 and the shade); in a splitting scene each lane's reflected
+    branch waits in its overflow slot until the lane is free.
 * :meth:`TracerEngine.ray_tracer` -- the host-stepped bounce loop with
-  per-bounce records, stopping when the bundle dies.
+  per-bounce records, stopping when the bundle dies; in a splitting scene
+  the reflected branches join the bundle as new rays.
 * :func:`trace_fused` -- the same bounce without records, accumulators and
   device flux maps only.
 
 Both bundle traces run :func:`_bounce_step`: nearest hit (K3 for float32,
-the float64 oracle on CPU tensors), shade, account; the general streaming
-path runs its fused K2 branch. Every loop runs on the host and reads one
-value from the device per bounce or round.
+the float64 oracle on CPU tensors), free paths in volumetric media, shade,
+account. Every loop runs on the host and reads one value from the device
+per bounce or round.
 """
 from __future__ import annotations
 
@@ -48,14 +50,16 @@ import torch
 
 from . import materials as _M
 from .analysis import device_fluxmap as _dfm
-from .bundle import RayBundle
+from .bundle import RayBundle, concatenate_rays
 from .device import resolve
 from .kernels.bounce import (MAX_STAGE_FLOATS, POSE_FLOATS, TILE,
                              bounce_reflect, bounce_reflect_culled,
                              media_flags, pack_rows, row_width,
                              source_pose)
 from .kernels.intersect import nearest_hit_aux
-from .kernels.shade import check_supported, shade
+from .kernels.shade import shade
+from .mathutils import rotate_to_normal, safe_sqrt
+from .optics import sample_scattering
 from .scene import Assembly, SceneMeta, SceneTable, compile_scene
 
 log = logging.getLogger("tracer_tpu_torch")
@@ -471,8 +475,6 @@ _FUSED_KINDS = _K2_KINDS - {_M.K_REFLECT_SPECTRAL, _M.K_REFRACTIVE}
 # whose scattered rays culling parks
 _CULLED_KINDS = {_M.K_REFLECT, _M.K_LAMBERTIAN, _M.K_REFLECT_SPECTRAL,
                  _M.K_FRESNEL_CONDUCTOR}
-# scene features no streaming path of the port serves yet
-_FEATURES_LATER = {"iam_nonmirror": "A10"}
 
 
 def _iam_mode(scene):
@@ -664,10 +666,9 @@ def trace_streaming(scene: SceneTable, source_fn, generator: torch.Generator,
       overflow slot per lane.
 
     Bifacial rows reject rays that reach their back (backside_miss) on
-    every path. Mixed IAM exponents raise NotImplementedError naming their
-    ROADMAP item, and so does the general path for scenes its unfused
-    bounce does not shade yet (a splitting scene with volumetric media or
-    dispersive interfaces, A9)."""
+    every path. Mixed IAM exponents (K2 takes one) and splitting scenes
+    with volumetric media or dispersive interfaces take the general path's
+    unfused bounce, K3 and the shade."""
     spec = getattr(source_fn, "pallas_spec", None)
     spec, source_fn = _apply_scene_ambient(scene, spec, source_fn)
     if scene.frame.dtype != torch.float32:
@@ -676,11 +677,6 @@ def trace_streaming(scene: SceneTable, source_fn, generator: torch.Generator,
     n = source_fn.num_rays
     kinds = set(scene.kinds_present)
     features = set(scene.features)
-    later = sorted(features & set(_FEATURES_LATER))
-    if later:
-        raise NotImplementedError(
-            f"scene feature {later[0]!r} in the streaming paths is not "
-            f"ported yet (ROADMAP {_FEATURES_LATER[later[0]]})")
     te = 3e-4 if t_eps is None else t_eps   # float32 default_t_eps
     common = dict(max_rounds=max_rounds, max_path=max_path,
                   min_energy=min_energy, t_eps=te, bivar=_bivar_mode(scene),
@@ -705,7 +701,8 @@ def trace_streaming(scene: SceneTable, source_fn, generator: torch.Generator,
               or ((att > 0.0 or scat > 0.0) and "dispersive" not in features))
     if (spec is not None and kinds <= _K2_KINDS
             and (band is not None or not spectral) and vol_ok
-            and "split" not in features and _k2_fits(scene, media)):
+            and "split" not in features and "iam_nonmirror" not in features
+            and _k2_fits(scene, media)):
         spec_c, frame = _spec_frame_split(spec)
         return _trace_streaming_megakernel(
             scene, spec_c, torch.as_tensor(frame, device=scene.device),
@@ -819,15 +816,16 @@ def _trace_streaming_general(scene: SceneTable, source_fn,
     host loop whose rounds refill a prefix of the free lanes, up to the
     emission budget, from a fresh slab of ``source_fn``, run one
     _bounce_step (K2's fused branch where _fused_ok allows it; otherwise
-    nearest hit and shade, which refuse what they do not port) with the
-    flux maps, and cull rays past ``max_path``. The slab is drawn on the
-    scene's device from a generator seeded by ``generator``, which also
-    draws the bounces' seeds.
+    K3, the media and the shade) with the flux maps, and cull rays past
+    ``max_path``. The slab is drawn on the scene's device from a
+    generator seeded by ``generator``, which also draws the bounces'
+    seeds.
 
     A scene with energy-splitting interfaces streams with true splitting:
-    every bounce runs K2's refr_split mode, so a lane that splits carries
-    on refracted and its reflected branch parks in the lane's overflow
-    slot (_merge_split). Each round first places every parked branch into
+    every bounce runs K2's refr_split mode, or the shade's split_mode
+    where the scene does not fuse, so a lane that splits carries on
+    refracted and its reflected branch parks in the lane's overflow slot
+    (_merge_split). Each round first places every parked branch into
     its own lane if that lane is free (_place_overflow), before fresh
     source rays refill the rest, so the population never grows. Branches
     past ``max_path`` are culled with their energy accounted.
@@ -837,8 +835,6 @@ def _trace_streaming_general(scene: SceneTable, source_fn,
     residual, so the closure is exact. Returns (accum, emitted, source
     energy)."""
     split = "split" in scene.features
-    if not _fused_ok(scene, split_mode=split):
-        check_supported(scene)
     dev = scene.device
     n = source_fn.num_rays
     src_gen = torch.Generator(device=dev).manual_seed(_seed(generator))
@@ -1016,9 +1012,13 @@ class BounceRecord:
         return dataclasses.replace(self, **changes)
 
     def to(self, device) -> "BounceRecord":
+        def move(v):
+            return (tuple(a.to(device) for a in v) if isinstance(v, tuple)
+                    else v.to(device))
         return self.replace(**{
-            f.name: v.to(device) for f in dataclasses.fields(self)
-            for v in (getattr(self, f.name),) if torch.is_tensor(v)})
+            f.name: move(v) for f in dataclasses.fields(self)
+            for v in (getattr(self, f.name),)
+            if torch.is_tensor(v) or isinstance(v, tuple)})
 
 
 @dataclasses.dataclass
@@ -1034,8 +1034,7 @@ class TraceOptions:
     record: object = True
 
 
-def _refuse_unported(scene, bundle: RayBundle) -> None:
-    check_supported(scene)
+def _check_device(scene, bundle: RayBundle) -> None:
     if bundle.pos.device != scene.device:
         raise ValueError(f"the bundle is on {bundle.pos.device}, the scene "
                          f"on {scene.device}")
@@ -1121,25 +1120,68 @@ def _bounce_step_fused(scene: SceneTable, bundle: RayBundle,
     return new_bundle, accum, rec
 
 
+def _media_step(bundle: RayBundle, alive, sid, t, accum: TraceAccum,
+                generator: torch.Generator):
+    """The volumetric part of a bounce (tracer_tpu/engine.py:403-446):
+    an exponential free path from each lane's scattering coefficient; the
+    lanes whose path ends before their surface hit scatter there instead
+    (sid -1); every live lane is Beer-Lambert attenuated over the distance
+    it travels, the loss added to ``accum.medium`` (in place). Returns
+    (attenuated bundle, sid, scattered mask, scattering points, their
+    Henyey-Greenstein directions about the travel direction)."""
+    t_hit = torch.where(sid >= 0, t, math.inf)
+    hits_first, free_path = sample_scattering(generator, bundle.scat_coeff,
+                                              t_hit)
+    scattered = alive & hits_first
+    sid = torch.where(scattered, -1, sid)
+    travel = torch.minimum(free_path, t_hit)
+    att_ok = torch.isfinite(travel) & (bundle.att_coeff > 0.0)
+    trans = torch.exp(-bundle.att_coeff * torch.where(att_ok, travel, 0.0))
+    energy = torch.where(alive & att_ok, bundle.energy * trans,
+                         bundle.energy)
+    accum.medium += torch.where(alive, bundle.energy - energy, 0.0).sum()
+    g = bundle.scat_g
+
+    def uniform():
+        return torch.rand(g.shape, generator=generator, dtype=g.dtype,
+                          device=generator.device).to(g.device)
+    # Henyey-Greenstein polar cosine; |g| < 1e-9 scatters isotropically
+    u = uniform() * 2.0 - 1.0
+    iso = g.abs() < 1e-9
+    g2 = g * g
+    hg = (1.0 + g2 - ((1.0 - g2) / (1.0 + g * u)) ** 2) / (
+        2.0 * torch.where(iso, 1.0, g))
+    cos_th = torch.where(iso, u, hg).clamp(-1.0, 1.0)
+    sin_th = safe_sqrt(1.0 - cos_th ** 2)
+    phi = uniform() * (2.0 * math.pi)
+    d_scat = rotate_to_normal(torch.stack([sin_th * torch.cos(phi),
+                                           sin_th * torch.sin(phi), cos_th],
+                                          dim=1), bundle.dir)
+    p_scat = bundle.pos + torch.where(scattered, free_path,
+                                      0.0)[:, None] * bundle.dir
+    return bundle.replace(energy=energy), sid, scattered, p_scat, d_scat
+
+
 def _bounce_step(scene: SceneTable, bundle: RayBundle, accum: TraceAccum,
                  generator: torch.Generator, min_energy: float, t_eps,
                  disc_eps: float, block: int, count_hits: bool = True,
                  need_local: bool = True, split_mode: bool = False,
                  cand=None, force_jnp: bool = False, spectral_alpha=None):
-    """One bounce: nearest hit, shade, account (``accum`` in place).
-    Returns (bundle', accum, record). Without ``need_local`` a scene that
-    passes _fused_ok takes the fused K2 branch (_bounce_step_fused): on
-    CUDA tensors the kernel, on CPU tensors its plain version, where
-    tracer_tpu's CPU backend takes its jnp path; ray_tracer and
-    trace_fused keep need_local. ``split_mode`` lets a scene with
-    energy-splitting interfaces fuse, and its record's ``split`` carries
-    the reflected branches. The unfused shade ports K_REFLECT rows only:
-    volumetric media, energy splitting there (the host-stepped splitter),
-    polychromatic spectra and Kd candidates are not ported (ROADMAP A9,
-    A10) and raise."""
+    """One bounce: nearest hit, the media (_media_step, in a volumetric
+    scene), shade, account (``accum`` in place). Returns (bundle', accum,
+    record). Without ``need_local`` a scene that passes _fused_ok takes
+    the fused K2 branch (_bounce_step_fused): on CUDA tensors the kernel,
+    on CPU tensors its plain version, where tracer_tpu's CPU backend takes
+    its jnp path; ray_tracer and trace_fused keep need_local, and every
+    other scene takes K3 and the shade. ``split_mode`` splits the
+    energy-splitting interfaces (K2's refr_split or the shade's split
+    mode): the record's ``split`` carries the reflected branches; without
+    it they roulette. A lane that scattered in its medium lives on at the
+    event point (sid -1). Polychromatic spectra and Kd candidates are not
+    ported (ROADMAP A10) and raise."""
     if cand is not None or spectral_alpha is not None:
         raise NotImplementedError("Kd candidates and polychromatic spectra "
-                                  "are not ported yet (ROADMAP A9/A10)")
+                                  "are not ported yet (ROADMAP A10)")
     if not need_local and not force_jnp and _fused_ok(scene, split_mode):
         return _bounce_step_fused(scene, bundle, accum, generator,
                                   min_energy, t_eps, disc_eps, count_hits,
@@ -1150,12 +1192,18 @@ def _bounce_step(scene: SceneTable, bundle: RayBundle, accum: TraceAccum,
                                   block=block, need_local=need_local,
                                   force_jnp=force_jnp)
     sid = torch.where(alive, sid, -1)
+    volumetric = "volumetric" in scene.features
+    if volumetric:
+        bundle, sid, scattered, p_scat, d_scat = _media_step(
+            bundle, alive, sid, t, accum, generator)
     hit = sid >= 0
     escaped = alive & ~hit
+    if volumetric:
+        escaped = escaped & ~scattered
     res = shade(scene, sid, t, bundle.pos, bundle.dir, bundle.energy,
                 bundle.wavelength, bundle.ref_index, generator,
                 medium=(bundle.att_coeff, bundle.scat_coeff, bundle.scat_g),
-                aux=aux)
+                aux=aux, split_mode=split_mode)
     e_in = torch.where(hit, bundle.energy, 0.0)
     e_out = torch.where(hit, res.out_energy, 0.0)
     absorbed_ray = torch.where(hit, res.absorbed, 0.0)
@@ -1174,12 +1222,52 @@ def _bounce_step(scene: SceneTable, bundle: RayBundle, accum: TraceAccum,
         scat_coeff=torch.where(hit, out_scat, bundle.scat_coeff),
         scat_g=torch.where(hit, out_g, bundle.scat_g),
         alive=alive_next)
+    if volumetric:
+        # scattered lanes move to the event point along their HG
+        # direction and stay alive with their attenuated energy
+        s3 = scattered[:, None]
+        new_bundle = new_bundle.replace(
+            pos=torch.where(s3, p_scat, new_bundle.pos),
+            dir=torch.where(s3, d_scat, new_bundle.dir),
+            energy=torch.where(scattered, bundle.energy, new_bundle.energy),
+            alive=new_bundle.alive | scattered)
+    rec_split = None
+    if res.split is not None:
+        s_rows, s_e, s_dir = res.split
+        s_mask = hit & s_rows
+        rec_split = (s_mask, torch.where(s_mask, s_e, 0.0), s_dir)
     rec = BounceRecord(
         sid=sid, t=t, hit=res.out_pos, local=res.local_pt,
         dir_in=bundle.dir, dir_out=res.out_dir, e_in=e_in, e_out=e_out,
         absorbed=absorbed_ray, backside=res.backside & hit, alive_in=alive,
-        wavelength=bundle.wavelength, normal=res.normal)
+        wavelength=bundle.wavelength, normal=res.normal, split=rec_split)
     return new_bundle, accum, rec
+
+
+def _append_split_rays(bundle: RayBundle, prev: RayBundle,
+                       rec: BounceRecord, accum: TraceAccum,
+                       min_energy: float) -> RayBundle:
+    """Append the reflected branches of the bounce's energy-splitting
+    interfaces (``rec.split``) to the bundle as new rays
+    (tracer_tpu/engine.py:811), on the bundle's device: each starts at its
+    hit point along the reflected direction, in the incidence medium
+    (``prev``, the bundle before the bounce), with ``parent`` its
+    originating slot. Branches of at most ``min_energy`` are culled with
+    their energy added to ``accum.culled`` (in place)."""
+    mask, sec_e, sec_dir = rec.split
+    keep = mask & (sec_e > min_energy)
+    accum.culled += torch.where(mask & ~keep, sec_e, 0.0).sum()
+    idx = torch.nonzero(keep).flatten()
+    if not idx.numel():
+        return bundle
+    sec = RayBundle(
+        pos=rec.hit[idx], dir=sec_dir[idx], energy=sec_e[idx],
+        wavelength=prev.wavelength[idx], ref_index=prev.ref_index[idx],
+        att_coeff=prev.att_coeff[idx], scat_coeff=prev.scat_coeff[idx],
+        scat_g=prev.scat_g[idx],
+        alive=torch.ones(idx.shape, dtype=torch.bool, device=idx.device),
+        parent=idx.to(torch.int32))
+    return concatenate_rays([bundle, sec])
 
 
 def _np(x) -> np.ndarray:
@@ -1252,10 +1340,14 @@ class TraceResult:
 
     def ray_history(self, slot: int) -> list:
         """One ray slot through the bounces: the full path with full
-        records, only its recorded hits with record="tags"."""
+        records, only its recorded hits with record="tags". A slot that a
+        splitting interface appended starts at the bounce after its
+        split."""
         hist = []
         for b, rec in enumerate(self.records):
             alive = _np(rec.alive_in)
+            if rec.slot is None and slot >= len(alive):
+                continue
             if rec.slot is not None:
                 pos = [p for p in np.nonzero(_np(rec.slot) == slot)[0]
                        if alive[p]]
@@ -1330,14 +1422,17 @@ class TracerEngine:
                    accel=None) -> TraceResult:
         """Host-stepped trace with per-bounce records; stops when the
         bundle dies. ``generator`` (on the scene's device) draws the
-        shading randomness; None means one seeded with 0. ``accel`` (the
-        Kd-tree candidate mode) is not ported yet (ROADMAP A10)."""
+        shading randomness; None means one seeded with 0. In a scene with
+        energy-splitting interfaces every bounce splits them, and the
+        reflected branches join the bundle as new rays
+        (_append_split_rays), so the bundle grows. ``accel`` (the Kd-tree
+        candidate mode) is not ported yet (ROADMAP A10)."""
         if accel:
             raise NotImplementedError("accel (Kd-tree candidates) is not "
                                       "ported yet (ROADMAP A10)")
         scene = self.scene
         bundle = _ambient_bundle(scene, bundle)
-        _refuse_unported(scene, bundle)
+        _check_device(scene, bundle)
         opts = opts or TraceOptions(max_bounces=reps, min_energy=min_energy)
         generator = _generator_for(scene, generator)
         accum = TraceAccum.zeros(scene.num_rows, dtype=bundle.pos.dtype,
@@ -1352,11 +1447,17 @@ class TracerEngine:
                       if self.meta.surfaces[int(lid)].optics.record]
             recording_rows = torch.tensor(tagged, dtype=torch.int32,
                                           device=scene.device)
+        use_split = "split" in scene.features
         for b in range(opts.max_bounces):
+            prev = bundle
             bundle, accum, rec = _bounce_step(
                 scene, bundle, accum, generator,
                 min_energy=opts.min_energy, t_eps=opts.t_eps,
-                disc_eps=opts.disc_eps, block=opts.block)
+                disc_eps=opts.disc_eps, block=opts.block,
+                split_mode=use_split)
+            if rec.split is not None:
+                bundle = _append_split_rays(bundle, prev, rec, accum,
+                                            opts.min_energy)
             if recording_rows is not None:
                 if len(recording_rows):
                     mask = torch.isin(rec.sid, recording_rows)
@@ -1390,9 +1491,11 @@ def trace_fused(scene: SceneTable, bundle: RayBundle,
     histograms of ``fluxspecs`` (device_fluxmap.FluxSpec tuple) in
     ``accum.flux``. A host loop of :func:`_bounce_step` that reads one
     flag from the device per bounce (tracer_tpu runs the same loop as one
-    jitted while_loop). Returns (final bundle, accum)."""
+    jitted while_loop). The bundle keeps its size, so energy-splitting
+    interfaces roulette here (unbiased, as tracer_tpu's); ray_tracer
+    splits them. Returns (final bundle, accum)."""
     bundle = _ambient_bundle(scene, bundle)
-    _refuse_unported(scene, bundle)
+    _check_device(scene, bundle)
     generator = _generator_for(scene, generator)
     accum = TraceAccum.zeros(scene.num_rows, dtype=bundle.pos.dtype,
                              device=scene.device, fluxspecs=fluxspecs)

@@ -878,9 +878,9 @@ def _check_modes(source_spec, regen, wavelength, spectral_tab, src_frame,
                          "ref_index")
     if refr_split and (media is not None or ambient_scat > 0.0):
         raise NotImplementedError(
-            "energy splitting beside scattering or media ids: splitting "
-            "scenes with volumetric media take the unfused shade (ROADMAP "
-            "A9)")
+            "energy splitting beside scattering or media ids is not K2's: "
+            "the engine sends splitting scenes with volumetric media to "
+            "K3 and the shade (engine._bounce_step)")
     if regen and source_spec is None:
         raise ValueError("regeneration needs a source_spec")
     if regen and src_frame is None and source_spec[0] is None:
@@ -1312,8 +1312,9 @@ def bounce_reflect(rows, seed: int, pos, dirs, energy, groups,
               through two more outputs, s_e (N,) and s_dir (N, 3), zero
               where no live lane split (a lane that scattered first does
               not); other refractive rows keep the roulette. Not beside
-              scattering or media ids (raises: splitting scenes with
-              volumetric media take the unfused shade, ROADMAP A9)
+              scattering or media ids (raises: the engine traces
+              splitting scenes with volumetric media on K3 and the
+              shade)
     backside_miss  rows flagged F_BACKSIDE_MISS (bifacial pairs) reject
               rays arriving along their local +Z, on every class (the jnp
               semantics; tracer_tpu's Pallas kernels skip flat rows)

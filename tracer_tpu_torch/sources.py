@@ -1,8 +1,9 @@
-"""Light sources of the NSTTF, MiniDish and bench traces: the
-Buie-sunshape and pillbox disks and rectangles (the rect ones optionally
-oblique: positions in one frame, directions about another), and their
-static specs for in-kernel regeneration (the PyTorch port of the matching
-parts of tracer_tpu/sources.py).
+"""Light sources (the PyTorch port of tracer_tpu/sources.py less its
+view-factor and emission sources): the Buie-sunshape, pillbox and
+tabulated-sunshape disks and rectangles (the rect ones optionally
+oblique: positions in one frame, directions about another) with their
+static specs for in-kernel regeneration, edge rays, a single ray, a
+regular square grid, and triangle and trapezoid emitters.
 
 Every sampler takes an explicit ``torch.Generator`` and returns a
 :class:`RayBundle` on ``device`` (None means the GPU,
@@ -18,7 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .bundle import RayBundle
+from .bundle import RayBundle, concatenate_rays
 from .device import resolve
 from . import spatial
 
@@ -56,6 +57,59 @@ def lambertian_directions(generator, num_rays: int, ang_range: float,
     sinsqrt = float(np.sin(ang_range)) * torch.sqrt(u)
     return torch.stack([torch.cos(phi) * sinsqrt, torch.sin(phi) * sinsqrt,
                         torch.sqrt(1.0 - sinsqrt ** 2)], dim=1)
+
+
+def pillbox_sunshape_directions(generator, num_rays: int, ang_range: float,
+                                dtype=torch.float32,
+                                device=None) -> torch.Tensor:
+    """Pillbox sunshape: angularly uniform flux, the Lambertian sampler
+    within ``ang_range``."""
+    return lambertian_directions(generator, num_rays, ang_range, dtype,
+                                 device)
+
+
+def edge_rays_directions(generator, num_rays: int, ang_range: float,
+                         dtype=torch.float32, device=None) -> torch.Tensor:
+    """Directions all at exactly ``ang_range`` from +Z, azimuth uniform."""
+    device = resolve(device)
+    phi = _uniform(generator, num_rays, dtype, device, 0.0, 2.0 * np.pi)
+    s = float(np.sin(ang_range))
+    return torch.stack([torch.cos(phi) * s, torch.sin(phi) * s,
+                        torch.full_like(phi, float(np.cos(ang_range)))],
+                       dim=1)
+
+
+def sunshape_to_ray_directions(generator, angles, norm_intensity,
+                               num_rays: int, dtype=torch.float32,
+                               device=None) -> torch.Tensor:
+    """Directions about +Z from a tabulated radiance profile
+    ``norm_intensity`` over polar ``angles``: the polar angle inverts the
+    trapezoid CDF of intensity * cos * sin exactly within each interval
+    (a quadratic root, linear where the weights are equal)."""
+    device = resolve(device)
+    angles = np.asarray(angles, dtype=float)
+    inten = np.asarray(norm_intensity, dtype=float)
+    w = inten * np.cos(angles) * np.sin(angles)
+    integ = 0.5 * (w[:-1] + w[1:]) * np.diff(angles)
+    cdf = np.concatenate([[0.0], np.cumsum(integ / integ.sum())])
+
+    def tab(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    cdf_t, w_t, a_t = tab(cdf), tab(w), tab(angles)
+    r = _uniform(generator, num_rays, dtype, device)
+    i = (torch.searchsorted(cdf_t, r, right=True) - 1).clamp(0, len(cdf) - 2)
+    A, B = w_t[i], w_t[i + 1]
+    t0, t1 = a_t[i], a_t[i + 1]
+    total = float(integ.sum())
+    C = 2.0 * total * (r - cdf_t[i]) * (t1 - t0)
+    root = torch.sqrt((((t0 - t1) * A) ** 2 + C * (B - A)).clamp(min=0.0))
+    th_q = -(-A * t1 + B * t0 + root) / torch.where(A == B, 1.0, A - B)
+    th_lin = t0 + total * (r - cdf_t[i]) / torch.where(A == 0, 1.0, A)
+    thetas = torch.where(A == B, th_lin, th_q)
+    phi = _uniform(generator, num_rays, dtype, device, 0.0, 2.0 * np.pi)
+    s = torch.sin(thetas)
+    return torch.stack([torch.cos(phi) * s, torch.sin(phi) * s,
+                        torch.cos(thetas)], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +284,55 @@ def disk_pillbox_pallas_spec(num_rays: int, center, direction,
     return (float(center[0]), float(center[1]), float(center[2]),
             tuple(float(r) for r in rot), float(radius), e_ray, coeffs,
             1.0, None, 0.0, 0.0, float(ang_range), float(ang_range),
+            band, float(ambient_att), None,
+            (float(ambient_scat), float(ambient_g)))
+
+
+def tabulated_sunshape_pallas_spec(num_rays: int, center, direction,
+                                   radius: float, angles, norm_intensity,
+                                   flux: float, wl_band=None,
+                                   ambient_att: float = 0.0,
+                                   ambient_scat: float = 0.0,
+                                   ambient_g: float = 0.0,
+                                   fit_tol: float = 1e-5) -> tuple:
+    """Static spec of a disk whose directions follow a tabulated radiance
+    profile (the regenerating twin of sunshape_to_ray_directions): the
+    numeric inverse CDF theta(u) of intensity * cos * sin is fitted as
+    sqrt(u) * poly(u), the polynomial slot of the Buie disk branch, so the
+    kernels draw it with no kernel of its own. A profile whose fit misses
+    the exact inverse by more than ``fit_tol`` rad raises: trace it with
+    the host-sampled source on the general path."""
+    angles = np.asarray(angles, dtype=float)
+    inten = np.asarray(norm_intensity, dtype=float)
+    if abs(angles[0]) > 1e-12 or not (np.diff(angles) > 0).all():
+        raise ValueError("angles must start at 0 and increase")
+    if (not np.isfinite(inten).all()) or (inten < 0).any() \
+            or not (inten > 0).any():
+        raise ValueError("norm_intensity must be finite, non-negative "
+                         "and not identically zero")
+    th_d = np.linspace(0.0, angles[-1], 20001)
+    w_d = np.interp(th_d, angles, inten) * np.cos(th_d) * np.sin(th_d)
+    cdf_d = np.concatenate([[0.0], np.cumsum(
+        0.5 * (w_d[:-1] + w_d[1:]) * np.diff(th_d))])
+    cdf_d /= cdf_d[-1]
+    u = np.linspace(1e-9, 1.0, 8193)
+    theta_exact = np.interp(u, cdf_d, th_d)
+    coeffs = tuple(float(c) for c in np.polyfit(
+        u, theta_exact / np.sqrt(u), _BUIE_POLY_DEG))
+    err = np.abs(np.sqrt(u) * np.polyval(coeffs, u) - theta_exact).max()
+    if not err <= fit_tol:       # a NaN error rejects too
+        raise ValueError(
+            f"inverse-CDF polynomial fit error {err:.2e} rad exceeds "
+            f"fit_tol={fit_tol:.0e}; this profile is too sharp for the "
+            "baked sampler: trace it with the host-sampled source")
+    center = _as_row3(center)
+    rot = spatial.rotation_to_z(_as_row3(direction)).reshape(-1)
+    e_ray = float(flux * np.pi * radius ** 2 / num_rays)
+    band = (None if wl_band is None
+            else (float(wl_band[0]), float(wl_band[1])))
+    return (float(center[0]), float(center[1]), float(center[2]),
+            tuple(float(r) for r in rot), float(radius), e_ray, coeffs,
+            1.0, None, 0.0, 0.0, float(angles[-1]), float(angles[-1]),
             band, float(ambient_att), None,
             (float(ambient_scat), float(ambient_g)))
 
@@ -506,3 +609,108 @@ def rect_buie_sunshape(generator, num_rays: int, center, direction,
 
 # The reference examples call this source by its older name.
 solar_disk_bundle = disk_bundle
+
+
+def edge_rays_bundle(generator, num_rays: int, center, direction,
+                     radius: float, ang_range: float,
+                     flux: Optional[float] = None, radius_in: float = 0.0,
+                     dtype=torch.float32, device=None) -> RayBundle:
+    """Disk (or annulus) source whose rays all leave at ``ang_range`` from
+    its normal: the edge of a pillbox cone. Energy per ray flux * pi (R^2
+    - Ri^2) / n with a flux, else 1."""
+    device = resolve(device)
+    center = _as_row3(center)
+    perp_rot = spatial.rotation_to_z(_as_row3(direction))
+    a = edge_rays_directions(generator, num_rays, ang_range, dtype, device)
+    u = _uniform(generator, num_rays, dtype, device)
+    thetas = _uniform(generator, num_rays, dtype, device, 0.0, 2.0 * np.pi)
+    rs = torch.sqrt(radius_in ** 2 + u * (radius ** 2 - radius_in ** 2))
+    verts_local = torch.stack([rs * torch.cos(thetas), rs * torch.sin(thetas),
+                               torch.zeros_like(rs)], dim=1)
+    energy = None
+    if flux is not None:
+        energy = torch.full((num_rays,), float(
+            np.pi * (radius ** 2 - radius_in ** 2) / num_rays * flux),
+            dtype=dtype, device=device)
+    return RayBundle.create(
+        pos=_rotate_rows(perp_rot, verts_local)
+        + torch.as_tensor(center, dtype=dtype, device=device),
+        dir=_rotate_rows(perp_rot, a), energy=energy, device=device)
+
+
+def single_ray_source(position, direction, flux: float = 1.0,
+                      dtype=torch.float32, device=None) -> RayBundle:
+    """One ray of energy ``flux`` (direction normalised)."""
+    d = _as_row3(direction)
+    return RayBundle.create(pos=np.asarray(position, dtype=float).reshape(
+        1, 3), dir=(d / np.linalg.norm(d)).reshape(1, 3),
+        energy=np.array([flux]), dtype=dtype, device=device)
+
+
+def regular_square_bundle(num_rays: int, center, direction, width: float,
+                          dtype=torch.float32, device=None) -> RayBundle:
+    """A square grid of floor(sqrt(num_rays))^2 parallel rays across
+    ``width``, energy 1 / their count each (deterministic)."""
+    center = _as_row3(center)
+    direction = _as_row3(direction)
+    per_side = int(np.sqrt(num_rays))
+    xs = np.linspace(-width / 2, width / 2, per_side)
+    x, y = np.meshgrid(xs, xs)
+    verts_local = np.stack([x.ravel(), y.ravel(), np.zeros(per_side ** 2)],
+                           axis=1)
+    verts = verts_local @ spatial.rotation_to_z(direction).T + center
+    return RayBundle.create(pos=verts, dir=np.tile(direction, (per_side ** 2,
+                                                               1)),
+                            energy=np.ones(per_side ** 2) / per_side ** 2,
+                            dtype=dtype, device=device)
+
+
+def triangular_bundle(generator, num_rays: int, A, B, C, direction=None,
+                      ang_range: float = np.pi / 2,
+                      flux: Optional[float] = None, procs: int = 1,
+                      dtype=torch.float32, device=None) -> RayBundle:
+    """Triangle source by uniform point picking, directions pillbox about
+    the triangle's normal (B - A) x (C - A), or about ``direction``.
+    Energy per ray flux * area / n with a flux, else 1 / n / procs."""
+    device = resolve(device)
+    A, B, C = _as_row3(A), _as_row3(B), _as_row3(C)
+    normal = np.cross(B - A, C - A)
+    area = 0.5 * np.linalg.norm(normal)
+    if direction is None:
+        direction = normal / (2.0 * area)
+    r1 = torch.sqrt(_uniform(generator, num_rays, dtype, device))
+    r2 = _uniform(generator, num_rays, dtype, device)
+
+    def corner(v):
+        return torch.as_tensor(v, dtype=dtype, device=device)[None, :]
+    verts = (corner(A) * (1.0 - r1)[:, None]
+             + (r1 * (1.0 - r2))[:, None] * corner(B)
+             + (r1 * r2)[:, None] * corner(C))
+    a = pillbox_sunshape_directions(generator, num_rays, ang_range, dtype,
+                                    device)
+    e = (flux * area / num_rays if flux is not None
+         else 1.0 / num_rays / procs)
+    return RayBundle.create(
+        pos=verts, dir=_rotate_rows(spatial.rotation_to_z(
+            _as_row3(direction)), a),
+        energy=torch.full((num_rays,), float(e), dtype=dtype, device=device),
+        device=device)
+
+
+def trapezoid_bundle(generator, num_rays: int, A, B, C, direction=None,
+                     ang_range: float = np.pi / 2,
+                     flux: Optional[float] = None, procs: int = 1,
+                     dtype=torch.float32, device=None) -> RayBundle:
+    """Trapezoid source of two triangles: A and B the corners of one
+    parallel side, C the corner beside B on the other, the fourth corner
+    D = C + (A - B). The rays split between the triangles by area."""
+    A, B, C = _as_row3(A), _as_row3(B), _as_row3(C)
+    D = C + (A - B)
+    area_1 = 0.5 * np.linalg.norm(np.cross(B - A, C - A))
+    area_2 = 0.5 * np.linalg.norm(np.cross(C - A, D - A))
+    n1 = int(round(num_rays * area_1 / (area_1 + area_2)))
+    kw = dict(direction=direction, ang_range=ang_range, flux=flux,
+              procs=procs, dtype=dtype, device=device)
+    return concatenate_rays([
+        triangular_bundle(generator, n1, A, B, C, **kw),
+        triangular_bundle(generator, num_rays - n1, A, C, D, **kw)])
