@@ -181,7 +181,29 @@ Phases, each printing its lines:
    phase 11's split stream for the split lens (less the culled shares),
    of trace_fused for the general path, and of a float64 CPU ray_tracer
    on the first 65,536 rays for the mixed exponents; the flux map's
-   cells times their areas summing to the receiver's absorbed energy.
+   cells times their areas summing to the receiver's absorbed energy;
+14. cavities, the Kd accelerator and polychromatic rays: config 5
+   (benchmarks/suite.py:686-740: TwoNParametersCavityRTVF at 100,000
+   rays an element and precision 0.005, every sample's nearest hit on
+   K3, then radiosity_rtvf with the suite's emissivities and
+   temperatures, and radiosity_rtvf_torch on the card against it; the
+   reciprocity error, iterations, escaped share and one fire call's
+   throughput printed, the aperture loss beside the TPU run's 10.21 kW);
+   the Holman cavity (tests/test_thermal.py) at 100,000 rays an element;
+   ray_tracer with and without accel="lightweight" on phase 5's NSTTF
+   scene (262,144 rays of its Buie disk, 8 bounces: the tree's build,
+   candidates a ray, the host traversal and both walls printed); a
+   polychromatic ray_tracer on config 3's scene (its Buie disk as a host
+   bundle of 700,416 rays, a flat spectrum on the silver table's 32
+   wavelengths, record="tags" on its tagged receiver). Guards: row sums
+   within 0.01, the enclosure balance below 3 x precision and the
+   aperture loss within 3% of 10.21 kW (suite.py:719, :732), the Holman
+   view factors within 0.03 of the analytic ones, closures below 1e-4;
+   K3 once a sample and once a bounce, never on the accelerated trace;
+   at most 1e-5 of the NSTTF lanes (plus one) with a flipped sid and each
+   surface within 1e-5 of the source (plus the flipped lanes' energy);
+   the polychromatic shares within 3 combined sigma of phase 7's
+   monochromatic megakernel trace of config 3.
 
 Every kernel's launch count is set to 0 just before a main path runs and
 read just after. The line before the last is the kernels' JSON record;
@@ -648,6 +670,12 @@ def main(argv) -> None:
     l2, l3 = unfused_phase(dev, card, kb, kn, physics, split_stream)
     entry["launches"] += l2
     record["kernels"][2]["launches"] += l3
+
+    # ---- phase 14: config 5 (the cavity view factors and the radiosity
+    # solve), the Holman cavity, the Kd accelerator on the NSTTF and a
+    # polychromatic bundle on config 3
+    record["kernels"][2]["launches"] += cavity_phase(
+        dev, card, kb, kn, physics, (table, meta, info))
     for k in record["kernels"]:
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
     print(json.dumps(record))
@@ -690,11 +718,16 @@ def minidish_sun(n, device, seed=42):
 
 
 def head(bundle, n, device=None, dtype=None):
-    """The first n rays of a bundle, optionally moved / cast."""
+    """The first n rays of a bundle, optionally moved / cast (a
+    polychromatic bundle's grid whole)."""
     from tracer_tpu_torch.bundle import RayBundle
     out = {}
     for k, v in bundle.__dict__.items():
-        v = v[:n]
+        if v is None:
+            out[k] = v
+            continue
+        if k != "spectral_grid":
+            v = v[:n]
         if device is not None:
             v = v.to(device)
         if dtype is not None and v.is_floating_point():
@@ -2246,6 +2279,327 @@ def unfused_phase(dev, card, kb, kn, physics, split_stream):
              ", the reference trace_fused's", rays=total, what="rounds")
     log(f"phase 13: {time.perf_counter() - t13:.1f} s")
     return launches["k2"], launches["k3"]
+
+
+# phase 14's cavities: config 5 (benchmarks/suite.py:692-699) and the
+# Holman cavity (tests/test_thermal.py:24-28) with its analytic view
+# factors
+CONFIG5 = dict(apertureRadius=0.3, frustaRadii=[0.5, 0.5],
+               frustaDepths=[0.4, 0.4], coneDepth=0.3, el_FRUs=[2, 2],
+               el_CON=2)
+HOLMAN = dict(apertureRadius=0.01, frustaRadii=[0.01] * 3,
+              frustaDepths=[0.01] * 3, coneDepth=0.0, el_FRUs=[1, 1, 1],
+              el_CON=1)
+HOLMAN_VF = ((0.0, 0.63, 0.195, 0.075, 0.1),
+             (0.315, 0.37, 0.2175, 0.06, 0.0375),
+             (0.0975, 0.2175, 0.37, 0.2175, 0.0975),
+             (0.0375, 0.06, 0.2175, 0.37, 0.315),
+             (0.1, 0.075, 0.195, 0.63, 0.0))
+VF_RAYS = 100_000             # rays an element a sample (the suite's)
+TPU_APERTURE_LOSS_KW = 10.21  # config 5's aperture loss, the TPU's run
+#                               (BENCHMARKS.md:73), a physics value
+ACCEL_RAYS = 262_144          # the NSTTF rays of the Kd trace
+
+
+def cavity_k3(rt, seed, kn, label, card):
+    """K3 against its plain version on one sample of a cavity's batched
+    fire: every element's rays, which start on the element surfaces where
+    the float32 self-hit guard acts, through the cavity's packed rows with
+    the fire's arguments (tests/test_torch_gpu.k3_compare on t and sid,
+    all the fire reads: sid equal off ties, t within 1e-5 of its scale,
+    at most 1e-5 of the lanes plus one flipped). The winner's normal is
+    printed, not held: near the cone's apex the two float32 solves each
+    land about 1e-5 from a float64 one, and the gradient there moves
+    faster with t than k3_compare's aux tolerance allows. Returns the escaped share of K3's and of the plain
+    version's results (sid -1: in a closed cavity, rays the guard or a
+    seam lost), each (overall, the largest of any element's)."""
+    import torch
+    from test_torch_gpu import k3_compare
+    from tracer_tpu_torch.kernels.bounce import pack_rows
+    from tracer_tpu_torch.kernels.intersect import default_t_eps
+    scene = rt.engine.scene
+    pos, dirs, _ = rt._concat_sources(
+        torch.Generator(device=rt.device).manual_seed(seed))
+    n = pos.shape[0]
+    args = (pack_rows(scene), pos, dirs, scene.groups,
+            default_t_eps(pos.dtype))
+    kw = dict(need_local=False, backside_miss="bifacial" in scene.features)
+    got = kn.nearest_hit(*args, **kw)
+    want = kn.nearest_hit_ref(*args, **kw)
+    ties, flips = k3_compare(got, want, kn.nearest_two_t(
+        *args, backside_miss=kw["backside_miss"]), pos, dirs, rtol=1e-5,
+        max_flips=int(1e-5 * n) + 1, aux=False)
+    hit = (want[1] >= 0) & (got[1] == want[1])
+    t_err = float((got[0] - want[0]).abs()[hit].max())
+    n_err = float((got[2]["normal"] - want[2]["normal"]).abs()[hit].max())
+
+    def shares(sid):
+        lost = (sid < 0).view(rt.n_elements, rt.num_rays).double().mean(1)
+        return float(lost.mean()), float(lost.max())
+    esc, esc_ref = shares(got[1]), shares(want[1])
+    log(f"K3 on {label}'s fire sample: {n} lanes, {scene.num_rows} rows, "
+        f"sid ties {ties}, flips {flips}, max abs err t {t_err:.2e}, "
+        f"normal {n_err:.2e}; "
+        f"escaped share K3 {esc[0]:.2e} (largest element {esc[1]:.2e}), "
+        f"plain {esc_ref[0]:.2e} ({esc_ref[1]:.2e}) ({card})")
+    return esc, esc_ref
+
+
+def cavity_phase(dev, card, kb, kn, physics, nsttf):
+    """Phase 14. (a) Config 5 at the suite's size
+    (TwoNParametersCavityRTVF, 100,000 rays an element, precision 0.005,
+    every sample's nearest hit on K3), then radiosity_rtvf with the
+    suite's emissivities and temperatures, and radiosity_rtvf_torch on the
+    card against it. Guards (suite.py:719, :732): row sums within 0.01,
+    the enclosure balance below 3 x precision, the aperture loss within 3%
+    of the TPU run's 10.21 kW, K3 launched once a sample. Printed: the
+    reciprocity error, iterations, the escaped share, the adaptive wall
+    and the steady throughput of one fire call. (b) The Holman cavity at
+    100,000 rays an element against its analytic view factors (atol
+    0.03). In (a) and (b), K3 against its plain version on one sample of
+    the fire (cavity_k3), with both escaped shares. (c) ray_tracer with
+    accel="lightweight" and without on phase 5's NSTTF scene, 262,144
+    rays of its Buie disk, 8 bounces, one generator seed. Guards: closure below 1e-4 on both, K3 once a bounce
+    without accel and never with it, at most 1e-5 of the lanes (plus one)
+    with a flipped sid, per-surface absorbed equal within 1e-5 of the
+    source plus the flipped lanes' energy. (d) A polychromatic ray_tracer
+    on config 3's scene (its receiver tagged) from its Buie disk as a host
+    bundle of 700,416 rays with a flat spectrum over the source's band on
+    the silver table's 32 wavelengths, record="tags". Guards: closure
+    below 1e-4, the receiver's, the mirror's and the medium's shares
+    within 3 combined sigma of phase 7's monochromatic megakernel trace,
+    the tagged hits' spectra absorbed. Returns K3's launches."""
+    import logging
+    import math
+    import numpy as np
+    import torch
+    import tracer_tpu_torch as ptt
+    from tracer_tpu_torch.accel import KdTree
+    from tracer_tpu_torch.analysis.radiosity import (radiosity_rtvf,
+                                                     radiosity_rtvf_torch)
+    from tracer_tpu_torch.analysis.view_factors import (
+        TwoNParametersCavityRTVF)
+    from tracer_tpu_torch.engine import TraceOptions, TracerEngine
+    from tracer_tpu_torch.models.bench_configs import (BENCH, bench_assembly,
+                                                       bench_scene,
+                                                       silver_table)
+    from tracer_tpu_torch.models.nsttf import make_source_fn
+    t14 = time.perf_counter()
+    launches = 0
+
+    def start():
+        reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
+                       kn.nearest_hit)
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def only_k3(label):
+        check(kb.bounce_reflect_culled.launches == kb.bounce_reflect.launches
+              == 0, f"{label}: K1 or K2 launched")
+        return kn.nearest_hit.launches
+
+    # (a) config 5 at the suite's size
+    t0 = start()
+    rt = TwoNParametersCavityRTVF(**CONFIG5, num_rays=VF_RAYS,
+                                  precision=0.005, generator=gen(8),
+                                  device=dev)
+    wall = time.perf_counter() - t0
+    l3 = only_k3("config 5")
+    k = rt.iters_per_call
+    check(l3 == -(-rt.iterations // k) * k, f"config 5: {l3} K3 launches "
+          f"for {rt.iterations} iterations of {k} samples a call")
+    launches += l3
+    vf, areas, n = rt.VF_esperance, rt.areas, rt.n_elements
+    row_sum_err = float(np.abs(vf.sum(axis=1) - 1.0).max())
+    check(row_sum_err < 0.01, f"config 5: row sums {vf.sum(axis=1)}")
+    eps = np.full(n, 0.85)
+    eps[0] = 1.0
+    T = np.full(n, 900.0)
+    T[0] = 293.15
+    AF = areas[:, None] * vf
+    rec_err = float(np.abs(AF - AF.T).max() / AF.max())
+    _, _, J, E, T_out, q, Q = radiosity_rtvf(vf, areas, eps, T=T)
+    bal = float(abs(Q.sum()) / np.abs(Q).max())
+    check(bal < 3.0 * rt.precision, f"config 5: enclosure balance {bal}")
+    loss = -Q[0] / 1e3
+    check(abs(loss / TPU_APERTURE_LOSS_KW - 1.0) < 0.03,
+          f"config 5: aperture loss {loss} kW against the TPU's "
+          f"{TPU_APERTURE_LOSS_KW}")
+    tq = radiosity_rtvf_torch(torch.as_tensor(vf, device=dev), areas, eps, T,
+                              np.zeros(n), np.ones(n, dtype=bool))
+    check(tq[-1].device.type == "cuda"
+          and np.allclose(tq[-1].cpu().numpy(), Q, rtol=1e-9,
+                          atol=1e-9 * np.abs(Q).max()),
+          "config 5: radiosity_rtvf_torch on the card differs")
+    (esc, esc_max), _ = cavity_k3(rt, 9, kn, "config 5", card)
+    fire = rt._build_fire_all()
+    fire(gen(10))
+    best = math.inf
+    for i in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fire(gen(11 + i))
+        best = min(best, time.perf_counter() - t1)
+    per_call = k * n * VF_RAYS
+    fired = l3 * n * VF_RAYS
+    log(f"config 5 (TwoNParametersCavityRTVF, {n} elements, {VF_RAYS} rays "
+        f"an element a sample, precision {rt.precision}): {rt.iterations} "
+        f"iterations ({l3} K3 launches), {fired} rays fired "
+        f"({k} samples a call), {float(rt.p.sum()):.0f} of them consumed "
+        f"by the gates, in {wall:.2f} s ({fired / wall / 1e6:.1f} Mrays/s "
+        f"fired end to end); row-sum error {row_sum_err:.5f}, reciprocity "
+        f"error {rec_err:.5f}, escaped share {esc:.2e} (largest element "
+        f"{esc_max:.2e}); radiosity balance {bal:.2e}, aperture loss "
+        f"{loss:.3f} kW (the TPU run's {TPU_APERTURE_LOSS_KW}); one fire "
+        f"call ({k} samples, {per_call} rays) {best * 1e3:.2f} ms, "
+        f"{per_call / best / 1e6:.1f} Mrays/s ({card})")
+    profile_path("config 5 fire call", lambda: fire(gen(20)), "K3",
+                 "nearest_kernel", card, top=10)
+
+    # (b) the Holman cavity
+    t0 = start()
+    rt = TwoNParametersCavityRTVF(**HOLMAN, num_rays=VF_RAYS, precision=0.02,
+                                  generator=gen(12), device=dev)
+    wall = time.perf_counter() - t0
+    launches += only_k3("Holman cavity")
+    err = np.abs(rt.VF_esperance - np.array(HOLMAN_VF))
+    (esc, esc_max), _ = cavity_k3(rt, 13, kn, "the Holman cavity",
+                                  card)
+    log(f"Holman cavity (R = 0.01 m, {VF_RAYS} rays an element): "
+        f"{rt.iterations} iterations, largest error against the analytic "
+        f"view factors {err.max():.4f} (atol 0.03), row sums "
+        + ", ".join(f"{x:.4f}" for x in rt.VF_esperance.sum(axis=1))
+        + f", escaped share {esc:.2e} (largest element {esc_max:.2e}); "
+        f"wall {wall:.2f} s ({card})")
+    check(err.max() < 0.03, f"Holman cavity: error {err.max()}")
+
+    # (c) the Kd accelerator on the NSTTF scene
+    table, meta, info = nsttf
+    bundle = make_source_fn(info, ACCEL_RAYS)(gen(14), device=dev)
+    eng = TracerEngine(table, meta)
+    t0 = time.perf_counter()
+    tree = KdTree(meta)
+    t_tree = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cand = TracerEngine._candidates(tree, bundle)
+    t_cand = time.perf_counter() - t0
+    n_cand = float((cand >= 0).sum(1).double().mean())
+    runs = {}
+    for accel in (None, "lightweight"):
+        lines = []
+
+        class Keep(logging.Handler):
+            def emit(self, rec):
+                lines.append(rec.getMessage())
+        lg = logging.getLogger("tracer_tpu_torch")
+        handler, level = Keep(), lg.level
+        lg.addHandler(handler)
+        lg.setLevel(logging.INFO)
+        try:
+            t0 = start()
+            res = eng.ray_tracer(bundle, reps=8, generator=gen(15),
+                                 accel=accel)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            lg.removeHandler(handler)
+            lg.setLevel(level)
+        l3 = only_k3(f"NSTTF ray_tracer accel={accel}")
+        check(l3 == (0 if accel else len(res.records)),
+              f"NSTTF ray_tracer accel={accel}: {l3} K3 launches in "
+              f"{len(res.records)} bounces")
+        launches += l3
+        b = res.energy_balance()
+        check(abs(b["closure"]) < 1e-4 * b["source"],
+              f"NSTTF ray_tracer accel={accel}: closure "
+              f"{b['closure'] / b['source']}")
+        runs[accel] = (res, wall, lines)
+    off, on = runs[None][0], runs["lightweight"][0]
+    check(len(on.records) == len(off.records), "NSTTF accel: bounces differ")
+    flipped = torch.zeros(ACCEL_RAYS, dtype=torch.bool)
+    for a, c in zip(on.records, off.records):
+        flipped |= (a.sid != c.sid) & (a.alive_in | c.alive_in)
+    n_flip = int(flipped.sum())
+    src = off.energy_balance()["source"]
+    e_flip = float(bundle.energy[flipped.to(dev)].double().sum())
+    diff = float(np.abs(on.absorbed_by_logical()
+                        - off.absorbed_by_logical()).max())
+    check(n_flip <= 1e-5 * ACCEL_RAYS + 1, f"NSTTF accel: {n_flip} lanes "
+          f"flipped a sid")
+    check(diff <= 1e-5 * src + e_flip, f"NSTTF accel: a surface's absorbed "
+          f"energy differs by {diff / src} of the source")
+    widths = [int(m.split(", ")[-1].split()[0]) for m in runs["lightweight"][2]
+              if "candidates/ray" in m]
+    per_bounce = [float(m.split("trace time ")[1].split()[0])
+                  for m in runs["lightweight"][2] if "trace time" in m]
+    log(f"NSTTF ray_tracer with and without the Kd tree ({table.num_rows} "
+        f"rows, {ACCEL_RAYS} rays, {len(on.records)} bounces): tree build "
+        f"{t_tree * 1e3:.1f} ms, {len(tree.nodes)} nodes; first bounce "
+        f"{n_cand:.2f} candidates a ray (host traversal {t_cand * 1e3:.0f} "
+        f"ms), widths " + ", ".join(map(str, widths)) + ", bounces "
+        + ", ".join(f"{x * 1e3:.0f}" for x in per_bounce) + " ms; walls "
+        f"accel {runs['lightweight'][1]:.3f} s, brute force (K3) "
+        f"{runs[None][1]:.3f} s; {n_flip} lanes flipped, largest surface "
+        f"difference {diff / src:.2e} of the source ({card})")
+    del runs, on, off, cand
+
+    # (d) a polychromatic bundle on config 3
+    n = BENCH_SLAB
+    asm, extra = bench_assembly(ptt, 3)
+    for s in asm.get_surfaces():
+        if s.name == "rec":
+            s.optics = ptt.materials.receiver(s.optics)
+    table3, meta3 = ptt.compile_scene(asm, extra_features=extra, device=dev)
+    _, _, source_fn = bench_scene(3, n, dev)
+    mono = source_fn(torch.Generator().manual_seed(16), device=dev)
+    grid = torch.as_tensor(silver_table(ptt)[0], dtype=torch.float32,
+                           device=dev)
+    band = float(grid[-1] - grid[0])
+    pb = mono.with_spectra(grid, (mono.energy / band)[:, None].expand(
+        n, grid.shape[0]))
+    check(float((pb.energy - mono.energy).abs().max())
+          < 1e-5 * float(mono.energy.max()), "config 3: the flat spectra's "
+          "trapezoids are not the rays' energies")
+    t0 = start()
+    res = TracerEngine(table3, meta3).ray_tracer(
+        pb, generator=gen(17),
+        opts=TraceOptions(max_bounces=BENCH[3]["max_path"], record="tags"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    l3 = only_k3("config 3 polychromatic")
+    check(1 <= l3 <= BENCH[3]["max_path"], f"config 3 polychromatic: {l3} "
+          "K3 launches")
+    launches += l3
+    b = res.energy_balance()
+    se = b["source"]
+    check(abs(b["closure"]) < 1e-4 * se, f"config 3 polychromatic: closure "
+          f"{b['closure'] / se}")
+    p = (list(res.accum.absorbed.double().numpy() / se)
+         + [float(res.accum.medium) / se])
+    meta_m, q, em = physics[3]
+    within_sigma("config 3 polychromatic", p, n, q, em)
+    hits = res.hits_of("rec")
+    check(hits["spectra"].shape == (len(hits["e_in"]), grid.shape[0])
+          and len(hits["e_in"]) > 0.2 * n
+          and np.isfinite(hits["spectra"]).all()
+          and np.abs(hits["spectra"]).max() == 0.0,
+          f"config 3 polychromatic: receiver spectra "
+          f"{hits['spectra'].shape}")
+    rec_w = float(res.absorbed_by_logical()[meta3.index_of("rec")])
+    check(abs(hits["absorbed"].sum() - rec_w) < 1e-4 * rec_w,
+          "config 3 polychromatic: the tagged hits are not the receiver's")
+    log(f"config 3 polychromatic ray_tracer (record=\"tags\", receiver "
+        f"tagged): {n} rays, {grid.shape[0]} wavelengths, "
+        f"{pb.spectra.numel() * pb.spectra.element_size() / 1e6:.1f} MB of "
+        f"spectra a bounce, {l3} bounces (K3 launches), {len(hits['e_in'])} "
+        f"receiver hits recorded; shares " + ", ".join(f"{x:.5f}" for x in p)
+        + " (megakernel " + ", ".join(f"{x:.5f}" for x in q) + f"), closure "
+        f"{b['closure'] / se:.1e}; wall {wall:.3f} s ({card})")
+    log(f"phase 14: {time.perf_counter() - t14:.1f} s")
+    return launches
 
 
 def check_trace(label, accum, emitted, source_e, total, energy_closure):

@@ -278,7 +278,8 @@ def md_turns(dev, card) -> dict:
         spec = mods["analysis.device_fluxmap"].flux_plan(meta, "receiver",
                                                          resolution=50)
         eng = mods["engine"]
-        head = type(sun)(**{k: v[:MD_RECORDED].contiguous()
+        head = type(sun)(**{k: None if v is None
+                            else v[:MD_RECORDED].contiguous()
                             for k, v in sun.__dict__.items()})
 
         def fused(eng=eng, table=table, sun=sun, spec=spec):

@@ -123,7 +123,8 @@ def fuzz_rays(meta, n: int, seed: int):
     return pos.astype(np.float32), d.astype(np.float32)
 
 
-def k3_compare(got, want, t12, pos, dirs, rtol=1e-5, max_flips=0):
+def k3_compare(got, want, t12, pos, dirs, rtol=1e-5, max_flips=0,
+               aux=True):
     """K3 results (t, sid, aux) against another version's (``want``).
 
     Two float32 versions of the same arithmetic round differently: by a
@@ -137,7 +138,9 @@ def k3_compare(got, want, t12, pos, dirs, rtol=1e-5, max_flips=0):
     lanes where the versions disagree on sid or on t: a hit point within
     rounding of an aperture edge or of the self-hit guard, which FMA
     contraction may decide (the other root of the same row, or another
-    row). At most ``max_flips`` are allowed. Returns (ties, flips)."""
+    row). At most ``max_flips`` are allowed. ``aux`` False compares t and
+    sid alone, for a caller that reads nothing else. Returns (ties,
+    flips)."""
     t1, t2 = t12
     scale = 1.0 + pos.abs().amax(dim=1)
     tie = (t2 - t1) <= 1e-5 * (scale + t1)
@@ -150,6 +153,8 @@ def k3_compare(got, want, t12, pos, dirs, rtol=1e-5, max_flips=0):
     agree = (got[1] == want[1]) & t_ok
     flips = int((~agree & ~tie).sum())
     assert flips <= max_flips, (flips, torch.nonzero(~agree & ~tie)[:5])
+    if not aux:
+        return int(tie.sum()), flips
     hit = (want[1] >= 0) & agree & ~tie
     base = base[hit]
     for k in ("normal", "local", "up_dot", "p0", "p1"):

@@ -270,14 +270,20 @@ def test_trace_fused_matches_jax(precision):
 
 
 def test_generator_and_unported_options():
-    """ray_tracer's accel raises (ROADMAP A10); a None generator is one
-    seeded with 0 (no randomness is drawn on the MiniDish, so the result
-    does not depend on it); a Lambertian plate, refused before the shade
-    had its other kinds, now absorbs its share of each ray and scatters
-    the rest back up."""
+    """ray_tracer with accel (the Kd-tree candidates) traces the same
+    hits as brute force: every record's sid equal and the per-surface
+    absorbed energy to 1e-9 in float64; a None generator is one seeded
+    with 0 (no randomness is drawn on the MiniDish, so the result does
+    not depend on it); a Lambertian plate, refused before the shade had
+    its other kinds, now absorbs its share of each ray and scatters the
+    rest back up."""
     _, _, pa, pe, pr = _runs("f64")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        pe.ray_tracer(pr.source, accel=True)
+    acc = pe.ray_tracer(pr.source, accel=True)
+    assert len(acc.records) == len(pr.records)
+    for rec, ref in zip(acc.records, pr.records):
+        np.testing.assert_array_equal(rec.sid.numpy(), ref.sid.numpy())
+    np.testing.assert_allclose(acc.absorbed_by_logical(),
+                               pr.absorbed_by_logical(), rtol=1e-9)
     again = pe.ray_tracer(pr.source,
                           generator=torch.Generator().manual_seed(5))
     np.testing.assert_array_equal(again.absorbed_by_logical(),

@@ -17,7 +17,14 @@ The slices that run end to end:
   Lambertian absorber, a spectral mirror in an attenuating medium)
   through the plain streaming megakernel, engine.trace_streaming without
   culling, on the brute-force bounce kernel with in-kernel regeneration
-  (kernels/csrc/bounce.cu).
+  (kernels/csrc/bounce.cu);
+* the Kd accelerator (accel.KdTree, ray_tracer(accel=...)) and
+  polychromatic bundles (RayBundle.with_spectra) on the host-stepped
+  ray_tracer, with trace_tree.RayTree over its records;
+* cavity receivers (bench configuration 5): MC view factors
+  (analysis.view_factors, every sample's nearest hit on the nearest-hit
+  kernel), the radiosity solve and its autograd twin (analysis.radiosity)
+  and the 2N cavity model (models.two_n_cavity).
 
 Entry points put their tensors on the GPU (device.default_device) and
 raise without one unless given ``device="cpu"``. On CPU tensors every

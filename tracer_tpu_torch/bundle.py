@@ -3,6 +3,7 @@ tracer_tpu/bundle.py). All tensors share the leading ray axis N."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -15,7 +16,14 @@ class RayBundle:
     """pos (N,3) ray origin, dir (N,3) unit direction, energy (N,) power
     [W], wavelength (N,) (0 = unset), ref_index (N,) refractive index of
     the medium, att_coeff / scat_coeff / scat_g (N,) medium coefficients,
-    alive (N,) bool, parent (N,) int32 index into the previous bounce."""
+    alive (N,) bool, parent (N,) int32 index into the previous bounce.
+
+    A polychromatic bundle also carries ``spectra`` (N, K), each ray's
+    spectral power density [W/m of wavelength], over one shared
+    ``spectral_grid`` (K,) of vacuum wavelengths (tracer_tpu/bundle.py
+    :50-58); ``energy`` is the trapezoid integral of each spectrum
+    (:meth:`with_spectra`), and the host-stepped ray_tracer keeps it so.
+    None on a monochromatic bundle."""
 
     pos: torch.Tensor
     dir: torch.Tensor
@@ -27,6 +35,8 @@ class RayBundle:
     scat_g: torch.Tensor
     alive: torch.Tensor
     parent: torch.Tensor
+    spectra: Optional[torch.Tensor] = None
+    spectral_grid: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, pos, dir, energy=None, wavelength=None, ref_index=None,
@@ -59,6 +69,20 @@ class RayBundle:
                    torch.as_tensor(parent, dtype=torch.int32,
                                    device=pos.device))
 
+    def with_spectra(self, spectral_grid, spectra) -> "RayBundle":
+        """The bundle with per-ray spectra (N, K) over the shared
+        wavelength grid (K,), in the bundle's dtype and on its device;
+        ``energy`` becomes the trapezoid integral of each spectrum
+        (tracer_tpu/bundle.py:105-118)."""
+        f = dict(dtype=self.pos.dtype, device=self.pos.device)
+        grid = torch.as_tensor(spectral_grid, **f)
+        spec = torch.as_tensor(spectra, **f)
+        if tuple(spec.shape) != (self.num_rays, grid.shape[0]):
+            raise ValueError(f"spectra must be (N, K) = ({self.num_rays}, "
+                             f"{grid.shape[0]}), got {tuple(spec.shape)}")
+        return self.replace(spectra=spec, spectral_grid=grid,
+                            energy=torch.trapezoid(spec, grid, dim=1))
+
     @property
     def num_rays(self) -> int:
         return self.pos.shape[0]
@@ -70,29 +94,52 @@ class RayBundle:
     def replace(self, **changes) -> "RayBundle":
         return dataclasses.replace(self, **changes)
 
+    def to(self, device) -> "RayBundle":
+        """Every tensor of the bundle, the spectra too, on ``device``."""
+        return self.replace(**{f: getattr(self, f).to(device)
+                               for f in FIELDS + SPECTRAL_FIELDS
+                               if getattr(self, f) is not None})
+
     def concat(self, other: "RayBundle") -> "RayBundle":
         """The two bundles' rays, ``self``'s first, along the ray axis."""
         return concatenate_rays([self, other])
 
 
-FIELDS = tuple(f.name for f in dataclasses.fields(RayBundle))
+# the per-ray fields every bundle has, and the polychromatic pair
+FIELDS = ("pos", "dir", "energy", "wavelength", "ref_index", "att_coeff",
+          "scat_coeff", "scat_g", "alive", "parent")
+SPECTRAL_FIELDS = ("spectra", "spectral_grid")
 
 
 def concatenate_rays(bundles) -> RayBundle:
     """Concatenate a sequence of bundles along the ray axis
-    (tracer_tpu/bundle.py:168)."""
+    (tracer_tpu/bundle.py:168). Polychromatic bundles concatenate their
+    spectra and keep the shared grid, which must be the same in all; a
+    mix of polychromatic and monochromatic bundles is refused."""
     bundles = list(bundles)
     if not bundles:
         raise ValueError("no bundles to concatenate")
-    return RayBundle(**{f: torch.cat([getattr(b, f) for b in bundles])
-                        for f in FIELDS})
+    out = {f: torch.cat([getattr(b, f) for b in bundles]) for f in FIELDS}
+    poly = [b.spectra is not None for b in bundles]
+    if any(poly):
+        if not all(poly):
+            raise ValueError("cannot concatenate polychromatic and "
+                             "monochromatic bundles")
+        grid = bundles[0].spectral_grid
+        if not all(torch.equal(b.spectral_grid, grid) for b in bundles):
+            raise ValueError("polychromatic bundles on different spectral "
+                             "grids")
+        out.update(spectra=torch.cat([b.spectra for b in bundles]),
+                   spectral_grid=grid)
+    return RayBundle(**out)
 
 
 def bundle_from_jax(numpy_fields: dict, device=None,
                     dtype=None) -> RayBundle:
     """Carry a tracer_tpu RayBundle across: ``numpy_fields`` maps each
     field name to ``np.asarray`` of the JAX field (float fields keep their
-    dtype unless ``dtype`` is given). ``device`` None means the GPU."""
+    dtype unless ``dtype`` is given), and may hold the spectra and their
+    grid. ``device`` None means the GPU."""
     device = resolve(device)
     out = {}
     for name in FIELDS:
@@ -102,4 +149,8 @@ def bundle_from_jax(numpy_fields: dict, device=None,
         out[name] = torch.tensor(a, device=device, dtype=dt)
     out["alive"] = out["alive"].to(torch.bool)
     out["parent"] = out["parent"].to(torch.int32)
+    for name in SPECTRAL_FIELDS:
+        if numpy_fields.get(name) is not None:
+            out[name] = torch.tensor(np.asarray(numpy_fields[name]),
+                                     device=device, dtype=dtype)
     return RayBundle(**out)

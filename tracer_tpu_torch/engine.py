@@ -28,14 +28,16 @@
     branch waits in its overflow slot until the lane is free.
 * :meth:`TracerEngine.ray_tracer` -- the host-stepped bounce loop with
   per-bounce records, stopping when the bundle dies; in a splitting scene
-  the reflected branches join the bundle as new rays.
+  the reflected branches join the bundle as new rays. With ``accel`` a
+  Kd tree (accel.KdTree) gives every ray its candidate rows once a
+  bounce; a polychromatic bundle's spectra are filtered every bounce.
 * :func:`trace_fused` -- the same bounce without records, accumulators and
   device flux maps only.
 
 Both bundle traces run :func:`_bounce_step`: nearest hit (K3 for float32,
-the float64 oracle on CPU tensors), free paths in volumetric media, shade,
-account. Every loop runs on the host and reads one value from the device
-per bounce or round.
+the float64 oracle on CPU tensors, or the Kd candidates), free paths in
+volumetric media, shade, the spectral filter, account. Every loop runs
+on the host and reads one value from the device per bounce or round.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ import dataclasses
 import functools
 import logging
 import math
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -56,7 +59,7 @@ from .kernels.bounce import (MAX_STAGE_FLOATS, POSE_FLOATS, TILE,
                              bounce_reflect, bounce_reflect_culled,
                              media_flags, pack_rows, row_width,
                              source_pose)
-from .kernels.intersect import nearest_hit_aux
+from .kernels.intersect import nearest_hit_aux, nearest_hit_candidates
 from .kernels.shade import shade
 from .mathutils import rotate_to_normal, safe_sqrt
 from .optics import sample_scattering
@@ -839,6 +842,13 @@ def _trace_streaming_general(scene: SceneTable, source_fn,
     n = source_fn.num_rays
     src_gen = torch.Generator(device=dev).manual_seed(_seed(generator))
     fresh = source_fn(src_gen, device=dev)
+    if fresh.spectra is not None:
+        # tracer_tpu/engine.py:1687-1691; the spec'd paths draw their rays
+        # in the kernels from the spec, which carries no spectra
+        raise NotImplementedError(
+            "polychromatic sources trace on the host-stepped "
+            "TracerEngine.ray_tracer path; the streaming paths are "
+            "monochromatic — sample wavelengths instead")
     if fresh.num_rays != n:
         raise ValueError(f"source_fn drew {fresh.num_rays} rays, declared "
                          f"{n}")
@@ -1001,7 +1011,8 @@ class BounceRecord:
     alive_in: torch.Tensor   # (N,) bool: slot carried a live ray
     wavelength: Optional[torch.Tensor] = None   # (N,) per-hit wavelength
     normal: Optional[torch.Tensor] = None       # (N,3) shading normal
-    spectra: Optional[torch.Tensor] = None      # not ported (A10)
+    spectra: Optional[torch.Tensor] = None      # (N, K) outgoing spectra
+    #   of a polychromatic bundle
     split: Optional[tuple] = None   # refr_split bounces: (lanes that split,
     #   reflected branch energy (N,), its direction (N,3))
     bounce: Optional[int] = None    # bounce index
@@ -1126,7 +1137,8 @@ def _media_step(bundle: RayBundle, alive, sid, t, accum: TraceAccum,
     an exponential free path from each lane's scattering coefficient; the
     lanes whose path ends before their surface hit scatter there instead
     (sid -1); every live lane is Beer-Lambert attenuated over the distance
-    it travels, the loss added to ``accum.medium`` (in place). Returns
+    it travels, the loss added to ``accum.medium`` (in place), and a
+    polychromatic lane's spectrum scaled with it. Returns
     (attenuated bundle, sid, scattered mask, scattering points, their
     Henyey-Greenstein directions about the travel direction)."""
     t_hit = torch.where(sid >= 0, t, math.inf)
@@ -1140,6 +1152,11 @@ def _media_step(bundle: RayBundle, alive, sid, t, accum: TraceAccum,
     energy = torch.where(alive & att_ok, bundle.energy * trans,
                          bundle.energy)
     accum.medium += torch.where(alive, bundle.energy - energy, 0.0).sum()
+    spectra = bundle.spectra
+    if spectra is not None:
+        # the gray ambient medium scales the whole spectrum
+        spectra = spectra * torch.where(alive & att_ok, trans,
+                                        1.0)[:, None]
     g = bundle.scat_g
 
     def uniform():
@@ -1159,7 +1176,8 @@ def _media_step(bundle: RayBundle, alive, sid, t, accum: TraceAccum,
                                           dim=1), bundle.dir)
     p_scat = bundle.pos + torch.where(scattered, free_path,
                                       0.0)[:, None] * bundle.dir
-    return bundle.replace(energy=energy), sid, scattered, p_scat, d_scat
+    return (bundle.replace(energy=energy, spectra=spectra), sid, scattered,
+            p_scat, d_scat)
 
 
 def _bounce_step(scene: SceneTable, bundle: RayBundle, accum: TraceAccum,
@@ -1177,20 +1195,31 @@ def _bounce_step(scene: SceneTable, bundle: RayBundle, accum: TraceAccum,
     energy-splitting interfaces (K2's refr_split or the shade's split
     mode): the record's ``split`` carries the reflected branches; without
     it they roulette. A lane that scattered in its medium lives on at the
-    event point (sid -1). Polychromatic spectra and Kd candidates are not
-    ported (ROADMAP A10) and raise."""
-    if cand is not None or spectral_alpha is not None:
-        raise NotImplementedError("Kd candidates and polychromatic spectra "
-                                  "are not ported yet (ROADMAP A10)")
-    if not need_local and not force_jnp and _fused_ok(scene, split_mode):
+    event point (sid -1).
+
+    ``cand`` (N, K) int32, the Kd tree's per-ray candidate rows padded
+    with -1, replaces the brute-force nearest hit by
+    nearest_hit_candidates (no aux: the shade gathers its rows). A
+    polychromatic bundle's spectra are filtered (tracer_tpu/engine.py
+    :459-479): rows with a spectral absorptance table (``spectral_alpha``,
+    _rows_alpha_on_grid's pair) multiply the spectrum by 1 - alpha on the
+    grid and their outgoing energy becomes its trapezoid integral; every
+    other kind scales it by its energy ratio."""
+    if (cand is None and not need_local and not force_jnp
+            and _fused_ok(scene, split_mode)):
         return _bounce_step_fused(scene, bundle, accum, generator,
                                   min_energy, t_eps, disc_eps, count_hits,
                                   split_mode)
     alive = bundle.alive & (bundle.energy > 0.0)
-    t, sid, aux = nearest_hit_aux(scene, bundle.pos, bundle.dir,
-                                  t_eps=t_eps, disc_eps=disc_eps,
-                                  block=block, need_local=need_local,
-                                  force_jnp=force_jnp)
+    if cand is not None:
+        t, sid = nearest_hit_candidates(scene, cand, bundle.pos, bundle.dir,
+                                        t_eps=t_eps, disc_eps=disc_eps)
+        aux = None
+    else:
+        t, sid, aux = nearest_hit_aux(scene, bundle.pos, bundle.dir,
+                                      t_eps=t_eps, disc_eps=disc_eps,
+                                      block=block, need_local=need_local,
+                                      force_jnp=force_jnp)
     sid = torch.where(alive, sid, -1)
     volumetric = "volumetric" in scene.features
     if volumetric:
@@ -1207,6 +1236,22 @@ def _bounce_step(scene: SceneTable, bundle: RayBundle, accum: TraceAccum,
     e_in = torch.where(hit, bundle.energy, 0.0)
     e_out = torch.where(hit, res.out_energy, 0.0)
     absorbed_ray = torch.where(hit, res.absorbed, 0.0)
+    new_spectra = None
+    if bundle.spectra is not None:
+        ratio = torch.where(e_in > 0.0, e_out / e_in.clamp(min=1e-30), 0.0)
+        if spectral_alpha is not None:
+            has_tab, alpha = spectral_alpha       # (S,) bool, (S, K)
+            s0 = sid.clamp(min=0).long()
+            ht = hit & has_tab[s0]
+            fac = torch.where(ht[:, None], 1.0 - alpha[s0], ratio[:, None])
+        else:
+            ht = torch.zeros_like(hit)
+            fac = ratio[:, None]
+        new_spectra = torch.where(hit[:, None], bundle.spectra * fac,
+                                  bundle.spectra)
+        e_spec = torch.trapezoid(new_spectra, bundle.spectral_grid, dim=1)
+        e_out = torch.where(ht, e_spec, e_out)
+        absorbed_ray = torch.where(ht, e_in - e_out, absorbed_ray)
     _account(accum, sid, escaped, absorbed_ray, bundle.energy, count_hits)
     low = hit & (e_out <= min_energy)
     accum.culled += torch.where(low, e_out, 0.0).sum()
@@ -1231,6 +1276,8 @@ def _bounce_step(scene: SceneTable, bundle: RayBundle, accum: TraceAccum,
             dir=torch.where(s3, d_scat, new_bundle.dir),
             energy=torch.where(scattered, bundle.energy, new_bundle.energy),
             alive=new_bundle.alive | scattered)
+    if new_spectra is not None:
+        new_bundle = new_bundle.replace(spectra=new_spectra)
     rec_split = None
     if res.split is not None:
         s_rows, s_e, s_dir = res.split
@@ -1240,7 +1287,8 @@ def _bounce_step(scene: SceneTable, bundle: RayBundle, accum: TraceAccum,
         sid=sid, t=t, hit=res.out_pos, local=res.local_pt,
         dir_in=bundle.dir, dir_out=res.out_dir, e_in=e_in, e_out=e_out,
         absorbed=absorbed_ray, backside=res.backside & hit, alive_in=alive,
-        wavelength=bundle.wavelength, normal=res.normal, split=rec_split)
+        wavelength=bundle.wavelength, normal=res.normal, split=rec_split,
+        spectra=new_spectra)
     return new_bundle, accum, rec
 
 
@@ -1298,10 +1346,13 @@ class TraceResult:
         """Every hit on a logical surface across bounces as numpy arrays:
         global and local hit points, absorbed, incident and outgoing
         energy, incoming direction, backside flag, wavelength, shading
-        normal and bounce index (the reference's accountant queries)."""
+        normal and bounce index (the reference's accountant queries), and
+        the outgoing ``spectra`` (n_hits, K) when any record has them."""
         rows = list(self._rows_of(surface))
         keys = ("hit", "local", "absorbed", "e_in", "e_out", "dir_in",
                 "backside", "wavelength", "normal")
+        if any(rec.spectra is not None for rec in self.records):
+            keys = keys + ("spectra",)
         out = {k: [] for k in keys + ("bounce",)}
         for b, rec in enumerate(self.records):
             mask = np.isin(_np(rec.sid), rows) & _np(rec.alive_in)
@@ -1388,7 +1439,39 @@ def _compact_record(rec: BounceRecord, mask, n_hits: int,
         backside=rec.backside[idx] & valid,
         alive_in=rec.alive_in[idx] & valid,
         wavelength=take(rec.wavelength), normal=take(rec.normal),
-        bounce=bounce, slot=idx.to(torch.int32))
+        spectra=take(rec.spectra), bounce=bounce, slot=idx.to(torch.int32))
+
+
+def _rows_alpha_on_grid(scene, meta, grid):
+    """Host precompute of a polychromatic trace (tracer_tpu/engine.py
+    :191-228): (has_tab (S,) bool, alpha (S, K)) on the scene's device,
+    every K_REFLECT_SPECTRAL row's absorptance table interpolated onto
+    the bundle's wavelength grid, so the bounce's spectral filter is one
+    gather and a product. Other kinds keep their scalar energy ratio;
+    piecewise (theta, wl) rows need per-angle spectra and are refused."""
+    if "lambertian_piecewise_spectral" in scene.features:
+        raise NotImplementedError(
+            "polychromatic bundles with piecewise (theta, wl) spectral "
+            "rows are not supported: their filter depends on the "
+            "incidence angle per hit; use K_REFLECT_SPECTRAL tables or "
+            "trace monochromatic wavelength samples")
+    kinds = (meta.host_opt_kind if meta is not None
+             and meta.host_opt_kind is not None else _np(scene.opt_kind))
+    prm = (meta.host_opt_params if meta is not None
+           and meta.host_opt_params is not None else _np(scene.opt_params))
+    g = _np(torch.as_tensor(grid)).astype(np.float64)
+    wl_tab = _np(scene.spectral_wl).astype(np.float64)
+    ab_tab = _np(scene.spectral_ab).astype(np.float64)
+    has = np.zeros(len(kinds), dtype=bool)
+    alpha = np.zeros((len(kinds), len(g)))
+    for r in np.nonzero(kinds == _M.K_REFLECT_SPECTRAL)[0]:
+        start, ln = int(round(prm[r, 0])), int(round(prm[r, 1]))
+        has[r] = True
+        alpha[r] = np.interp(g, wl_tab[start:start + ln],
+                             ab_tab[start:start + ln])
+    return (torch.as_tensor(has, device=scene.device),
+            torch.as_tensor(alpha, dtype=torch.as_tensor(grid).dtype,
+                            device=scene.device))
 
 
 def _generator_for(scene, generator):
@@ -1425,16 +1508,40 @@ class TracerEngine:
         shading randomness; None means one seeded with 0. In a scene with
         energy-splitting interfaces every bounce splits them, and the
         reflected branches join the bundle as new rays
-        (_append_split_rays), so the bundle grows. ``accel`` (the Kd-tree
-        candidate mode) is not ported yet (ROADMAP A10)."""
-        if accel:
-            raise NotImplementedError("accel (Kd-tree candidates) is not "
-                                      "ported yet (ROADMAP A10)")
+        (_append_split_rays), so the bundle grows.
+
+        ``accel`` None traces brute force (K3 for float32 rays);
+        "lightweight" (or True) builds a Kd tree over the scene rows
+        (accel.KdTree) and every bounce traverses it on the host for
+        per-ray candidate rows (_candidates), which nearest_hit_candidates
+        then tests alone: the same hits, only the cost changes. A
+        polychromatic bundle (``bundle.spectra``) is filtered every bounce
+        and its records carry the outgoing spectra; in a scene with
+        energy-splitting interfaces it is refused."""
         scene = self.scene
+        if bundle.spectra is not None and "split" in scene.features:
+            raise NotImplementedError(
+                "polychromatic bundles in a scene with energy-splitting "
+                "interfaces are refused: tracer_tpu's _append_split_rays "
+                "builds the reflected branches without spectra and fails "
+                "(a reference defect, ROADMAP C)")
         bundle = _ambient_bundle(scene, bundle)
         _check_device(scene, bundle)
         opts = opts or TraceOptions(max_bounces=reps, min_energy=min_energy)
         generator = _generator_for(scene, generator)
+        tree = None
+        if accel:
+            if self.meta is None:
+                raise ValueError("accel needs a SceneMeta (row geometry)")
+            from .accel import KdTree
+            t0 = time.perf_counter()
+            tree = KdTree(self.meta)
+            log.info("kdtree build: %d rows, %d nodes, %.3f s",
+                     scene.num_rows, len(tree.nodes),
+                     time.perf_counter() - t0)
+        spectral_alpha = (None if bundle.spectra is None else
+                          _rows_alpha_on_grid(scene, self.meta,
+                                              bundle.spectral_grid))
         accum = TraceAccum.zeros(scene.num_rows, dtype=bundle.pos.dtype,
                                  device=scene.device)
         records: List[BounceRecord] = []
@@ -1449,12 +1556,15 @@ class TracerEngine:
                                           device=scene.device)
         use_split = "split" in scene.features
         for b in range(opts.max_bounces):
+            t0 = time.perf_counter()
             prev = bundle
+            cand = None if tree is None else self._candidates(tree, bundle)
             bundle, accum, rec = _bounce_step(
                 scene, bundle, accum, generator,
                 min_energy=opts.min_energy, t_eps=opts.t_eps,
                 disc_eps=opts.disc_eps, block=opts.block,
-                split_mode=use_split)
+                split_mode=use_split, cand=cand,
+                spectral_alpha=spectral_alpha)
             if rec.split is not None:
                 bundle = _append_split_rays(bundle, prev, rec, accum,
                                             opts.min_energy)
@@ -1467,7 +1577,14 @@ class TracerEngine:
                             rec, mask, n_hits, b).to("cpu"))
             elif opts.record:
                 records.append(rec.replace(bounce=b).to("cpu"))
-            if not bool(bundle.alive.any()):
+            n_alive = int(bundle.alive.sum())
+            if log.isEnabledFor(logging.INFO):
+                log.info("bounce %d: trace time %.4f s, %d/%d rays alive%s",
+                         b, time.perf_counter() - t0, n_alive,
+                         bundle.num_rays,
+                         "" if cand is None
+                         else f", {cand.shape[1]} candidates/ray")
+            if n_alive == 0:
                 break
         result = TraceResult(scene=scene, meta=self.meta, final=bundle,
                              accum=accum.to("cpu"), records=records,
@@ -1481,6 +1598,24 @@ class TracerEngine:
         self.tree = result
         return result
 
+    @staticmethod
+    def _candidates(tree, bundle: RayBundle) -> torch.Tensor:
+        """(N, K) int32 candidate rows of every ray on the bundle's device
+        from a host traversal of ``tree`` (tracer_tpu/engine.py:767-780):
+        pos, dir and alive copied to the host once, dead lanes given none,
+        each ray's rows in ascending order, padded with -1 to a width K
+        bucketed to a power of two."""
+        mask = tree.traversal(_np(bundle.pos), _np(bundle.dir))   # (S, N)
+        mask[:, ~_np(bundle.alive)] = False
+        per_ray = mask.sum(axis=0)
+        k = max(int(per_ray.max(initial=0)), 1)
+        k = 1 << (k - 1).bit_length()
+        ray, row = np.nonzero(mask.T)          # by ray, then by row
+        first = np.cumsum(per_ray) - per_ray
+        cand = np.full((mask.shape[1], k), -1, dtype=np.int32)
+        cand[ray, np.arange(len(ray)) - first[ray]] = row
+        return torch.as_tensor(cand, device=bundle.pos.device)
+
 
 def trace_fused(scene: SceneTable, bundle: RayBundle,
                 generator: Optional[torch.Generator] = None,
@@ -1493,7 +1628,14 @@ def trace_fused(scene: SceneTable, bundle: RayBundle,
     flag from the device per bounce (tracer_tpu runs the same loop as one
     jitted while_loop). The bundle keeps its size, so energy-splitting
     interfaces roulette here (unbiased, as tracer_tpu's); ray_tracer
-    splits them. Returns (final bundle, accum)."""
+    splits them. Polychromatic bundles are refused: they trace on
+    ray_tracer. Returns (final bundle, accum)."""
+    if bundle.spectra is not None:
+        raise NotImplementedError(
+            "polychromatic bundles trace on the host-stepped "
+            "TracerEngine.ray_tracer path (per-bounce spectral filtering "
+            "and records); the fused and streaming paths are "
+            "monochromatic — sample wavelengths instead")
     bundle = _ambient_bundle(scene, bundle)
     _check_device(scene, bundle)
     generator = _generator_for(scene, generator)

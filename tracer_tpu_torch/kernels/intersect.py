@@ -161,6 +161,111 @@ def _surface_t(inv_frame, quad, ap_params, pos, dirs, t_eps: float,
     return t_best
 
 
+# every aperture constraint kind a row can carry
+_AP_KINDS = (G.AP_RECT, G.AP_RADIAL, G.AP_ZRANGE, G.AP_ANGRANGE, G.AP_XCUT,
+             G.AP_HEX, G.AP_TRIANGLE, G.AP_TRIANGLE_HOLE, G.AP_RECT_HOLE,
+             G.AP_CIRC_HOLE, G.AP_CIRC, G.AP_SPHERE, G.AP_ABS_HALFPLANE)
+
+
+def _aperture_mask_dynamic(ap_type, ap_params, pt):
+    """ANDed aperture constraints with per-ray constraint types
+    (tracer_tpu/kernels/intersect.py:191): every predicate is evaluated
+    and selected by type id, since each ray tests its own row. ap_type
+    (N,C) int, ap_params (N,C,6), pt (N,3)."""
+    x, y, z = pt[..., 0], pt[..., 1], pt[..., 2]
+    ok = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    for c in range(ap_type.shape[1]):
+        tid = ap_type[:, c]
+        p = ap_params[:, c]
+        sel = torch.ones_like(ok)
+        for kind in _AP_KINDS:
+            sel = torch.where(tid == kind, _constraint_pred(kind, p, x, y, z),
+                              sel)
+        ok = ok & sel
+    return ok
+
+
+def _candidate_t(scene, rows, pos, dirs, t_eps: float, disc_eps: float):
+    """Hit distance of each ray against its own candidate row (rows (N,)
+    int32, -1 = no candidate, +inf; tracer_tpu/kernels/intersect.py:250):
+    the row's data gathered per ray (index_select), the general quadric
+    solved with per-ray coefficients as _surface_t solves it, apertures
+    evaluated by _aperture_mask_dynamic, F_BACKSIDE_MISS rows rejecting
+    local +Z arrivals."""
+    s = rows.clamp(min=0).long()
+    invf = scene.inv_frame.index_select(0, s)
+    quad = scene.quadric.index_select(0, s)
+    ap_t = scene.ap_type.index_select(0, s)
+    ap_p = scene.ap_params.index_select(0, s)
+    v = apply_rot(invf[:, :3, :3], pos) + invf[:, :3, 3]
+    d = apply_rot(invf[:, :3, :3], dirs)
+    t_min = t_eps * (1.0 + torch.sqrt((v * v).sum(-1)))
+
+    axx, ayy, azz, axy, axz, ayz, bx, by, bz, c0 = quad.unbind(1)
+
+    def q_form(p, q2):
+        return (axx * p[..., 0] * q2[..., 0] + ayy * p[..., 1] * q2[..., 1]
+                + azz * p[..., 2] * q2[..., 2]
+                + axy * (p[..., 0] * q2[..., 1] + p[..., 1] * q2[..., 0])
+                + axz * (p[..., 0] * q2[..., 2] + p[..., 2] * q2[..., 0])
+                + ayz * (p[..., 1] * q2[..., 2] + p[..., 2] * q2[..., 1]))
+
+    def b_dot(p):
+        return bx * p[..., 0] + by * p[..., 1] + bz * p[..., 2]
+
+    A = q_form(d, d)
+    B = 2.0 * (q_form(d, v) + b_dot(d))
+    C = q_form(v, v) + 2.0 * b_dot(v) + c0
+    is_linear = A == 0.0
+    is_b0 = B == 0.0
+    disc = B * B - 4.0 * A * C
+    sq = safe_sqrt(disc)
+    q = -0.5 * (B + torch.where(B >= 0.0, 1.0, -1.0) * sq)
+    safe_a = torch.where(is_linear, 1.0, A)
+    safe_q = torch.where(q == 0.0, 1.0, q)
+    m_ca = -C / safe_a
+    sqrt_mca = safe_sqrt(m_ca)
+    t_lin = -C / torch.where(is_b0, 1.0, B)
+    t0 = torch.where(is_linear, t_lin,
+                     torch.where(is_b0, -sqrt_mca, q / safe_a))
+    t1 = torch.where(is_linear, t_lin,
+                     torch.where(is_b0, sqrt_mca, C / safe_q))
+    root_ok = torch.where(is_linear, B.abs() > 1e-7,
+                          torch.where(is_b0, m_ca >= 0.0, disc >= disc_eps))
+
+    def root_t(t):
+        ok = root_ok & (t > t_min) & torch.isfinite(t)
+        ok = ok & _aperture_mask_dynamic(ap_t, ap_p, v + t[..., None] * d)
+        return torch.where(ok, t, math.inf)
+
+    t = torch.minimum(root_t(t0), root_t(t1))
+    bmiss = (scene.opt_flags.index_select(0, s) & M.F_BACKSIDE_MISS) != 0
+    t = torch.where(bmiss & (d[..., 2] > 0.0), math.inf, t)
+    return torch.where(rows >= 0, t, math.inf)
+
+
+def nearest_hit_candidates(scene, cand, pos, dirs,
+                           t_eps: Optional[float] = None,
+                           disc_eps: float = 1e-6):
+    """Nearest hit over per-ray candidate lists, the Kd-tree path
+    (tracer_tpu/kernels/intersect.py:321): cand (N, K) int32 rows per
+    ray, padded with -1, tested column by column (ties keep the earlier
+    column). Torch code on either device, in the rays' dtype. Returns (t,
+    sid) as nearest_hit does."""
+    if t_eps is None:
+        t_eps = default_t_eps(pos.dtype)
+    t_best = torch.full_like(pos[:, 0], math.inf)
+    sid_best = torch.full(pos[:, 0].shape, -1, dtype=torch.int32,
+                          device=pos.device)
+    for k in range(cand.shape[1]):
+        rows = cand[:, k]
+        t = _candidate_t(scene, rows, pos, dirs, t_eps, disc_eps)
+        upd = t < t_best
+        t_best = torch.where(upd, t, t_best)
+        sid_best = torch.where(upd, rows, sid_best)
+    return t_best, torch.where(torch.isfinite(t_best), sid_best, -1)
+
+
 def _oracle_nearest(scene, pos, dirs, t_eps: float, disc_eps: float,
                     block: int):
     if pos.device.type != "cpu":

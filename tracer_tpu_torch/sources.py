@@ -1,9 +1,10 @@
-"""Light sources (the PyTorch port of tracer_tpu/sources.py less its
-view-factor and emission sources): the Buie-sunshape, pillbox and
-tabulated-sunshape disks and rectangles (the rect ones optionally
-oblique: positions in one frame, directions about another) with their
-static specs for in-kernel regeneration, edge rays, a single ray, a
-regular square grid, and triangle and trapezoid emitters.
+"""Light sources (the PyTorch port of tracer_tpu/sources.py): the
+Buie-sunshape, pillbox and tabulated-sunshape disks and rectangles (the
+rect ones optionally oblique: positions in one frame, directions about
+another) with their static specs for in-kernel regeneration, edge rays, a
+single ray, a regular square grid, triangle and trapezoid emitters, and
+the view-factor and emission sources: Lambertian frustum and cylinder
+walls, the gray shape composer and the band thermal emitter.
 
 Every sampler takes an explicit ``torch.Generator`` and returns a
 :class:`RayBundle` on ``device`` (None means the GPU,
@@ -21,7 +22,12 @@ import torch
 
 from .bundle import RayBundle, concatenate_rays
 from .device import resolve
+from . import sampling as smp
 from . import spatial
+from .electromagnetics import planck
+from .mathutils import rotate_to_normal
+from .sampling import (PWLinCosSinDistribution, _uniform,
+                       lambertian_directions)
 
 
 def _as_row3(x) -> np.ndarray:
@@ -34,29 +40,6 @@ def _rotate_rows(M, rows: torch.Tensor) -> torch.Tensor:
     x, y, z = rows.unbind(1)
     return torch.stack([float(M[i, 0]) * x + float(M[i, 1]) * y
                         + float(M[i, 2]) * z for i in range(3)], dim=1)
-
-
-def _uniform(generator, n: int, dtype, device, lo: float = 0.0,
-             hi: float = 1.0) -> torch.Tensor:
-    u = torch.rand(n, generator=generator, dtype=dtype,
-                   device=generator.device)
-    if lo != 0.0 or hi != 1.0:
-        u = lo + (hi - lo) * u
-    return u.to(device)
-
-
-def lambertian_directions(generator, num_rays: int, ang_range: float,
-                          dtype=torch.float32, device=None) -> torch.Tensor:
-    """Cosine-weighted directions about +Z within ``ang_range``."""
-    device = resolve(device)
-    phi = _uniform(generator, num_rays, dtype, device, 0.0, 2.0 * np.pi)
-    if ang_range == 0.0:
-        return torch.tensor([0.0, 0.0, 1.0], dtype=dtype,
-                            device=device).expand(num_rays, 3).clone()
-    u = _uniform(generator, num_rays, dtype, device)
-    sinsqrt = float(np.sin(ang_range)) * torch.sqrt(u)
-    return torch.stack([torch.cos(phi) * sinsqrt, torch.sin(phi) * sinsqrt,
-                        torch.sqrt(1.0 - sinsqrt ** 2)], dim=1)
 
 
 def pillbox_sunshape_directions(generator, num_rays: int, ang_range: float,
@@ -714,3 +697,164 @@ def trapezoid_bundle(generator, num_rays: int, A, B, C, direction=None,
     return concatenate_rays([
         triangular_bundle(generator, n1, A, B, C, **kw),
         triangular_bundle(generator, num_rays - n1, A, C, D, **kw)])
+
+
+# ---------------------------------------------------------------------------
+# view-factor and emission sources (tracer_tpu/sources.py:721-897): the
+# Lambertian wall emitters of the view-factor subsystem
+# (analysis/view_factors.py), the gray composer and the band emitter
+# ---------------------------------------------------------------------------
+
+def _rotz_rows(phi, rows):
+    """Rotate (N,3) row vectors about z by per-ray angles phi."""
+    c, s = torch.cos(phi), torch.sin(phi)
+    x, y, z = rows.unbind(1)
+    return torch.stack([c * x - s * y, s * x + c * y, z], dim=1)
+
+
+def _wall_bundle(phi, rs, zs, local_unit, center, direction, energy,
+                 dtype, device) -> RayBundle:
+    """A wall emitter's bundle: points (rs cos phi, rs sin phi, zs) and
+    directions ``local_unit`` in the frame whose z is ``direction``."""
+    perp_rot = spatial.rotation_to_z(direction)
+    verts = (_rotate_rows(perp_rot, torch.stack(
+        [rs * torch.cos(phi), rs * torch.sin(phi), zs], dim=1))
+        + torch.as_tensor(center, dtype=dtype, device=device))
+    return RayBundle.create(pos=verts,
+                            dir=_rotate_rows(perp_rot, local_unit),
+                            energy=energy, device=device)
+
+
+def vf_frustum_bundle(generator, num_rays: int, r0: float, r1: float,
+                      depth: float, center, direction,
+                      flux: Optional[float] = None, rays_in: bool = True,
+                      angular_span=(0.0, 2.0 * np.pi),
+                      angular_range: float = np.pi / 2,
+                      dtype=torch.float32, device=None) -> RayBundle:
+    """Lambertian emitter over a frustum wall from (z=0, r0) to
+    (z=depth, r1), rays inward when ``rays_in``
+    (tracer_tpu/sources.py:735). Total energy 1 unless ``flux`` is given
+    (then flux times the wall's area)."""
+    device = resolve(device)
+    center, direction = _as_row3(center), _as_row3(direction)
+    dir_flat = pillbox_sunshape_directions(generator, num_rays,
+                                           angular_range, dtype, device)
+    c = (r1 - r0) / depth
+    u = _uniform(generator, num_rays, dtype, device)
+    rs = torch.sqrt((r1 ** 2 - r0 ** 2) * u + r0 ** 2)
+    zs = (rs - r0) / c
+    phi = _uniform(generator, num_rays, dtype, device, *angular_span)
+    # the pillbox about +z onto the inward wall normal: roty(-pi/2 +
+    # atan(c)), then rotz(phi)
+    local_unit = _rotz_rows(phi, _rotate_rows(
+        spatial.roty(-np.pi / 2 + np.arctan(c))[:3, :3], dir_flat))
+    if not rays_in:
+        local_unit = -local_unit
+    if flux is None:
+        e = 1.0 / num_rays
+    else:
+        e = flux * ((angular_span[1] - angular_span[0]) * (r1 + r0) / 2.0
+                    * np.sqrt(abs(r1 - r0) ** 2 + depth ** 2)) / num_rays
+    return _wall_bundle(phi, rs, zs, local_unit, center, direction,
+                        torch.full((num_rays,), float(e), dtype=dtype,
+                                   device=device), dtype, device)
+
+
+def vf_cylinder_bundle(generator, num_rays: int, rc: float, lc: float,
+                       center, direction, flux: Optional[float] = None,
+                       rays_in: bool = True,
+                       angular_span=(0.0, 2.0 * np.pi),
+                       ang_range: float = np.pi / 2, dtype=torch.float32,
+                       device=None) -> RayBundle:
+    """Lambertian emitter over a cylinder wall centred on the wall's mid
+    height (tracer_tpu/sources.py:778)."""
+    device = resolve(device)
+    center, direction = _as_row3(center), _as_row3(direction)
+    zs = lc * _uniform(generator, num_rays, dtype, device) - lc / 2.0
+    phi = _uniform(generator, num_rays, dtype, device, *angular_span)
+    dir_flat = pillbox_sunshape_directions(generator, num_rays, ang_range,
+                                           dtype, device)
+    local_unit = _rotz_rows(phi, _rotate_rows(
+        spatial.roty(-np.pi / 2)[:3, :3], dir_flat))
+    if not rays_in:
+        local_unit = -local_unit
+    if flux is None:
+        e = 1.0 / num_rays
+    else:
+        e = flux * rc * (angular_span[1] - angular_span[0]) * lc / num_rays
+    return _wall_bundle(phi, torch.full_like(zs, rc), zs, local_unit, center,
+                        direction, torch.full((num_rays,), float(e),
+                                              dtype=dtype, device=device),
+                        dtype, device)
+
+
+def gray_source(generator, shape: dict, location, direction, num_rays: int,
+                directions_distribution: dict, energy: float,
+                rays_direction=None, dtype=torch.float32,
+                device=None) -> RayBundle:
+    """General gray source composer (tracer_tpu/sources.py:813):
+    ``shape`` and ``directions_distribution`` are {'type': name,
+    'kwargs': {...}} dicts resolved against the shape samplers and
+    direction distributions of :mod:`sampling`."""
+    device = resolve(device)
+    location, direction = _as_row3(location), _as_row3(direction)
+    shape_fns = dict(disk=smp.disk_sampling, rectangle=smp.rectangle_sampling,
+                     triangle=smp.triangle_sampling,
+                     polygon=smp.polygon_sampling,
+                     cylinder=smp.cylinder_sampling,
+                     frustum=smp.frustum_sampling, sphere=smp.sphere_sampling)
+    verts, normals = shape_fns[shape["type"]](
+        generator, ns=num_rays, dtype=dtype, device=device,
+        **shape["kwargs"])
+    rot = spatial.rotation_to_z(direction)
+    verts = (_rotate_rows(rot, verts)
+             + torch.as_tensor(location, dtype=dtype, device=device))
+    normals = _rotate_rows(rot, normals)
+    dd = directions_distribution
+    if dd["type"].lower() != "lambertian":
+        raise ValueError(f"unknown directions distribution {dd['type']}")
+    dirs = smp.lambertian_directions_sampling(
+        generator, num_rays, normals=normals, dtype=dtype, device=device,
+        **dd.get("kwargs", {}))
+    e = energy / num_rays
+    if rays_direction is not None:
+        e = e * np.cos(float(np.dot(_as_row3(rays_direction), direction)))
+    return RayBundle.create(pos=verts, dir=dirs,
+                            energy=torch.full((num_rays,), float(e),
+                                              dtype=dtype, device=device),
+                            device=device)
+
+
+def spectral_band_axisymmetrical_thermal_emission_source(
+        generator, positions, normals, area, thetas, band_emittance,
+        T: float, nrays: int, band, ref_index: float = 1.0,
+        dtype=torch.float32, device=None) -> RayBundle:
+    """Thermal emitter over a spectral band with a directional emittance
+    (tracer_tpu/sources.py:852): the Planck-integrated band radiance,
+    directions importance-sampled from emittance(theta) cos sin, energies
+    summing to the exitance times ``area``, every ray at the band's
+    Planck-weighted mean wavelength."""
+    device = resolve(device)
+    thetas = np.asarray(thetas, dtype=float)
+    wls = np.linspace(band[0], band[1],
+                      max(int((band[1] - band[0]) / 1e-9), 16))
+    bb = np.asarray(planck(wls, T))
+    radiance = (np.broadcast_to(np.asarray(band_emittance, dtype=float),
+                                thetas.shape) * np.trapezoid(bb, wls))
+    th_rays, weights = PWLinCosSinDistribution(thetas, radiance).sample(
+        generator, nrays, dtype, device)
+    exitance = 2.0 * np.pi * np.trapezoid(
+        radiance * np.cos(thetas) * np.sin(thetas), thetas)
+    phis = _uniform(generator, nrays, dtype, device, 0.0, 2.0 * np.pi)
+    s = torch.sin(th_rays)
+    local = torch.stack([s * torch.cos(phis), s * torch.sin(phis),
+                         torch.cos(th_rays)], dim=1)
+    nrm = torch.as_tensor(np.asarray(normals, dtype=float), dtype=dtype,
+                          device=device).expand(nrays, 3)
+    return RayBundle.create(
+        pos=torch.as_tensor(np.asarray(positions, dtype=float), dtype=dtype,
+                            device=device),
+        dir=rotate_to_normal(local, nrm),
+        energy=weights / weights.sum() * float(exitance * area),
+        wavelength=float(np.sum(wls * bb) / np.sum(bb)),
+        ref_index=ref_index, device=device)
