@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py             # every phase, about thirteen minutes
+    python3 chip_smoke.py             # every phase, 13-15 minutes
     python3 chip_smoke.py --profile   # plus a torch.profiler breakdown
                                       # of one NSTTF bench-size trace
 
@@ -203,7 +203,26 @@ Phases, each printing its lines:
    at most 1e-5 of the NSTTF lanes (plus one) with a flipped sid and each
    surface within 1e-5 of the source (plus the flipped lanes' energy);
    the polychromatic shares within 3 combined sigma of phase 7's
-   monochromatic megakernel trace of config 3.
+   monochromatic megakernel trace of config 3;
+15. differentiable tracing and the field analyses: config 9
+   (benchmarks/suite.py:569-644: the dish's focal-length gradient step,
+   1,048,576 rays, 3 bounces, checkpointed; 2 rows, so the oracle's
+   brute force and no kernel) and config 9b (:647-683: the NSTTF beam-tilt
+   step, 1,048,576 rays, 2 bounces, checkpointed; every bounce's winner
+   from K3 under no_grad, its distance recomputed differentiably), each a
+   warm-up and three timed steps (median wall, Mrays/s, peak memory, K3's
+   launches), one profiled step (K3's share, the gather backward, the
+   host's idle share) and one profiled forward (what the checkpoint
+   recomputes); 9b's step at 65,536 rays with K3 and with its plain
+   version (tests/test_torch_gpu.fast_winner_compare: loss and gradient
+   within its derived tolerance, the flipped sids printed); config 9 in
+   float32 on the card against float64 on the CPU at 65,536 rays (rtol
+   1e-4 on the loss, 1e-3 on the gradient); field_losses on phase 14's
+   NSTTF ray_tracer (262,144 rays; both audits below 1e-5 of the
+   source); an annual efficiency_sweep of the NSTTF field at three noon
+   positions, culled (K1), 4,194,304 rays a position (|closure| < 5e-3,
+   efficiency and cosine efficiency in (0, 1), each position's host build
+   and trace walls).
 
 Every kernel's launch count is set to 0 just before a main path runs and
 read just after. The line before the last is the kernels' JSON record;
@@ -676,6 +695,13 @@ def main(argv) -> None:
     # polychromatic bundle on config 3
     record["kernels"][2]["launches"] += cavity_phase(
         dev, card, kb, kn, physics, (table, meta, info))
+
+    # ---- phase 15: configs 9 and 9b (differentiable tracing, 9b's winners
+    # on K3 under no_grad), field_losses and an annual sweep of the NSTTF
+    # field
+    for k, n in zip(record["kernels"], diff_phase(dev, card, kb, kn,
+                                                   (table, meta, info))):
+        k["launches"] += n
     for k in record["kernels"]:
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
     print(json.dumps(record))
@@ -992,9 +1018,25 @@ def minidish_phase(dev, card, kn, kb):
 
 
 def profile_path(label, run, name, kernel_key, card, top=8):
-    """One profiled run: device busy time (summed over device events
-    only) and the share of kernel ``name`` (events whose key holds
-    ``kernel_key``), then the largest device events."""
+    """One profiled run (profile_run): device busy time and the share of
+    kernel ``name`` (events whose key holds ``kernel_key``), then the
+    largest device events."""
+    p = profile_run(run, kernel_key, top)
+    check(p["kernel"] > 0, f"profile: no device time for {name}")
+    log(f"{label} profile: wall {p['wall']:.1f} ms under the profiler, "
+        f"device busy {p['busy']:.1f} ms in {p['events']} device events, "
+        f"{name} {p['kernel']:.2f} ms = {100 * p['kernel'] / p['busy']:.1f}%"
+        f" of device time ({card})")
+
+
+def profile_run(run, kernel_key="nearest_kernel", top=8):
+    """torch.profiler over one call of ``run``: its wall (ms), the device
+    busy time (summed over device events only: an operator's own row
+    repeats its kernels' time), the kernel's device time (events whose key
+    holds ``kernel_key``), the gather backward's (the IndexSelect and
+    Index autograd nodes' device time: index_add_ and index_put_ with
+    accumulate into the gathered tables) and the device's idle share of
+    the wall. Logs the ``top`` largest device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -1006,19 +1048,26 @@ def profile_path(label, run, name, kernel_key, card, top=8):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
+    ev = prof.key_averages()
+    dev = [e for e in ev if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in dev)
-    k_us = sum(e.self_device_time_total for e in dev if kernel_key in e.key)
-    check(dev_us > 0 and k_us > 0, f"profile: no device time for {name}")
-    log(f"{label} profile: wall {wall * 1e3:.1f} ms under the profiler, "
-        f"device busy {dev_us / 1e3:.1f} ms in {sum(e.count for e in dev)}"
-        f" device events, {name} {k_us / 1e3:.2f} ms = "
-        f"{100 * k_us / dev_us:.1f}% of device time ({card})")
+    check(dev_us > 0, "profile: the profiler recorded no device events")
+    host = {e.key: e.device_time_total for e in ev
+            if e.device_type == DeviceType.CPU}
+    gather = sum(max(host.get(n, 0.0), host.get(
+        "autograd::engine::evaluate_function: " + n, 0.0))
+        for n in ("IndexSelectBackward0", "IndexBackward0"))
+    out = dict(wall=wall * 1e3, busy=dev_us / 1e3,
+               events=sum(e.count for e in dev),
+               kernel=sum(e.self_device_time_total for e in dev
+                          if kernel_key in e.key) / 1e3,
+               gather=gather / 1e3)
+    out["idle"] = 1.0 - out["busy"] / out["wall"]
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms "
             f"({100 * e.self_device_time_total / dev_us:4.1f}%) "
             f"{e.count:6d}x {e.key[:80]}")
+    return out
 
 
 BENCH_SLAB = 228 * 3072       # the suite's slab: 228 tiles of 3072 lanes
@@ -2599,6 +2648,230 @@ def cavity_phase(dev, card, kb, kn, physics, nsttf):
         + " (megakernel " + ", ".join(f"{x:.5f}" for x in q) + f"), closure "
         f"{b['closure'] / se:.1e}; wall {wall:.3f} s ({card})")
     log(f"phase 14: {time.perf_counter() - t14:.1f} s")
+    return launches
+
+
+# phase 15: differentiable tracing and the field analyses
+DIFF_RAYS = 1 << 20           # configs 9 and 9b (benchmarks/suite.py:608,
+#                               :647)
+DIFF_CHECK_RAYS = 65_536      # K3 against its plain version in 9b's step,
+#                               config 9 on the card against the CPU
+SWEEP_RAYS = 4_194_304        # rays a position of the annual sweep
+SWEEP_SLAB = 342 * 3072       # its slab: 342 ray tiles
+NSTTF_LATITUDE = 34.96        # Sandia NSTTF, Albuquerque [deg N]
+
+
+def diff_step_phase(label, make, params, dev, card, kb, kn):
+    """A gradient step at the suite's size: ``make()`` builds it; the
+    launch counts and the peak memory are reset before it, then a warm-up
+    (loss finite and positive, gradient finite and not 0) and three timed
+    calls (bench_configs._time_step), then one profiled step and one
+    profiled forward (the loss alone, which the checkpoint recomputes in
+    the backward). Returns (step, K3 launches of the four calls)."""
+    import torch
+    from tracer_tpu_torch.models.bench_configs import _time_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
+                   kn.nearest_hit)
+    step, table, beam = make()
+    r = _time_step(step, params, dev)
+    l3 = kn.nearest_hit.launches
+    check(kb.bounce_reflect_culled.launches == kb.bounce_reflect.launches
+          == 0, f"{label}: K1 or K2 launched")
+    peak = torch.cuda.max_memory_allocated(dev)
+    n = beam.num_rays
+    log(f"{label}: {table.num_rows} rows, {n} rays, loss {r['loss']:.6g}, "
+        f"gradient {r['grad']:.6g}; step walls "
+        + ", ".join(f"{w:.4f}" for w in r["walls"])
+        + f" s, median {r['wall']:.4f} s = {n / r['wall'] / 1e6:.2f} "
+        f"Mrays/s; K3 launches {l3} in {len(params)} steps; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB allocated ({(peak - base) / 2 ** 30:.2f}"
+        f" GiB over the {base / 2 ** 30:.2f} held before) ({card})")
+    p = profile_run(lambda: step(params[1]))
+    x = torch.tensor(float(params[1]), dtype=beam.pos.dtype, device=dev,
+                     requires_grad=True)
+    f = profile_run(lambda: step.loss(x), top=0)
+    log(f"{label} profile of one step: wall {p['wall']:.1f} ms under the "
+        f"profiler, device busy {p['busy']:.1f} ms in {p['events']} device "
+        f"events, host-bound idle {100 * p['idle']:.1f}%; K3 "
+        f"{p['kernel']:.2f} ms ({100 * p['kernel'] / p['busy']:.1f}%), the "
+        f"gather backward "
+        f"{p['gather']:.2f} ms ({100 * p['gather'] / p['busy']:.1f}%), the "
+        f"forward (what the checkpoint recomputes) {f['busy']:.1f} ms of "
+        f"device time in {f['wall']:.1f} ms ({card})")
+    return step, l3, r
+
+
+def diff_phase(dev, card, kb, kn, nsttf):
+    """Phase 15. (a) Config 9 at the suite's size (1,048,576 rays, 3
+    bounces, checkpoint): its 2 rows take the differentiable brute
+    force, so no kernel launches. (b) Config 9b (1,048,576 rays through
+    the 219-row NSTTF table, 2 bounces, checkpoint): the winner of every
+    bounce from K3 under no_grad, launched in the forward and again in
+    the checkpoint's recompute. Each: loss and gradient finite, the
+    gradient not 0; the median wall of three steps after a warm-up in
+    Mrays/s; the peak memory; one profiled step (K3's share, the gather
+    backward, the host's idle share) and one profiled forward. (c) 9b's
+    step at 65,536 rays with K3 and with K3's plain version on the card,
+    the same seeds (tests/test_torch_gpu.fast_winner_compare, which
+    states the tolerance). (d) Config 9 in float32 on
+    the card against the port in float64 on the CPU, one beam cast to
+    each, 65,536 rays, 2 bounces: rtol 1e-4 on the loss, 1e-3 on the
+    gradient (a float32 hit point carries ~1e-6 m of rounding against the
+    f = 1.7 spot's ~0.1 m). (e) field_losses on phase 14's NSTTF
+    ray_tracer (262,144 rays, records): both audits below 1e-5 of the
+    source. (f) efficiency_sweep of the NSTTF field at three noon
+    positions (annual_sun_grid at the site's latitude, 3 days), culled,
+    4,194,304 rays a position: |closure| < 5e-3, efficiency and cosine
+    efficiency in (0, 1), each position's host build and trace walls.
+    Between (b) and (c), the row gather's forward and backward at 9's and
+    9b's table sizes, by index_select and by t[s]. Returns the main
+    paths' launches (K1, K2, K3)."""
+    import numpy as np
+    import torch
+    from tracer_tpu_torch.analysis.annual import (annual_sun_grid,
+                                                  efficiency_sweep)
+    from tracer_tpu_torch.analysis.losses import (field_losses,
+                                                  projected_areas)
+    from tracer_tpu_torch.engine import TracerEngine
+    from tracer_tpu_torch.models.bench_configs import (diff_gradient_step,
+                                                       dish_beam,
+                                                       field_gradient_step)
+    from tracer_tpu_torch.models.nsttf import make_source_fn
+    t15 = time.perf_counter()
+    launches = [0, 0, 0]
+
+    # (a) config 9 and (b) config 9b at the suite's size
+    _, l3, _ = diff_step_phase(
+        "config 9 gradient step (dish focal length, brute force)",
+        lambda: diff_gradient_step(DIFF_RAYS, 3, device=dev),
+        [1.7 + 0.01 * i for i in range(4)], dev, card, kb, kn)
+    check(l3 == 0, f"config 9: {l3} K3 launches on a 2-row scene")
+    _, l3, r9b = diff_step_phase(
+        "config 9b gradient step (NSTTF beam tilt, K3's fast winner)",
+        lambda: field_gradient_step(DIFF_RAYS, 2, device=dev),
+        [1e-4 * i for i in range(4)], dev, card, kb, kn)
+    check(l3 > 0 and l3 % 4 == 0, f"config 9b: {l3} K3 launches in four "
+          "steps: the fast winner did not run on K3")
+    log(f"config 9b: {l3 // 4} K3 launches a step (2 bounces, forward and "
+        f"the checkpoint's recompute) ({card})")
+    launches[2] += l3
+
+    # the gather backward the step pays: a scene table's row gather of
+    # every lane, as the shade and _candidate_t make it (index_select,
+    # whose backward is index_add_), against t[s] (index_put_ with
+    # accumulate: sorted indices, each row's duplicates summed serially)
+    for rows in (2, 219):
+        tab = torch.randn(rows, 16, device=dev, requires_grad=True)
+        idx = torch.randint(0, rows, (DIFF_RAYS,), device=dev)
+        g = torch.randn(DIFF_RAYS, 16, device=dev)
+        ms = [time_cuda(lambda: torch.autograd.grad(fn(), tab, g), 5)
+              for fn in (lambda: tab.index_select(0, idx), lambda: tab[idx])]
+        log(f"row gather of {DIFF_RAYS} lanes from a ({rows}, 16) table, "
+            f"forward and backward: index_select {ms[0]:.3f} ms, t[s] "
+            f"{ms[1]:.3f} ms ({card})")
+    del tab, idx, g
+
+    # (c) K3 against its plain version inside 9b's step
+    from test_torch_gpu import fast_winner_compare
+    step, table, beam = field_gradient_step(DIFF_CHECK_RAYS, 2, device=dev)
+    c = fast_winner_compare(step, table, beam)
+    (lk, lp), (gk, gp) = c["loss"], c["grad"]
+    log(f"config 9b step with K3 against its plain version "
+        f"({DIFF_CHECK_RAYS} rays, 2 bounces, same seeds): loss {lk:.7g} "
+        f"against {lp:.7g} (difference {abs(lk - lp):.2e}, tolerance "
+        f"{c['tol_loss']:.2e}), gradient {gk:.7g} against {gp:.7g} "
+        f"(difference {abs(gk - gp):.2e}, tolerance {c['tol_grad']:.2e}); "
+        f"{c['flipped']} lanes with a flipped sid in either bounce ({card})")
+    check(abs(lk - lp) <= c["tol_loss"] and abs(gk - gp) <= c["tol_grad"],
+          "config 9b: the step with K3 disagrees with its plain version")
+
+    # (d) config 9: the card in float32 against the CPU in float64
+    beam64 = dish_beam(DIFF_CHECK_RAYS, torch.float64, "cpu")
+    got = diff_gradient_step(DIFF_CHECK_RAYS, 2, device=dev,
+                             beam=beam64)[0](1.7)
+    want = diff_gradient_step(DIFF_CHECK_RAYS, 2, dtype=torch.float64,
+                              device="cpu", beam=beam64)[0](1.7)
+    (l32, g32), (l64, g64) = ([float(v) for v in x] for x in (got, want))
+    log(f"config 9 in float32 on the card against float64 on the CPU "
+        f"({DIFF_CHECK_RAYS} rays, 2 bounces, f = 1.7): loss {l32:.7g} / "
+        f"{l64:.7g} (relative {l32 / l64 - 1:.2e}, rtol 1e-4), gradient "
+        f"{g32:.7g} / {g64:.7g} (relative {g32 / g64 - 1:.2e}, rtol 1e-3) "
+        f"({card})")
+    check(abs(l32 / l64 - 1) < 1e-4 and abs(g32 / g64 - 1) < 1e-3,
+          "config 9: float32 on the card differs from the CPU's float64")
+    del step, table, beam
+
+    # (e) field_losses on phase 14's NSTTF ray_tracer
+    table, meta, info = nsttf
+    bundle = make_source_fn(info, ACCEL_RAYS)(
+        torch.Generator(device=dev).manual_seed(14), device=dev)
+    reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
+                   kn.nearest_hit)
+    t0 = time.perf_counter()
+    res = TracerEngine(table, meta).ray_tracer(
+        bundle, reps=8, generator=torch.Generator(device=dev).manual_seed(15))
+    wall = time.perf_counter() - t0
+    launches[2] += kn.nearest_hit.launches
+    check(kn.nearest_hit.launches == len(res.records) > 1,
+          "field_losses: K3 not once a bounce")
+    t0 = time.perf_counter()
+    fl = field_losses(res, flux=1000.0, proj_areas=projected_areas(
+        info["normals"], info["sun"], 6.1 ** 2))
+    t_fl = time.perf_counter() - t0
+    src = fl["source"]
+    a_src = abs(fl["audit_source"]) / src
+    a_h = float(np.abs(fl["audit_per_heliostat"]).max()) / src
+    log(f"field_losses on the NSTTF ray_tracer ({ACCEL_RAYS} rays, "
+        f"{len(res.records)} bounces, trace {wall:.3f} s, attribution "
+        f"{t_fl * 1e3:.0f} ms): source {src / 1e3:.2f} kW, incoming "
+        f"{fl['incoming'].sum() / 1e3:.2f}, shading "
+        f"{fl['shading'].sum() / 1e3:.2f}, mirror "
+        f"{fl['mirror'].sum() / 1e3:.2f}, blocked "
+        f"{fl['blocked'].sum() / 1e3:.3f}, spilled "
+        f"{fl['spilled'].sum() / 1e3:.2f}, delivered "
+        f"{fl['delivered'].sum() / 1e3:.2f}, other "
+        f"{fl['other'].sum() / 1e3:.3f}, direct receiver "
+        f"{fl['direct_receiver'] / 1e3:.3f}, escaped "
+        f"{fl['escaped_source'] / 1e3:.2f} kW; audits {a_src:.1e} (source) "
+        f"and {a_h:.1e} (largest heliostat) of the source ({card})")
+    check(a_src < 1e-5 and a_h < 1e-5, "field_losses: an audit fails")
+    del res
+
+    # (f) a three-position annual sweep of the NSTTF field, culled
+    angles = annual_sun_grid(np.deg2rad(NSTTF_LATITUDE), n_days=3,
+                             n_hours=1)
+    check(len(angles) == 3, f"{len(angles)} sweep positions")
+    reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
+                   kn.nearest_hit)
+    sw = efficiency_sweep(info["assembly"], info["field"], angles,
+                          total_mirror_area=len(info["positions"]) * 6.1 ** 2,
+                          rays_per_position=SWEEP_RAYS, slab=SWEEP_SLAB,
+                          use_culling=True, generator=21, device=dev)
+    launches[0] += kb.bounce_reflect_culled.launches
+    launches[1] += kb.bounce_reflect.launches
+    check(kb.bounce_reflect_culled.launches > 0 and kn.nearest_hit.launches
+          == 0, "annual sweep: not on K1")
+    for i in range(3):
+        log(f"annual sweep position {i}: azimuth {sw['azimuth'][i]:.4f}, "
+            f"zenith {sw['zenith'][i]:.4f}, weight {sw['weight'][i]:.1f} h, "
+            f"receiver {sw['receiver_kw'][i]:.1f} kW, efficiency "
+            f"{sw['efficiency'][i]:.5f}, cosine efficiency "
+            f"{sw['cosine_eff'][i]:.5f}, closure {sw['closure'][i]:.1e}; "
+            f"host build (table and culling) {sw['build_s'][i]:.2f} s, "
+            f"trace {sw['trace_s'][i]:.3f} s ({card})")
+        check(abs(sw["closure"][i]) < 5e-3
+              and 0.0 < sw["efficiency"][i] < 1.0
+              and 0.0 < sw["cosine_eff"][i] < 1.0,
+              f"annual sweep position {i} fails its guards")
+    log(f"annual sweep: {SWEEP_RAYS} rays a position (slab {SWEEP_SLAB}), "
+        f"K1 launches {kb.bounce_reflect_culled.launches}, K2 "
+        f"{kb.bounce_reflect.launches}; annual efficiency "
+        f"{sw['annual_efficiency']:.5f} ({sw['excluded_hours']:.0f} h "
+        f"excluded), {sw['annual_receiver_mwh']:.1f} MWh ({card})")
+    log(f"phase 15: {time.perf_counter() - t15:.1f} s")
     return launches
 
 

@@ -1434,3 +1434,97 @@ def test_split_stream_closes_on_gpu(cuda_device):
     assert kb.bounce_reflect.launches > n2 + 4
     assert (kb.bounce_reflect_culled.launches, kn.nearest_hit.launches) \
         == (n1, n3)
+
+
+# ---- the differentiable bounce's fast winner (diff.trace_diff) ------------
+
+# config 9b's receiver: the largest local |r| on the 11 x 11 m plate, and a
+# bound on how far a receiver hit moves per radian of beam tilt: the tilt
+# moves the ray's mirror hit by up to the 300 m source standoff and turns
+# the reflected ray by twice the tilt over up to 150 m to the tower
+RECEIVER_R = 5.5 * 2 ** 0.5
+TILT_ARM = 300.0 + 2.0 * 150.0
+# float32 sums of a bin's lanes in another order (index_add's atomics): up
+# to 2,048 lanes a bin copy at 6e-8 each, ~1.2e-4 of the sum at worst
+SUM_RTOL = 2e-4
+
+
+def fast_winner_compare(step, table, beam) -> dict:
+    """Config 9b's gradient step (bench_configs.field_gradient_step) with
+    K3 choosing every bounce's winners and again with K3's plain version
+    in its place, the same seeds. The recompute of the winner's distance
+    is the same code both times, so the two differ by the lanes whose
+    winner flipped (ties at aperture edges) and by the order of float32
+    atomic sums. The tolerance: SUM_RTOL of the value, plus for each
+    flipped lane at most its energy w times (RECEIVER_R^2 + loss) over the
+    receiver's power p on the loss (it can move between the receiver and
+    elsewhere with its moment), and w 2 RECEIVER_R TILT_ARM / p on the
+    gradient (its term of d(loss)/da; the pathwise absorbed power does
+    not move with the tilt). Returns dict(loss=(K3's, plain), grad=(K3's,
+    plain), flipped lanes, tol_loss, tol_grad)."""
+    from tracer_tpu_torch import diff
+    real = kn.nearest_hit
+    runs = {}
+    for name, fn in (("K3", real), ("plain", kn.nearest_hit_ref)):
+        sids = []
+
+        def spy(*args, **kw):
+            out = fn(*args, **kw)
+            sids.append(out[1].clone())
+            return out
+        spy.launches = 0           # comparison launches count nowhere
+        kn.nearest_hit = spy
+        try:
+            loss, g = step(0.0)
+        finally:
+            kn.nearest_hit = real
+        # two bounces, each in the forward and in the checkpoint's
+        # recompute
+        assert len(sids) == 4, len(sids)
+        runs[name] = (float(loss), float(g), sids[:2])
+    (lk, gk, sk), (lp, gp, sp_) = runs["K3"], runs["plain"]
+    flipped = (sk[0] != sp_[0]) | (sk[1] != sp_[1])
+    with torch.no_grad():
+        _, mom = diff.trace_diff(table, beam, 1, bounces=2)
+    p = float(mom.absorbed[torch.as_tensor(
+        step.receiver_rows, device=table.device)].double().sum())
+    w = float(beam.energy[flipped].double().sum())
+    return dict(loss=(lk, lp), grad=(gk, gp), flipped=int(flipped.sum()),
+                tol_loss=SUM_RTOL * abs(lp) + w * (RECEIVER_R ** 2
+                                                   + abs(lp)) / p,
+                tol_grad=SUM_RTOL * abs(gp)
+                + w * 2.0 * RECEIVER_R * TILT_ARM / p)
+
+
+@pytest.mark.cuda
+def test_fast_winner_gradient_k3_matches_plain_on_gpu(cuda_device):
+    """Config 9b's step at 65,536 rays, 2 bounces: K3 launched in every
+    bounce's forward and recompute, and the loss and gradient within
+    fast_winner_compare's tolerance of the step with K3's plain version."""
+    from tracer_tpu_torch.models.bench_configs import field_gradient_step
+    step, table, beam = field_gradient_step(65_536, 2, device=cuda_device)
+    kn.nearest_hit.launches = 0
+    loss, g = step(0.0)
+    assert kn.nearest_hit.launches == 4
+    assert torch.isfinite(loss) and torch.isfinite(g) and float(g) != 0.0
+    c = fast_winner_compare(step, table, beam)
+    assert abs(c["loss"][0] - c["loss"][1]) <= c["tol_loss"], c
+    assert abs(c["grad"][0] - c["grad"][1]) <= c["tol_grad"], c
+
+
+@pytest.mark.cuda
+def test_diff_dish_float32_on_gpu_matches_float64_on_cpu(cuda_device):
+    """Config 9's step in float32 on the card (the oracle's brute force
+    on CUDA tensors, no kernel) against float64 on the CPU, one beam cast
+    to each, 65,536 rays, 2 bounces: rtol 1e-4 on the loss, 1e-3 on the
+    gradient (chip_smoke.py phase 15 (d) derives them)."""
+    from tracer_tpu_torch.models.bench_configs import (diff_gradient_step,
+                                                       dish_beam)
+    beam = dish_beam(65_536, torch.float64, "cpu")
+    kn.nearest_hit.launches = 0
+    got = diff_gradient_step(65_536, 2, device=cuda_device, beam=beam)[0](1.7)
+    assert kn.nearest_hit.launches == 0
+    want = diff_gradient_step(65_536, 2, dtype=torch.float64, device="cpu",
+                              beam=beam)[0](1.7)
+    np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-4)
+    np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=1e-3)

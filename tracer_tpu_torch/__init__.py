@@ -24,7 +24,12 @@ The slices that run end to end:
 * cavity receivers (bench configuration 5): MC view factors
   (analysis.view_factors, every sample's nearest hit on the nearest-hit
   kernel), the radiosity solve and its autograd twin (analysis.radiosity)
-  and the 2N cavity model (models.two_n_cavity).
+  and the 2N cavity model (models.two_n_cavity);
+* differentiable tracing (diff.trace_diff, bench configurations 9 and 9b)
+  under torch autograd, each winner on the nearest-hit kernel under
+  no_grad in scenes of 48 rows or more; the field analyses: annual
+  efficiency sweeps (analysis.annual), per-heliostat losses
+  (analysis.losses) and the Welford estimator (analysis.estimator).
 
 Entry points put their tensors on the GPU (device.default_device) and
 raise without one unless given ``device="cpu"``. On CPU tensors every

@@ -1180,6 +1180,41 @@ def _media_step(bundle: RayBundle, alive, sid, t, accum: TraceAccum,
             p_scat, d_scat)
 
 
+# rows from which the differentiable bounce picks each ray's winner with
+# K3 and recomputes only its distance (tracer_tpu/engine.py:371-397);
+# below it the brute force costs less than the recompute's gathers
+FAST_WINNER_ROWS = 48
+
+
+def _fast_winner(scene: SceneTable, bundle: RayBundle, t_eps, disc_eps,
+                 block: int):
+    """The differentiable bounce's nearest hit on scenes of
+    FAST_WINNER_ROWS rows or more (tracer_tpu/engine.py:371-397): the
+    winner's row is chosen under no_grad by nearest_hit (K3 on float32
+    rays, on the card its CUDA kernel, which launches or raises; the
+    float64 oracle otherwise), an integer with no gradient, and its
+    distance is recomputed on the live tensors by _candidate_t, so the
+    O(N S) brute force never enters the backward pass. Lanes where the
+    recompute's epsilon ordering rejects the kernel's winner keep the
+    kernel's distance (no gradient there, a set of measure zero) instead
+    of feeding inf downstream.
+
+    _candidate_t gathers each ray's row by index_select, whose backward
+    is index_add_ into the (S, ...) tables. tracer_tpu replaces that
+    scatter by a one-hot matmul (_take_rows) because a TPU serialises
+    scatter-adds; on the card it is an atomic add of a few floats a lane
+    into a table of S rows, so the port keeps it (its cost is measured,
+    chip_smoke.py phase 15)."""
+    from .kernels.intersect import _candidate_t, default_t_eps, nearest_hit
+    te = default_t_eps(bundle.pos.dtype) if t_eps is None else t_eps
+    with torch.no_grad():
+        t_ng, sid = nearest_hit(scene, bundle.pos.detach(),
+                                bundle.dir.detach(), t_eps=te,
+                                disc_eps=disc_eps, block=block)
+    t = _candidate_t(scene, sid, bundle.pos, bundle.dir, te, disc_eps)
+    return torch.where((sid >= 0) & ~torch.isfinite(t), t_ng, t), sid
+
+
 def _bounce_step(scene: SceneTable, bundle: RayBundle, accum: TraceAccum,
                  generator: torch.Generator, min_energy: float, t_eps,
                  disc_eps: float, block: int, count_hits: bool = True,
@@ -1199,7 +1234,11 @@ def _bounce_step(scene: SceneTable, bundle: RayBundle, accum: TraceAccum,
 
     ``cand`` (N, K) int32, the Kd tree's per-ray candidate rows padded
     with -1, replaces the brute-force nearest hit by
-    nearest_hit_candidates (no aux: the shade gathers its rows). A
+    nearest_hit_candidates (no aux: the shade gathers its rows).
+    ``force_jnp`` (diff.trace_diff) keeps every step differentiable: the
+    oracle's brute force below FAST_WINNER_ROWS rows, _fast_winner from
+    there, no aux and never the fused branch. ``accum`` is written in
+    place, so a differentiable caller passes fresh accumulators. A
     polychromatic bundle's spectra are filtered (tracer_tpu/engine.py
     :459-479): rows with a spectral absorptance table (``spectral_alpha``,
     _rows_alpha_on_grid's pair) multiply the spectrum by 1 - alpha on the
@@ -1214,6 +1253,9 @@ def _bounce_step(scene: SceneTable, bundle: RayBundle, accum: TraceAccum,
     if cand is not None:
         t, sid = nearest_hit_candidates(scene, cand, bundle.pos, bundle.dir,
                                         t_eps=t_eps, disc_eps=disc_eps)
+        aux = None
+    elif force_jnp and scene.num_rows >= FAST_WINNER_ROWS:
+        t, sid = _fast_winner(scene, bundle, t_eps, disc_eps, block)
         aux = None
     else:
         t, sid, aux = nearest_hit_aux(scene, bundle.pos, bundle.dir,

@@ -10,8 +10,12 @@ its Pallas kernel:
 * float64 goes through the oracle below, a dtype-generic transcription of
   tracer_tpu's jnp path: every quadric solved with the general
   10-coefficient formula, the L2 self-hit guard, apertures of each group's
-  static signature. It runs on CPU tensors only; float64 on CUDA is not
-  ported (ROADMAP A4).
+  static signature. It runs on CPU tensors; float64 on CUDA is not ported
+  (ROADMAP A4).
+
+The oracle is also the differentiable nearest hit: ``force_jnp`` (the
+switch diff.trace_diff sets, as tracer_tpu's does) pins it for any dtype,
+float32 on CUDA tensors included, since autograd cannot flow through K3.
 
 Numerics follow the reference's: roots by the stable q-formula, the linear
 (A == 0) and B == 0 branches, the discriminant threshold for grazing hits,
@@ -267,14 +271,19 @@ def nearest_hit_candidates(scene, cand, pos, dirs,
 
 
 def _oracle_nearest(scene, pos, dirs, t_eps: float, disc_eps: float,
-                    block: int):
-    if pos.device.type != "cpu":
+                    block: int, force_jnp: bool = False):
+    """Brute-force nearest hit over every group, ``block`` rows at a time,
+    differentiable in every float input. CUDA tensors are taken only in
+    float32 under ``force_jnp`` (the differentiable trace)."""
+    if pos.device.type != "cpu" and not (force_jnp
+                                         and pos.dtype == torch.float32):
         raise NotImplementedError(_F64_CUDA)
     if not scene.groups:
         raise ValueError("SceneTable.groups missing: compile with "
                          "scene.compile_scene")
     t_best = torch.full_like(pos[:, 0], math.inf)
-    sid_best = torch.full(pos[:, 0].shape, -1, dtype=torch.int32)
+    sid_best = torch.full(pos[:, 0].shape, -1, dtype=torch.int32,
+                          device=pos.device)
     for start, end, sig, _tag in scene.groups:
         for s0 in range(start, end, block):
             s1 = min(s0 + block, end)
@@ -324,13 +333,15 @@ def nearest_hit_aux(scene, pos, dirs, t_eps=None, disc_eps: float = 1e-6,
     (N,3), up_dot, kind, flags, p0, p1), which lets the shade pass skip
     its row gather. Returns (t, sid, aux_or_None); the float64 oracle
     gives aux None. ``need_local=False`` skips the local hit point.
-    ``force_jnp`` (tracer_tpu's switch for reverse-mode autodiff) is not
-    ported: differentiable tracing is ROADMAP A12."""
-    if force_jnp:
-        raise NotImplementedError("differentiable tracing (force_jnp) is "
-                                  "not ported yet (ROADMAP A12)")
+    ``force_jnp`` (tracer_tpu's switch for reverse-mode autodiff) pins the
+    differentiable oracle in any dtype and on either device, and returns
+    aux None, as tracer_tpu's nearest_hit(use_pallas=False) does."""
     if t_eps is None:
         t_eps = default_t_eps(pos.dtype)
+    if force_jnp:
+        t, sid = _oracle_nearest(scene, pos, dirs, t_eps, disc_eps,
+                                 block or 16, force_jnp=True)
+        return t, sid, None
     if pos.dtype == torch.float32:
         return _k3(scene, pos, dirs, t_eps, disc_eps, need_local)
     t, sid = _oracle_nearest(scene, pos, dirs, t_eps, disc_eps, block or 16)

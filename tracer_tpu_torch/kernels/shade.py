@@ -152,12 +152,16 @@ def shade(scene, sid, t, pos, dirs, energy, wavelength, ref_index,
         if needs_full_prm:
             prm = scene.opt_params.index_select(0, s)
         else:
-            prm = torch.zeros((n, n_prm), dtype=pos.dtype, device=pos.device)
-            prm[:, 0], prm[:, 1] = aux["p0"], aux["p1"]
+            prm = torch.nn.functional.pad(
+                torch.stack([aux["p0"], aux["p1"]], dim=1), (0, n_prm - 2))
     else:
-        rot = scene.frame[s, :3, :3]                   # (N,3,3)
-        trn = scene.frame[s, :3, 3]
-        quad = scene.quadric[s]
+        # index_select, not t[s]: the backward of a differentiable trace
+        # (diff.trace_diff) is then index_add_, where t[s]'s sorts the
+        # indices and sums each row's duplicates serially
+        fr = scene.frame.index_select(0, s)
+        rot = fr[:, :3, :3]                            # (N,3,3)
+        trn = fr[:, :3, 3]
+        quad = scene.quadric.index_select(0, s)
         prm = scene.opt_params.index_select(0, s)
         kind, flags = scene.opt_kind[s], scene.opt_flags[s]
         # local coordinates p_l = R^T (p - t0)

@@ -7,6 +7,8 @@ matrix-product backend would do.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -28,13 +30,23 @@ def dot(a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 
 def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
-    """sqrt(max(x, 0))."""
-    return torch.sqrt(torch.clamp(x, min=0.0))
+    """sqrt(max(x, 0)) with a zero gradient on the clamped lanes: the
+    double-where form, since sqrt'(0) = inf times the zero cotangent of a
+    masked miss or total-internal-reflection lane would give NaN in
+    reverse mode (diff.trace_diff)."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
 
 
 def safe_arccos(c: torch.Tensor) -> torch.Tensor:
-    """arccos(clip(c, -1, 1))."""
-    return torch.arccos(torch.clamp(c, -1.0, 1.0))
+    """arccos(clip(c, -1, 1)) with a zero gradient at |c| >= 1 instead of
+    the infinite one-sided derivative, so lanes at exactly normal
+    incidence stay differentiable."""
+    cc = torch.clamp(c, -1.0, 1.0)
+    inner = cc.abs() < 1.0
+    return torch.where(inner, torch.arccos(torch.where(inner, cc, 0.0)),
+                       torch.where(cc > 0.0, torch.zeros_like(cc),
+                                   torch.full_like(cc, math.pi)))
 
 
 def rotation_to_z(vecs: torch.Tensor) -> torch.Tensor:

@@ -24,9 +24,19 @@ port's host API.
 "6s". config 6's lens with energy-splitting interfaces (single_ray=False)
    over the same receiver, the suite's "split stream" (suite.py:338-351);
 "7g". config 7's scene glazed: a flat 1.2 x 1.2 m glass cover (n 1 | 1.5,
-   roulette) at z = -1 m between the beam and the target.
+   roulette) at z = -1 m between the beam and the target;
+9. one gradient step of the spot-RMS loss on a 2 m, f = 2 m dish
+   (absorptivity 0.05) with a 0.5 m Lambertian receiver at its focus,
+   under an annular beam, with respect to the focal length
+   (suite.py:569-644: diff_gradient_step and config9_diff_gradient);
+"9b". one gradient step of the receiver spot-RMS loss through the
+   219-row NSTTF table with respect to a global beam tilt
+   (suite.py:647-683): the differentiable bounce's fast winner, K3 under
+   no_grad.
 
-Each runs the plain streaming megakernel, ``engine.trace_streaming``
+Configs 9 and 9b run diff.trace_diff under torch.autograd
+(:func:`diff_gradient_step`, :func:`field_gradient_step`). The others run
+the plain streaming megakernel, ``engine.trace_streaming``
 without culling, but "6s": a scene with energy-splitting interfaces
 streams on the general path, with or without a spec (the suite traces it
 without, :func:`without_spec`); config 7's source without its spec runs
@@ -39,6 +49,8 @@ module never imports tracer_tpu: a caller that wants it passes it in.
 from __future__ import annotations
 
 import importlib
+import statistics
+import time
 
 import numpy as np
 import torch
@@ -235,3 +247,159 @@ def without_spec(source_fn):
         return source_fn(generator, device=device)
     general.num_rays = source_fn.num_rays
     return general
+
+
+def _cast(b, dtype, device):
+    """A bundle's float fields in ``dtype`` on ``device``."""
+    b = b.to(device)
+    return b.replace(**{f: getattr(b, f).to(dtype) for f in
+                        ("pos", "dir", "energy", "wavelength", "ref_index",
+                         "att_coeff", "scat_coeff", "scat_g")})
+
+
+def dish_beam(n_rays: int, dtype=torch.float32, device=None):
+    """Config 9's annular beam (R 0.95 to 0.45 m, 5 m above the dish,
+    1e-4 rad, 1 kW/m^2), seed 9."""
+    return ptt.sources.disk_bundle(
+        torch.Generator().manual_seed(9), n_rays, center=[0.0, 0.0, 5.0],
+        direction=[0.0, 0.0, -1.0], radius=0.95, radius_in=0.45,
+        ang_range=1e-4, flux=1000.0, dtype=dtype, device=device)
+
+
+def diff_gradient_step(n_rays: int, bounces: int = 3,
+                       checkpoint: bool = True, dtype=torch.float32,
+                       device=None, beam=None):
+    """Config 9's step (benchmarks/suite.py:569): ``step(f)`` returns the
+    spot-RMS loss of the dish's receiver and its gradient with respect to
+    the focal length ``f`` (a float), by trace_diff and
+    torch.autograd.grad (:func:`_grad_step`). The beam (seed 9, or
+    ``beam`` cast to ``dtype`` on the scene's device) and the trace's seed
+    (10) are fixed, so every call traces the same realization. Returns
+    (step, scene, beam)."""
+    G, M, sp, sc = (_mod(ptt, m)
+                    for m in ("geometry", "materials", "spatial", "scene"))
+    from .. import diff
+    f0 = 2.0
+    dish = sc.Surface(G.parabolic_dish(2.0, f0), M.reflective(0.05),
+                      name="dish")
+    recv = sc.Surface(G.rect_plate(0.5, 0.5), M.lambertian(0.95),
+                      location=[0.0, 0.0, f0],
+                      rotation=sp.rotx(np.pi)[:3, :3], name="receiver")
+    table, meta = sc.compile_scene(
+        sc.Assembly([sc.AssembledObject([dish, recv])]), dtype=dtype,
+        device=device)
+    d_rows = np.nonzero(meta.row_logical == meta.index_of("dish"))[0]
+    r_rows = np.nonzero(meta.row_logical == meta.index_of("receiver"))[0]
+    if beam is None:
+        beam = dish_beam(n_rays, dtype, table.device)
+    beam = _cast(beam, dtype, table.device)
+
+    def loss(f):
+        q = 1.0 / (4.0 * f)
+        z = torch.zeros_like(q)
+        quad = torch.stack([q, q, z, z, z, z, z, z, z - 0.5, z])
+        t = diff.with_rows(table, d_rows, quadric=quad[None])
+        _, mom = diff.trace_diff(t, beam, 10, bounces=bounces,
+                                 checkpoint=checkpoint)
+        return diff.spot_rms(mom, r_rows)
+    return _grad_step(loss, dtype, table.device, r_rows), table, beam
+
+
+def field_gradient_step(n_rays: int = 1 << 20, bounces: int = 2,
+                        checkpoint: bool = True, dtype=torch.float32,
+                        device=None):
+    """Config 9b's step (benchmarks/suite.py:647): ``step(a)`` returns
+    the receiver spot-RMS loss through the NSTTF field (218 heliostats
+    and the receiver, 219 rows) and its gradient with respect to a global
+    beam tilt ``a`` about x. The beam is a 160 m disk 300 m up the sun
+    ray at 4.65 mrad (seed 0), the trace's seed 1. Returns (step, scene,
+    beam), step as :func:`diff_gradient_step`'s."""
+    from .. import diff
+    from .nsttf import build_scene
+    table, meta, info = build_scene(218, dtype=dtype, device=device)
+    rec_lid = next(i for i, nm in enumerate(meta.names)
+                   if nm.startswith("rec"))
+    r_rows = np.nonzero(np.asarray(meta.row_logical) == rec_lid)[0]
+    sun = info["sun"]
+    beam = ptt.sources.disk_bundle(
+        torch.Generator().manual_seed(0), n_rays,
+        center=info["field_center"] + sun * 300.0, direction=-sun,
+        radius=160.0, ang_range=4.65e-3, flux=1000.0, dtype=dtype,
+        device=table.device)
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=dtype,
+                      device=table.device).expand_as(beam.dir)
+    side = torch.linalg.cross(ex, beam.dir, dim=1)
+
+    def loss(a):
+        d = beam.dir + a * side
+        d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+        _, mom = diff.trace_diff(table, beam.replace(dir=d), 1,
+                                 bounces=bounces, checkpoint=checkpoint)
+        return diff.spot_rms(mom, r_rows)
+    return _grad_step(loss, dtype, table.device, r_rows), table, beam
+
+
+def _grad_step(loss, dtype, device, receiver_rows):
+    """``step(x)``: the loss at the float ``x`` and its gradient, by
+    torch.autograd.grad; ``step.loss`` is the loss of a tensor and
+    ``step.receiver_rows`` the table rows it reads."""
+    def step(x):
+        x = torch.tensor(float(x), dtype=dtype, device=device,
+                         requires_grad=True)
+        v = loss(x)
+        (g,) = torch.autograd.grad(v, x)
+        return v.detach(), g
+    step.loss = loss
+    step.receiver_rows = receiver_rows
+    return step
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _time_step(step, params, device) -> dict:
+    """One warm-up call at params[0] (loss finite and positive, gradient
+    finite and not 0, as the suite asserts), then one timed call at each
+    of params[1:], each ending in a device synchronization. Returns the
+    warm-up's loss and gradient and the walls."""
+    loss, g = step(params[0])
+    _sync(device)
+    loss, g = float(loss), float(g)
+    if not (np.isfinite(loss) and loss > 0.0):
+        raise AssertionError(f"loss {loss}")
+    if not (np.isfinite(g) and abs(g) > 0.0):
+        raise AssertionError(f"gradient {g}")
+    walls = []
+    for p in params[1:]:
+        t0 = time.perf_counter()
+        step(p)
+        _sync(device)
+        walls.append(time.perf_counter() - t0)
+    return dict(loss=loss, grad=g, walls=walls,
+                wall=statistics.median(walls))
+
+
+def config9_diff_gradient(n_rays: int = 1 << 20, bounces: int = 3,
+                          device=None) -> dict:
+    """Config 9 (benchmarks/suite.py:608): the throughput of the focal-
+    length gradient step, source rays per second of wall, the median of
+    three calls after a warm-up, with the loss and gradient of the
+    warm-up (f = 1.7)."""
+    step, table, _ = diff_gradient_step(n_rays, bounces, device=device)
+    r = _time_step(step, [1.7 + 0.01 * i for i in range(4)], table.device)
+    return dict(metric="diff_gradient_trace_throughput",
+                value=n_rays / r["wall"] / 1e6, unit="Mrays/s",
+                bounces=bounces, **r)
+
+
+def config9b_diff_gradient_field(n_rays: int = 1 << 20, bounces: int = 2,
+                                 device=None) -> dict:
+    """Config 9b (benchmarks/suite.py:647): the throughput of the
+    beam-tilt gradient step through the NSTTF field, as config 9's."""
+    step, table, _ = field_gradient_step(n_rays, bounces, device=device)
+    r = _time_step(step, [1e-4 * i for i in range(4)], table.device)
+    return dict(metric="diff_gradient_field_throughput",
+                value=n_rays / r["wall"] / 1e6, unit="Mrays/s",
+                bounces=bounces, n_rows=int(table.num_rows), **r)

@@ -30,12 +30,15 @@ def build_scene(n_heliostats: int = 218, sigma: float = 1.5e-3,
                 zenith: float = np.pi / 6, dtype=torch.float32,
                 device=None):
     """Returns (table, meta, field_info) for the tracked field + receiver
-    (at most the 218 real heliostat pads)."""
+    (at most the 218 real heliostat pads); field_info holds the pads, the
+    sun vector, the field's centre, the tower height, the mirrors' normals
+    and the Assembly and HeliostatField it was compiled from (which
+    analysis.annual.efficiency_sweep re-aims)."""
     positions = load_heliostat_positions()[:n_heliostats]
     field = HeliostatField(positions, width=6.1, height=6.1,
                            absorptivity=0.1, sigma=sigma, bi_var=True)
     field.set_aim_height(tower_height)
-    field.track_sun(azimuth=azimuth, zenith=zenith)
+    normals = field.track_sun(azimuth=azimuth, zenith=zenith)
 
     # 11x11 m receiver aperture on the tower, tilted toward the field center
     _, rec = one_sided_receiver(11.0, 11.0)
@@ -48,7 +51,8 @@ def build_scene(n_heliostats: int = 218, sigma: float = 1.5e-3,
     asm = Assembly(objects=[rec], subassemblies=[field])
     table, meta = compile_scene(asm, dtype=dtype, device=device)
     info = dict(positions=positions, sun=solar_vector(azimuth, zenith),
-                field_center=center, tower_height=tower_height)
+                field_center=center, tower_height=tower_height,
+                normals=normals, assembly=asm, field=field)
     return table, meta, info
 
 
