@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py             # every phase, 13-15 minutes
+    python3 chip_smoke.py             # every phase, 14-16 minutes
     python3 chip_smoke.py --profile   # plus a torch.profiler breakdown
                                       # of one NSTTF bench-size trace
 
@@ -222,7 +222,23 @@ Phases, each printing its lines:
    source); an annual efficiency_sweep of the NSTTF field at three noon
    positions, culled (K1), 4,194,304 rays a position (|closure| < 5e-3,
    efficiency and cosine efficiency in (0, 1), each position's host build
-   and trace walls).
+   and trace walls);
+16. the model library on K3: (a) a seven-module high-flux solar
+   simulator (models/solar_simulator.high_flux_simulator: Zhu lamps at
+   their default 7 kW, 29.4 kW of light, ellipsoidal reflectors in the
+   general-quadric class, a 0.2 m target of 50 x 50 bins at the common
+   second focus) through SolarSimulator.simulate at 4 batches of
+   7,340,032 rays (closure, emitted power, the map against its records,
+   the wall's shares; one batch again with K3's plain version, flipped
+   and diverged lanes counted, the maps bin by bin); (b) curved device
+   flux maps through trace_fused at 4,194,304 rays (config 5's cavity,
+   its frustum and cylinder binned axially; SG4's outer dish binned
+   polar), each against the energy absorbed on its rows and against the
+   host histogram of a ray_tracer run of the same rays and draws; (c) a
+   CAD receiver written and loaded as STL (1,920 triangle rows, streamed
+   through K3's shared memory) under 1,048,576 rays through ray_tracer:
+   closure, the hit share against the mesh's projected width, K3 against
+   its plain version with its time and bound.
 
 Every kernel's launch count is set to 0 just before a main path runs and
 read just after. The line before the last is the kernels' JSON record;
@@ -702,6 +718,10 @@ def main(argv) -> None:
     for k, n in zip(record["kernels"], diff_phase(dev, card, kb, kn,
                                                    (table, meta, info))):
         k["launches"] += n
+
+    # ---- phase 16: the model library on K3: the seven-module solar
+    # simulator, curved device flux maps, an STL receiver
+    record["kernels"][2]["launches"] += model_phase(dev, card, kb, kn)
     for k in record["kernels"]:
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
     print(json.dumps(record))
@@ -2873,6 +2893,404 @@ def diff_phase(dev, card, kb, kn, nsttf):
         f"excluded), {sw['annual_receiver_mwh']:.1f} MWh ({card})")
     log(f"phase 15: {time.perf_counter() - t15:.1f} s")
     return launches
+
+
+SIM_RAYS = 4_194_304          # phase 16 (a): simulate(nrays=...)
+SIM_BATCH = 1_048_576         # rays a module a batch: 7,340,032 a batch
+CURVED_RAYS = 4_194_304       # phase 16 (b): each curved-map trace
+STL_RAYS = 1_048_576          # phase 16 (c): the STL receiver's rays
+SG4_CPU_RAYS = 262_144        # SG4's lanes held against float64 on the CPU
+
+
+def target_hits(res, target, n):
+    """Every target hit of a ray_tracer run with record="tags", in the
+    order of its key (bounce * n + lane): the key, the plate-local point
+    and the incident energy, and the target's power map of them
+    (Target.power, the binning of Target.evaluate_fluxmap)."""
+    import numpy as np
+    rows = res._rows_of(target.name)
+    keys, locs, es = [], [], []
+    for rec in res.records:
+        m = np.isin(rec.sid.numpy(), rows) & rec.alive_in.numpy()
+        keys.append(int(rec.bounce) * n + rec.slot.numpy()[m])
+        locs.append(rec.local.numpy()[m].astype(float))
+        es.append(rec.e_in.numpy()[m].astype(float))
+    key, loc, e = (np.concatenate(a) for a in (keys, locs, es))
+    order = np.argsort(key, kind="stable")
+    key, loc, e = key[order], loc[order], e[order]
+    return dict(key=key, loc=loc, e=e, map=target.power(loc, e))
+
+
+def simulator_phase(dev, card, kb, kn):
+    """Phase 16 (a): the seven-module high-flux simulator
+    (models/solar_simulator.high_flux_simulator: Zhu lamps at 7 kW, 4.2
+    kW of light each, 29.4 kW in all; a 0.2 m target of 50 x 50 bins at
+    the common second focus) through SolarSimulator.simulate(nrays=
+    4,194,304, ray_batch=1,048,576, reps=20): 4 batches of 7,340,032
+    rays, after one untimed batch. simulate runs on a TracerEngine
+    subclass that keeps each batch's source energy, balance and records'
+    energy on the target (its own time is left out of the wall). Guards:
+    every batch's closure below 1e-4 of its source and its emitted power
+    29.4 kW to 1e-6, the map finite with a non-zero mean and a finite CI,
+    the map's integral the energy the records put on the target to 1e-5,
+    K3 once a bounce and K1 and K2 never. Then one batch again from one
+    generator state with K3 (profiled) and with K3's plain version: at
+    most 1e-5 of the lanes plus one flip their sid in the first bounce;
+    the target hits of the lanes that agree in every bounce are the same
+    (bounce, lane) pairs in both runs, with equal energies and points at
+    most 1e-5 (1 + |p|) apart (rounding); the maps' totals differ by no
+    more than the diverged lanes' energy. Printed: the wall in all and a
+    batch, Mrays/s, K3's launches and its ms a launch on a batch's lamp
+    rays beside its plain version's and its bound, the profiled batch's
+    device time and its device-to-host copies, one batch's host binning
+    (Target.evaluate_fluxmap), the target's share of the lamp power.
+    Returns K3's launches in simulate."""
+    import numpy as np
+    import torch
+    from tracer_tpu_torch.analysis.estimator import Estimator
+    from tracer_tpu_torch.engine import TraceOptions, TracerEngine
+    from tracer_tpu_torch.kernels.bounce import pack_rows
+    from tracer_tpu_torch.models.solar_simulator import high_flux_simulator
+    from test_torch_gpu import k3_compare
+    sim = high_flux_simulator()
+    target = sim.targets[0]
+    batches, audit = [], [0.0]
+
+    class Audited(TracerEngine):
+        def ray_tracer(self, bundle, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            src = float(bundle.energy.double().sum())
+            audit[0] += time.perf_counter() - t0
+            res = super().ray_tracer(bundle, **kw)
+            t0 = time.perf_counter()
+            e_in = res.hits_of(target.name, keys=("e_in",))["e_in"]
+            batches.append(dict(src=src, bal=res.energy_balance(),
+                                e_in=float(e_in.sum())))
+            audit[0] += time.perf_counter() - t0
+            return res
+    engine = Audited(sim, device=dev)
+    table = engine.scene
+    power = sum(m.lamp.P for m in sim.modules)
+    check(len(sim.modules) == 7 and abs(power - 29400.0) < 1e-9,
+          f"simulator: {len(sim.modules)} modules, {power} W")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    sim.simulate(65_536, ray_batch=65_536,
+                 generator=gen, device=dev, engine=engine)
+    target.fluxmap = Estimator()
+    batches.clear()
+    audit[0] = 0.0
+    reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
+                   kn.nearest_hit)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.simulate(SIM_RAYS, ray_batch=SIM_BATCH, generator=gen, reps=20,
+                 device=dev, engine=engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - audit[0]
+    launches = kn.nearest_hit.launches
+    check(kb.bounce_reflect_culled.launches == kb.bounce_reflect.launches
+          == 0, "K1/K2 launched on the simulator")
+    n_batch = len(sim.modules) * SIM_BATCH
+    check(len(batches) == SIM_RAYS // SIM_BATCH, f"{len(batches)} batches")
+    for i, b in enumerate(batches):
+        bal = b["bal"]
+        check(abs(b["src"] - power) < 1e-6 * power,
+              f"simulator batch {i}: emitted {b['src']} W")
+        check(abs(bal["closure"]) < 1e-4 * bal["source"],
+              f"simulator batch {i}: closure {bal['closure']}")
+    mean, ci = np.asarray(target.fluxmap.mean), np.asarray(target.fluxmap.ci)
+    check(mean.shape == (50, 50) and np.isfinite(mean).all()
+          and mean.sum() > 0 and np.isfinite(ci).all(),
+          "simulator: the target map or its CI not finite, or empty")
+    on_target = float(np.mean([b["e_in"] for b in batches]))
+    integral = float((mean * target.areas).sum())
+    check(abs(integral - on_target) <= 1e-5 * on_target,
+          f"simulator: map integral {integral} vs records {on_target}")
+    batch_wall = wall / len(batches)
+
+    # K3 on a batch's lamp rays: time, plain version, bound
+    rays = sim.fire(torch.Generator(device=dev).manual_seed(7), SIM_BATCH,
+                    device=dev)
+    args = (pack_rows(table), rays.pos, rays.dir, table.groups, F32_T_EPS)
+    kw = dict(need_local=True, backside_miss=False)
+    got = kn.nearest_hit(*args, **kw)
+    want = kn.nearest_hit_ref(*args, **kw)
+    ties, flips = k3_compare(got, want, kn.nearest_two_t(*args), rays.pos,
+                             rays.dir, max_flips=int(1e-5 * n_batch) + 1)
+    hit = (want[1] >= 0) & (got[1] == want[1])
+    t_err = float((got[0] - want[0]).abs()[hit].max())
+    del got, want
+    k_ms = min(time_cuda(lambda: kn.nearest_hit(*args, **kw), 10)
+               for _ in range(2))
+    p_ms = time_cuda(lambda: kn.nearest_hit_ref(*args, **kw), 2)
+    bnd = k3_bound(table, n_batch)
+
+    # one batch with K3 (profiled) and with its plain version, one
+    # generator state, on an engine of its own
+    rerun = TracerEngine(sim, device=dev)
+    g = torch.Generator(device=dev).manual_seed(161)
+    state = g.get_state()
+    real, runs, out = kn.nearest_hit, {}, {}
+    for name, fn in (("K3", real), ("plain", kn.nearest_hit_ref)):
+        sids = []
+
+        def spy(*a, fn=fn, sids=sids, **k):
+            o = fn(*a, **k)
+            sids.append(o[1].clone())
+            return o
+        spy.launches = 0           # comparison launches count nowhere
+
+        def run():
+            out[name] = rerun.ray_tracer(
+                sim.fire(g, SIM_BATCH, device=dev), generator=g,
+                opts=TraceOptions(max_bounces=20, record="tags"))
+        g.set_state(state)
+        kn.nearest_hit = spy
+        try:
+            if name == "K3":
+                prof = profile_run(run, kernel_key="DtoH", top=6)
+            else:
+                run()
+        finally:
+            kn.nearest_hit = real
+        runs[name] = (sids, target_hits(out[name], target, n_batch))
+    check(prof["kernel"] > 0, "simulator: the profile shows no "
+          "device-to-host copies")
+    t0 = time.perf_counter()
+    target.evaluate_fluxmap(out["K3"])
+    binning = time.perf_counter() - t0
+    log(f"simulator (7 Zhu modules, {power / 1e3:.1f} kW of lamp light, "
+        f"target 0.2 m, 50 x 50 bins): {len(batches)} batches of {n_batch}"
+        f" rays, {len(batches) * n_batch} in all; wall {wall:.3f} s "
+        f"({batch_wall:.3f} s a batch; the audit's {audit[0]:.3f} s left "
+        f"out), {len(batches) * n_batch / wall / 1e6:.1f} Mrays/s; K3 "
+        f"launches {launches} ({launches / len(batches):.1f} a batch); "
+        f"target {on_target:.1f} W = {on_target / power:.5f} of the lamp "
+        f"power, peak {mean.max() / 1e3:.1f} kW/m^2 (CI {ci.max() / 1e3:.2f})"
+        f"; closures " + ", ".join(f"{b['bal']['closure'] / power:.1e}"
+                                  for b in batches) + f" ({card})")
+    log(f"simulator batch profiled: wall {prof['wall']:.1f} ms under the "
+        f"profiler, device busy {prof['busy']:.1f} ms (idle "
+        f"{100 * prof['idle']:.1f}%), device-to-host copies "
+        f"{prof['kernel']:.1f} ms ({100 * prof['kernel'] / 1e3 / batch_wall:.1f}"
+        f"% of a batch's wall); one batch's host binning "
+        f"(Target.evaluate_fluxmap) {binning:.3f} s "
+        f"({100 * binning / batch_wall:.1f}%) ({card})")
+    log(f"K3 on a simulator batch's lamp rays: {n_batch} lanes, "
+        f"{table.num_rows} rows (seven general quadrics and the target), "
+        f"sid ties {ties}, flips {flips}, max abs err t {t_err:.2e}; kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}); {k3_geometry_line(kn, args[0], n_batch, kw)} ({card})")
+
+    (sk, hk), (sp, hp) = runs["K3"], runs["plain"]
+    diverged = torch.zeros(n_batch, dtype=torch.bool, device=dev)
+    for b in range(max(len(sk), len(sp))):
+        none = torch.full((n_batch,), -1, dtype=torch.int32, device=dev)
+        k3_s = sk[b] if b < len(sk) else none
+        pl_s = sp[b] if b < len(sp) else none
+        if b == 0:
+            first = int((k3_s != pl_s).sum())
+        diverged |= k3_s != pl_s
+    div = diverged.cpu().numpy()
+    # the lanes that agree in every bounce hit the target at the same
+    # (bounce, lane) in both runs, with the same energy, at points that
+    # differ by rounding
+    same = [~div[h["key"] % n_batch] for h in (hk, hp)]
+    check(np.array_equal(hk["key"][same[0]], hp["key"][same[1]]),
+          "simulator: the agreeing lanes' target hits differ")
+    a, b = hk["loc"][same[0]], hp["loc"][same[1]]
+    d_loc = np.abs(a - b).max(axis=1)
+    over = d_loc / (1e-5 * (1.0 + np.abs(a).max(axis=1)))
+    ea, eb = hk["e"][same[0]], hp["e"][same[1]]
+    e_err = float(np.abs(ea - eb).max() / np.abs(ea).max())
+    e_div = float(hk["e"][~same[0]].sum() + hp["e"][~same[1]].sum())
+    tot = abs(float(hk["map"].sum() - hp["map"].sum()))
+    check(first <= int(1e-5 * n_batch) + 1,
+          f"simulator: {first} lanes flipped in the first bounce")
+    check(over.max() <= 1.0, f"simulator: agreeing target hits "
+          f"{d_loc.max()} m apart, {over.max()} x 1e-5 (1 + |p|)")
+    check(e_err <= 1e-6, f"simulator: agreeing target hits' energies "
+          f"differ by {e_err} of the largest")
+    check(tot <= e_div + 1e-6 * float(hk["map"].sum()),
+          f"simulator: map totals differ by {tot} W against {e_div} W "
+          "diverged")
+    diff = np.abs(hk["map"] - hp["map"])
+    log(f"simulator batch with K3 and with its plain version (same "
+        f"generator state, {n_batch} rays, {len(sk)} and {len(sp)} "
+        f"bounces): {first} lanes flipped in the first bounce, "
+        f"{int(div.sum())} diverged in any ({e_div:.4f} W on the target in "
+        f"the two runs); the other {len(a)} target hits at most "
+        f"{d_loc.max():.2e} m apart ({over.max():.3f} of 1e-5 (1 + |p|)), "
+        f"energies within {e_err:.1e}; {int((diff > 0).sum())} bins differ, "
+        f"at most {diff.max():.4f} W of a {hk['map'].max():.2f} W peak bin, "
+        f"totals by {tot:.4f} W ({card})")
+    return launches
+
+
+def curved_maps_phase(dev, card, kb, kn):
+    """Phase 16 (b): curved device flux maps through trace_fused at
+    4,194,304 rays each: config 5's cavity (benchmarks/suite.py:695) lit
+    through its aperture (tests/models/test_model_zoo.py:77-79), its
+    conical frustum and its cylinder binned axially at resolution 50;
+    SG4 at full size (25 m, f = 13.4 m, absMirrors 0.1, sigma 2e-3) under
+    the test's 1,000 W/m^2 sun disk, its outer dish binned polar. Guards:
+    each map's sum the energy absorbed on its rows to 1e-5, trace_fused's
+    closure below 1e-4, and each map within 1e-4 (L1, of its total) of the
+    host histogram (analysis/fluxmap.surface_fluxmap) of a ray_tracer run
+    of the same rays: the two draw the same numbers from the same
+    generator seed (test_torch_gpu.curved_map_compare). Then K3 on SG4's
+    two layers, 1e-4 m apart (test_torch_gpu.sg4_k3_compare): on the
+    4,194,304 sun rays of the first bounce and on the rays that leave
+    the dish after it, against its plain version, and on 262,144 lanes of
+    each against the plain version in float64 on the CPU, with a tie
+    band narrower than the gap; at most 1e-5 of the lanes plus one flip.
+    Returns K3's launches."""
+    import torch
+    from tracer_tpu_torch.models.sg4 import SG4
+    from tracer_tpu_torch.models.two_n_cavity import TwoNParamCav
+    from tracer_tpu_torch.scene import compile_scene
+    from tracer_tpu_torch.sources import solar_disk_bundle
+    from test_torch_gpu import SG4_TIE, curved_map_compare, sg4_k3_compare
+    cases = (
+        ("config 5 cavity", TwoNParamCav(
+            apertureRadius=0.3, frustaRadii=[0.5, 0.5],
+            frustaDepths=[0.4, 0.4], coneDepth=0.3, el_FRUs=[2, 2],
+            el_CON=2), ("frustum_0", "frustum_1"),
+         dict(center=[0, 0, 0.01], direction=[0, 0, 1.0], radius=0.29,
+              ang_range=0.05, flux=5e5), 30),
+        ("SG4", SG4(dishDiameter=25.0, dishFocus=13.4, absMirrors=0.1,
+                    sigma=2e-3), ("dish_outer",),
+         dict(center=[0, 0, 30.0], direction=[0, 0, -1.0], radius=13.0,
+              ang_range=0.005, flux=1000.0), 20))
+    launches = 0
+    for label, asm, names, beam, bounces in cases:
+        table, meta = compile_scene(asm, device=dev)
+        sun = solar_disk_bundle(torch.Generator(device=dev).manual_seed(6),
+                                CURVED_RAYS, device=dev, **beam)
+        src = float(sun.energy.double().sum())
+        reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
+                       kn.nearest_hit)
+        maps, acc, final, wall = curved_map_compare(table, meta, names, sun,
+                                                    16, bounces)
+        launches += kn.nearest_hit.launches
+        check(kb.bounce_reflect_culled.launches == kb.bounce_reflect.launches
+              == 0, f"{label}: K1/K2 launched")
+        closure = (src - float(acc.absorbed.double().sum())
+                   - float(acc.escaped) - float(acc.culled)
+                   - float(final.total_energy())) / src
+        check(abs(closure) < 1e-4, f"{label}: closure {closure}")
+        for nm in names:
+            c = maps[nm]
+            kind = meta.surfaces[meta.index_of(nm)].geometries[0].kind
+            hsum = float(c["hist"].sum())
+            check(c["absorbed"] > 0 and abs(hsum - c["absorbed"])
+                  <= 1e-5 * c["absorbed"],
+                  f"{label} {nm}: map {hsum} vs absorbed {c['absorbed']}")
+            check(c["l1"] < 1e-4, f"{label} {nm}: device map {c['l1']} "
+                  "(L1 over the total) from the host histogram")
+            log(f"{label} device flux map of {nm} ({kind}, 50 x 50): "
+                f"{CURVED_RAYS} rays, absorbed {c['absorbed']:.1f} W "
+                f"({c['absorbed'] / src:.4f} of the source), map sum / "
+                f"absorbed - 1 = {hsum / c['absorbed'] - 1:.1e}, peak "
+                f"{c['device'].max() / 1e3:.2f} kW/m^2, L1 from the host "
+                f"histogram (same generator, same draws) {c['l1']:.1e} of "
+                f"the total ({card})")
+        log(f"{label} trace_fused: {CURVED_RAYS} rays, closure "
+            f"{closure:.1e}, wall {wall:.3f} s, "
+            f"{CURVED_RAYS / wall / 1e6:.1f} Mrays/s, K3 launches in it and "
+            f"the ray_tracer {kn.nearest_hit.launches} ({card})")
+        if label != "SG4":
+            continue
+        for b, c in enumerate(sg4_k3_compare(asm, table, sun, SG4_CPU_RAYS)):
+            log(f"K3 on SG4's layers, bounce {b + 1}: {c['n']} lanes, "
+                f"{c['two']} crossing two rows; against its plain version "
+                f"{c['diff']} sids differ, ties (within {SG4_TIE:g} (L + t))"
+                f" {c['ties']}, flips {c['flips']}; against float64 on the "
+                f"CPU ({c['m']} lanes) {c['diff64']} sids differ, ties "
+                f"{c['ties64']}, flips {c['flips64']} ({card})")
+    return launches
+
+
+def stl_phase(dev, card, kb, kn):
+    """Phase 16 (c): a CAD receiver from STL (test_torch_gpu.stl_receiver:
+    the 48-gon cylinder wall, 1,008 vertices and 1,920 faces, written by
+    make_stl to a temporary directory and loaded by load_stl_into_tracer
+    as a receiving absorber) under 1,048,576 parallel rays across its
+    axis over a 1.2 x 0.9 m window (test_torch_gpu.stl_rays), through
+    ray_tracer on K3. Guards: closure below 1e-5; the hit share the
+    48-gon's projected width (from the mesh's vertices) over 1.2 m within
+    3 binomial sigma; K3 against its plain version on the first bounce
+    (k3_compare: ties on shared edges counted, at most 1e-5 of the lanes
+    plus one flipped). Printed: K3's ms a call on the 1,920-row table
+    beside its plain version's and its bound (k3_bound), its launch
+    geometry. Returns K3's launches."""
+    import tempfile
+    import torch
+    from tracer_tpu_torch.bundle import RayBundle
+    from tracer_tpu_torch.engine import TracerEngine
+    from tracer_tpu_torch.kernels.bounce import pack_rows
+    from test_torch_gpu import STL_WINDOW, k3_compare, stl_rays, stl_receiver
+    with tempfile.TemporaryDirectory() as d:
+        table, meta, verts = stl_receiver(d, dev)
+    check(table.num_rows == 1920 and len(table.groups) == 1,
+          f"STL receiver: {table.num_rows} rows, {table.groups}")
+    n = STL_RAYS
+    pos, dirs = stl_rays(n, 16, dev)
+    bundle = RayBundle.create(pos=pos, dir=dirs, energy=1.0 / n, device=dev)
+    reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
+                   kn.nearest_hit)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = TracerEngine(table, meta).ray_tracer(bundle, reps=4)
+    wall = time.perf_counter() - t0
+    launches = kn.nearest_hit.launches
+    check(launches == len(res.records) and kb.bounce_reflect.launches == 0
+          and kb.bounce_reflect_culled.launches == 0,
+          f"STL: {launches} K3 launches for {len(res.records)} bounces")
+    bal = res.energy_balance()
+    check(abs(bal["closure"]) < 1e-5 * bal["source"],
+          f"STL: closure {bal['closure']}")
+    share = float((res.records[0].sid >= 0).double().mean())
+    p = float(verts[:, 1].max() - verts[:, 1].min()) / STL_WINDOW[0]
+    sig = (p * (1 - p) / n) ** 0.5
+    check(abs(share - p) < 3 * sig, f"STL: hit share {share} vs {p}")
+    rows = pack_rows(table)
+    args = (rows, pos, dirs, table.groups, F32_T_EPS)
+    kw = dict(need_local=True, backside_miss=False)
+    got = kn.nearest_hit(*args, **kw)
+    want = kn.nearest_hit_ref(*args, **kw)
+    ties, flips = k3_compare(got, want, kn.nearest_two_t(*args), pos, dirs,
+                             max_flips=int(1e-5 * n) + 1)
+    hit = (want[1] >= 0) & (got[1] == want[1])
+    t_err = float((got[0] - want[0]).abs()[hit].max())
+    del got, want
+    k_ms = min(time_cuda(lambda: kn.nearest_hit(*args, **kw), 10)
+               for _ in range(2))
+    p_ms = time_cuda(lambda: kn.nearest_hit_ref(*args, **kw), 2)
+    bnd = k3_bound(table, n)
+    log(f"STL receiver (48-gon cylinder, {len(verts)} vertices, "
+        f"{table.num_rows} triangle rows): {n} rays, {len(res.records)} "
+        f"bounces, wall {wall:.3f} s, closure {bal['closure']:.1e}, hit "
+        f"share {share:.5f} against {p:.5f} (3 sigma {3 * sig:.1e}); K3 vs "
+        f"plain on the first bounce: sid ties (shared edges) {ties}, flips "
+        f"{flips}, max abs err t {t_err:.2e}; kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
+        f"{k3_geometry_line(kn, rows, n, kw)} ({card})")
+    return launches
+
+
+def model_phase(dev, card, kb, kn):
+    """Phase 16: the model library on K3, (a) the simulator, (b) curved
+    device maps, (c) the STL receiver. Returns K3's launches on their
+    main paths."""
+    t16 = time.perf_counter()
+    launches = [simulator_phase(dev, card, kb, kn),
+                curved_maps_phase(dev, card, kb, kn),
+                stl_phase(dev, card, kb, kn)]
+    log(f"phase 16: {time.perf_counter() - t16:.1f} s, K3 launches "
+        + " + ".join(str(n) for n in launches))
+    return sum(launches)
 
 
 def check_trace(label, accum, emitted, source_e, total, energy_closure):

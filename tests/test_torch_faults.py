@@ -1,4 +1,4 @@
-"""Repairs of three faults of the port's signatures, on the CPU:
+"""Repairs of four faults of the port's signatures, on the CPU:
 
 * a culling built from tracer_tpu's BlockCulling fields (no ``order``,
   which the port's K1 dispatch adds) derives its tile order from its
@@ -7,7 +7,10 @@
   tracer_tpu's parameter position: the chord-cut disc, drawn by the same
   inverse CDF, refused beside an annulus or a partial span as
   tracer_tpu refuses it;
-* ``trace_streaming`` takes tracer_tpu's ``block`` and ignores it.
+* ``trace_streaming`` takes tracer_tpu's ``block`` and ignores it;
+* ``build_block_culling`` takes tracer_tpu's ``max_smem_bytes``,
+  ``max_segments`` and ``min_segments`` (its scalar-memory segmentation)
+  and ignores them: the port's build is always one segment.
 """
 import dataclasses
 import inspect
@@ -75,6 +78,32 @@ def test_culled_trace_takes_the_derived_order():
     for name in ("absorbed", "escaped", "culled", "medium", "residual"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
     assert abs(energy_closure(a, se_a)) < 1e-4
+
+
+def test_block_culling_takes_segment_keywords():
+    """build_block_culling takes tracer_tpu's three segmentation keywords
+    with tracer_tpu's defaults, and a call that passes them (the values
+    tracer_tpu's own tests pass: a budget one byte short, two segments at
+    least) gives the same lists, counts, order and cells as one without
+    them."""
+    ref = inspect.signature(jax_culling.build_block_culling).parameters
+    port = inspect.signature(build_block_culling).parameters
+    for name in ("max_smem_bytes", "max_segments", "min_segments"):
+        assert port[name].default == ref[name].default, name
+        assert port[name].kind == inspect.Parameter.KEYWORD_ONLY, name
+    slab = 4 * kb.TILE
+    table, meta, info = nsttf.build_scene(40, device="cpu")
+    spec = nsttf.make_source_fn(info, slab).pallas_spec
+    plain = build_block_culling(table, meta, spec, slab)
+    for kw in (dict(max_smem_bytes=1024, max_segments=4, min_segments=2),
+               dict(max_smem_bytes=(1 << 20) - 1), dict(min_segments=2)):
+        got = build_block_culling(table, meta, spec, slab, **kw)
+        for name in ("lists", "counts", "order", "cell_bounds",
+                     "cell_of_block", "age_caps"):
+            np.testing.assert_array_equal(getattr(got, name),
+                                          getattr(plain, name), err_msg=name)
+        assert got.n_cells == plain.n_cells
+        assert got.group_offsets == plain.group_offsets
 
 
 def test_x_cut_in_tracer_tpu_position():

@@ -124,7 +124,7 @@ def fuzz_rays(meta, n: int, seed: int):
 
 
 def k3_compare(got, want, t12, pos, dirs, rtol=1e-5, max_flips=0,
-               aux=True):
+               aux=True, tie=1e-5):
     """K3 results (t, sid, aux) against another version's (``want``).
 
     Two float32 versions of the same arithmetic round differently: by a
@@ -133,8 +133,10 @@ def k3_compare(got, want, t12, pos, dirs, rtol=1e-5, max_flips=0,
     incidence (cos^2 floored at 1e-4). So on lanes that hit, t and each
     aux vector component must agree within rtol * (L + t) / cos^2, the
     aux relative to 1 + the lane's largest component; kind and flags
-    exactly. Ties are lanes whose best and second-best t lie within 1e-5
-    (L + t) of each other: either row may win there. Flips are the other
+    exactly. Ties are lanes whose best and second-best t lie within
+    ``tie`` (L + t) of each other: either row may win there (a caller
+    whose rows lie closer than that, such as two dish layers 1e-4 apart,
+    narrows the band so that those lanes count as flips). Flips are the other
     lanes where the versions disagree on sid or on t: a hit point within
     rounding of an aperture edge or of the self-hit guard, which FMA
     contraction may decide (the other root of the same row, or another
@@ -143,7 +145,7 @@ def k3_compare(got, want, t12, pos, dirs, rtol=1e-5, max_flips=0,
     flips)."""
     t1, t2 = t12
     scale = 1.0 + pos.abs().amax(dim=1)
-    tie = (t2 - t1) <= 1e-5 * (scale + t1)
+    tie = (t2 - t1) <= tie * (scale + t1)
     n = want[2]["normal"]
     cos2 = ((dirs * n).sum(1) ** 2
             / (n * n).sum(1).clamp(min=1e-30)).clamp(min=1e-4)
@@ -1528,3 +1530,226 @@ def test_diff_dish_float32_on_gpu_matches_float64_on_cpu(cuda_device):
                               beam=beam)[0](1.7)
     np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-4)
     np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=1e-3)
+
+
+# ---- the model library on K3: the STL receiver, the simulator's
+# ellipsoids, a curved device flux map
+
+STL_WINDOW = (1.2, 0.9)     # across the axis, along it (m)
+
+
+def stl_receiver(directory, device):
+    """(table, meta, verts) of a CAD receiver: the 48-gon cylinder wall
+    of stl_utils.cylinder_verts_faces(0.5, 1.0, angbins=48, lbins=20)
+    (1,008 vertices, 1,920 faces) written by make_stl into ``directory``
+    and loaded back by load_stl_into_tracer as a receiving absorber: one
+    logical surface of 1,920 triangle rows, float32 on ``device``."""
+    import os
+    from tracer_tpu_torch import stl_utils
+    verts, faces = stl_utils.cylinder_verts_faces(0.5, 1.0, angbins=48,
+                                                  lbins=20)
+    path = os.path.join(directory, "receiver.stl")
+    stl_utils.make_stl(path, verts, faces)
+    obj = stl_utils.load_stl_into_tracer(
+        path, ptt.materials.receiver(ptt.materials.absorber()))
+    table, meta = ptt.compile_scene(ptt.scene.Assembly(objects=[obj]),
+                                    device=device)
+    return table, meta, stl_utils.load_stl(path)[0]
+
+
+def stl_rays(n, seed, device):
+    """n parallel float32 rays along +x from x = -2 m, uniform over the
+    STL_WINDOW (y across the cylinder's axis, z along it): every ray that
+    meets the mesh meets its wall."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    w, h = STL_WINDOW
+    u = torch.rand((n, 2), generator=g, device=device)
+    pos = torch.stack([torch.full((n,), -2.0, device=device),
+                       (u[:, 0] - 0.5) * w, (u[:, 1] - 0.5) * h], 1)
+    dirs = torch.zeros((n, 3), device=device)
+    dirs[:, 0] = 1.0
+    return pos, dirs
+
+
+@pytest.mark.cuda
+def test_nearest_hit_on_stl_mesh_on_gpu(cuda_device, tmp_path):
+    """K3 against its plain version on the 1,920-row triangle table of an
+    STL receiver (one group, streamed through shared memory in parts):
+    sid equal off ties (rays on an edge two faces share), t and aux
+    within k3_compare's tolerance, at most 1e-5 of the lanes (plus one)
+    flipped; the hit share is the 48-gon's width over the window's."""
+    table, _, verts = stl_receiver(str(tmp_path), cuda_device)
+    assert table.num_rows == 1920 and len(table.groups) == 1
+    rows = kb.pack_rows(table)
+    n = 1 << 20
+    assert kn.k3_geometry(rows, n)["part"] < table.num_rows
+    pos, dirs = stl_rays(n, 3, cuda_device)
+    args = (rows, pos, dirs, table.groups, T_EPS)
+    got = kn.nearest_hit(*args)
+    want = kn.nearest_hit_ref(*args)
+    torch.cuda.synchronize()
+    ties, flips = k3_compare(got, want, kn.nearest_two_t(*args), pos, dirs,
+                             max_flips=int(1e-5 * n) + 1)
+    p = (verts[:, 1].max() - verts[:, 1].min()) / STL_WINDOW[0]
+    share = float((got[1] >= 0).float().mean())
+    assert abs(share - p) < 3 * (p * (1 - p) / n) ** 0.5, (share, p)
+
+
+@pytest.mark.cuda
+def test_nearest_hit_on_simulator_ellipsoids_on_gpu(cuda_device):
+    """K3 against its plain version on the seven-module simulator's table
+    (seven z-range-trimmed ellipsoids in the general-quadric class and the
+    target plate) under its lamps' rays drawn on the card."""
+    from tracer_tpu_torch.models.solar_simulator import high_flux_simulator
+    sim = high_flux_simulator()
+    table, _ = ptt.compile_scene(sim, device=cuda_device)
+    assert {g[3] for g in table.groups} == {"flat", "quadric"}
+    rays = sim.fire(torch.Generator(device=cuda_device).manual_seed(2),
+                    1 << 17, device=cuda_device)
+    n = rays.num_rays
+    args = (kb.pack_rows(table), rays.pos, rays.dir, table.groups, T_EPS)
+    got = kn.nearest_hit(*args)
+    want = kn.nearest_hit_ref(*args)
+    torch.cuda.synchronize()
+    assert (want[1] >= 0).float().mean() > 0.3
+    k3_compare(got, want, kn.nearest_two_t(*args), rays.pos, rays.dir,
+               max_flips=int(1e-5 * n) + 1)
+
+
+SG4_TIE = 1e-6    # k3_compare's tie band on SG4: below its 1e-4 m layer gap
+
+
+def sg4_k3_compare(asm, table, sun, n64, max_rate=1e-5):
+    """K3 on SG4's table (two dish layers 1e-4 m apart, 13-30 m from the
+    source) on the sun rays of the first bounce and on the rays that
+    leave the dish after it (trace_fused to one bounce), against its
+    plain version and, on the first ``n64`` lanes of each, against the
+    plain version in float64 on the CPU (the scene compiled in float64,
+    the same float32 rays cast, the same t_eps). The tie band is SG4_TIE
+    (L + t), below the gap, so a lane that takes the wrong layer is a
+    flip; at most ``max_rate`` of the lanes plus one flip in each
+    comparison. Returns one dict a bounce: lanes, lanes whose ray crosses
+    two rows (``two``), sid mismatches against the plain version
+    (``diff``), ties and flips, and the same against float64 (``diff64``,
+    ``ties64``, ``flips64``) on ``m`` lanes."""
+    from tracer_tpu_torch.engine import trace_fused
+    table64, _ = ptt.compile_scene(asm, dtype=torch.float64, device="cpu")
+    rows, rows64 = kb.pack_rows(table), kb.pack_rows(table64, torch.float64)
+    after, _ = trace_fused(table, sun, torch.Generator(
+        device=table.device).manual_seed(5), max_bounces=1)
+    out = []
+    for pos, dirs in ((sun.pos, sun.dir),
+                      (after.pos[after.alive], after.dir[after.alive])):
+        n, m = pos.shape[0], min(n64, pos.shape[0])
+        args = (rows, pos, dirs, table.groups, T_EPS)
+        got = kn.nearest_hit(*args)
+        want = kn.nearest_hit_ref(*args)
+        t12 = kn.nearest_two_t(*args)
+        ties, flips = k3_compare(got, want, t12, pos, dirs, tie=SG4_TIE,
+                                 max_flips=int(max_rate * n) + 1)
+        p64, d64 = pos[:m].cpu().double(), dirs[:m].cpu().double()
+        args64 = (rows64, p64, d64, table64.groups, T_EPS)
+        want64 = kn.nearest_hit_ref(*args64)
+        sub = (got[0][:m].cpu().double(), got[1][:m].cpu(),
+               {k: v[:m].cpu().double() if v.is_floating_point()
+                else v[:m].cpu() for k, v in got[2].items()})
+        ties64, flips64 = k3_compare(sub, want64, kn.nearest_two_t(*args64),
+                                     p64, d64, tie=SG4_TIE,
+                                     max_flips=int(max_rate * m) + 1)
+        out.append(dict(
+            n=n, two=int(torch.isfinite(t12[1]).sum()),
+            diff=int((got[1] != want[1]).sum()), ties=ties, flips=flips,
+            m=m, diff64=int((sub[1] != want64[1]).sum()), ties64=ties64,
+            flips64=flips64))
+    return out
+
+
+@pytest.mark.cuda
+def test_nearest_hit_on_sg4_layers_on_gpu(cuda_device):
+    """K3 on SG4's two dish layers 1e-4 m apart at full size, first and
+    second bounce, against its plain version and against float64 on the
+    CPU, with a tie band narrower than the gap (sg4_k3_compare): most
+    first-bounce lanes cross both layers, and at most 1e-5 of the lanes
+    (plus one) pick another row."""
+    from tracer_tpu_torch.models.sg4 import SG4
+    from tracer_tpu_torch.sources import solar_disk_bundle
+    asm = SG4(dishDiameter=25.0, dishFocus=13.4, absMirrors=0.1,
+              sigma=2e-3)
+    table, _ = ptt.compile_scene(asm, device=cuda_device)
+    sun = solar_disk_bundle(
+        torch.Generator(device=cuda_device).manual_seed(4), 1 << 18,
+        center=[0, 0, 30.0], direction=[0, 0, -1.0], radius=13.0,
+        ang_range=0.005, flux=1000.0, device=cuda_device)
+    first, second = sg4_k3_compare(asm, table, sun, 1 << 16)
+    assert first["two"] > 0.5 * first["n"] and second["n"] > 0
+
+
+def curved_map_compare(table, meta, names, bundle, seed, max_bounces,
+                       resolution=50):
+    """The device flux maps of the surfaces ``names`` from one trace_fused
+    against analysis/fluxmap's host histograms (surface_fluxmap) of a
+    ray_tracer run of the same rays with the same generator seed: the two
+    draw the same numbers bounce for bounce, so they trace the same paths
+    and differ only where the device's local point (the hit through the
+    row's inverse frame) and K3's fall on two sides of a bin edge.
+    Returns ({name: dict(device map, host map, hist (energy), absorbed on
+    the surface's rows, l1: the maps' L1 distance over the host map's
+    total)}, trace_fused's accumulators, its final bundle, its wall in
+    s)."""
+    import time
+    from tracer_tpu_torch.analysis import device_fluxmap as dfm
+    from tracer_tpu_torch.analysis.fluxmap import surface_fluxmap
+    from tracer_tpu_torch.engine import (TraceOptions, TracerEngine,
+                                         trace_fused)
+    specs = tuple(dfm.flux_plan(meta, nm, resolution=resolution)
+                  for nm in names)
+    dev = table.device
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, acc = trace_fused(table, bundle,
+                             torch.Generator(device=dev).manual_seed(seed),
+                             max_bounces=max_bounces, fluxspecs=specs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = TracerEngine(table, meta).ray_tracer(
+        bundle, generator=torch.Generator(device=dev).manual_seed(seed),
+        opts=TraceOptions(max_bounces=max_bounces, record="tags"))
+    out = {}
+    for nm, spec, hist in zip(names, specs, acc.flux):
+        flux, _ = dfm.finalize(spec, hist, meta)
+        host, _ = surface_fluxmap(res, nm, resolution=resolution)
+        out[nm] = dict(
+            device=flux, host=host, hist=hist.double().cpu().numpy(),
+            absorbed=float(acc.absorbed[list(spec.rows)].double().sum()),
+            l1=float(np.abs(flux - host).sum())
+            / max(float(np.abs(host).sum()), 1e-300))
+    return out, acc, final, wall
+
+
+@pytest.mark.cuda
+def test_curved_device_flux_matches_host_on_gpu(cuda_device):
+    """The config 5 cavity (benchmarks/suite.py:695) lit through its
+    aperture (tests/models/test_model_zoo.py:77): the device maps of its
+    conical frustum and its cylinder (axial binning) sum to the energy
+    absorbed on their rows to 1e-5, and lie within 1e-4 (L1, of the
+    total) of the host histograms of ray_tracer's records."""
+    from tracer_tpu_torch.models.two_n_cavity import TwoNParamCav
+    from tracer_tpu_torch.sources import solar_disk_bundle
+    cav = TwoNParamCav(apertureRadius=0.3, frustaRadii=[0.5, 0.5],
+                       frustaDepths=[0.4, 0.4], coneDepth=0.3,
+                       el_FRUs=[2, 2], el_CON=2)
+    table, meta = ptt.compile_scene(cav, device=cuda_device)
+    sun = solar_disk_bundle(
+        torch.Generator(device=cuda_device).manual_seed(6), 1 << 18,
+        center=[0, 0, 0.01], direction=[0, 0, 1.0], radius=0.29,
+        ang_range=0.05, flux=5e5, device=cuda_device)
+    names = ("frustum_0", "frustum_1")
+    maps = curved_map_compare(table, meta, names, sun, 7, 30)[0]
+    for name, kind in zip(names, ("conical_frustum", "finite_cylinder")):
+        assert meta.surfaces[meta.index_of(name)].geometries[0].kind == kind
+        c = maps[name]
+        assert c["absorbed"] > 0
+        assert abs(c["hist"].sum() - c["absorbed"]) <= 1e-5 * c["absorbed"]
+        assert c["l1"] < 1e-4, (name, c["l1"])

@@ -26,6 +26,19 @@ def test_imports_with_jax_blocked():
     assert r.returncode == 0, r.stderr[-2000:]
 
 
+def test_imports_without_matplotlib():
+    """The GPU machine has no matplotlib: every module imports without
+    it (viz.render imports it inside Renderer only)."""
+    code = ("import sys\nsys.modules['matplotlib'] = None\n"
+            + "".join(f"import {m.removesuffix('.__init__')}\n"
+                      for m in MODULES)
+            + "assert 'matplotlib' not in {k.split('.')[0] for k, v in "
+            "sys.modules.items() if v is not None}\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
 @pytest.mark.parametrize("module", MODULES)
 def test_no_jax_import_in_source(module):
     path = PKG.parent.joinpath(*module.split(".")).with_suffix(".py")

@@ -29,7 +29,15 @@ The slices that run end to end:
   under torch autograd, each winner on the nearest-hit kernel under
   no_grad in scenes of 48 rows or more; the field analyses: annual
   efficiency sweeps (analysis.annual), per-heliostat losses
-  (analysis.losses) and the Welford estimator (analysis.estimator).
+  (analysis.losses) and the Welford estimator (analysis.estimator);
+* the model library: the high-flux solar simulator
+  (models.solar_simulator, lamps drawn on the device), the PETAL and SG4
+  dishes, triangulated meshes and STL files (models.triangulated_surface,
+  stl_utils), each traced on the nearest-hit kernel, with device flux
+  maps of every binned kind and of multi-row surfaces; and the
+  utilities: samplers (sampling), vector helpers (vector_utils), results
+  and ray-source files (io_utils), the reference's optics names (compat)
+  and a matplotlib renderer (viz.render).
 
 Entry points put their tensors on the GPU (device.default_device) and
 raise without one unless given ``device="cpu"``. On CPU tensors every
@@ -37,18 +45,19 @@ kernel runs its plain PyTorch version. The package imports torch and
 never jax; tracer_tpu stays the reference it is tested against.
 """
 
-from .bundle import RayBundle, bundle_from_jax
+from .bundle import RayBundle, bundle_from_jax, concatenate_rays
 from .engine import (TraceAccum, TraceOptions, TraceResult, TracerEngine,
                      trace_fused, trace_streaming)
 from .scene import (Assembly, AssembledObject, SceneMeta, SceneTable,
                     Surface, compile_scene, scene_from_jax)
-from . import engine, geometry, materials, scene, sources, spatial
+from . import (engine, geometry, materials, sampling, scene, sources,
+               spatial, stl_utils, vector_utils)
 
 __version__ = "0.2.0"
 __all__ = [
-    "RayBundle", "bundle_from_jax", "TraceAccum", "TraceOptions",
+    "RayBundle", "bundle_from_jax", "concatenate_rays", "TraceAccum", "TraceOptions",
     "TraceResult", "TracerEngine", "trace_fused", "trace_streaming",
     "Assembly", "AssembledObject", "SceneMeta", "SceneTable", "Surface",
     "compile_scene", "scene_from_jax", "engine", "geometry", "materials",
-    "scene", "sources", "spatial",
+    "sampling", "scene", "sources", "spatial", "stl_utils", "vector_utils",
 ]

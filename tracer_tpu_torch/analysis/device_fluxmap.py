@@ -3,7 +3,12 @@ port of tracer_tpu/analysis/device_fluxmap.py).
 
 Each bounce, every hit lane's absorbed energy is added to a per-surface
 (nu, nv) histogram over the surface's natural binning (fluxmap.edges_of —
-uniform by construction, so binning is one floor() per axis). The add is a
+uniform by construction, so binning is one floor() per axis): local (x, y)
+on flat plates, (r, theta) on discs and dishes, (z, theta) on cylinders
+and frusta, (theta, phi) on spheres. A surface of several rows (a mesh, a
+bifacial plate) bins each hit through its own row's frame, found by one
+gather: a table from row id to the row's slot in the spec, indexed by the
+lane's sid. The add is a
 float32 ``index_add_`` on the flattened bin; lanes that bin nowhere go to
 spill slots past the histogram, spread over N_SPILL addresses so that no
 single address takes millions of adds (``index_put_(accumulate=True)``
@@ -24,7 +29,9 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from .fluxmap import _CARTESIAN, areas_of, edges_of
+from ..mathutils import transform_points
+from .fluxmap import (_AXIAL, _CARTESIAN, _POLAR, _SPHERICAL, areas_of,
+                      edges_of)
 
 
 class FluxSpec(NamedTuple):
@@ -59,16 +66,13 @@ def flux_plan(meta, surface, resolution: int = 40) -> FluxSpec:
     rows = tuple(int(r) for r in np.nonzero(meta.row_logical == sidx)[0])
     if not rows:
         raise ValueError(f"surface {surface} has no scene rows")
-    if geom.kind not in _CARTESIAN or len(rows) != 1:
-        raise NotImplementedError(
-            "device flux maps of curved or multi-row surfaces are not "
-            "ported yet (ROADMAP A11)")
     ue, ve = edges_of(geom.kind, geom.extent, resolution)
+    p0 = float(geom.extent["R"]) if geom.kind in _SPHERICAL else 0.0
     return FluxSpec(rows=rows, kind=geom.kind,
                     nu=len(ue) - 1, nv=len(ve) - 1,
                     u0=float(ue[0]), u1=float(ue[-1]),
                     v0=float(ve[0]), v1=float(ve[-1]),
-                    p0=0.0, resolution=resolution)
+                    p0=p0, resolution=resolution)
 
 
 N_SPILL = 1024
@@ -89,17 +93,50 @@ def zeros_for(fluxspecs, dtype=torch.float32, device=None) -> tuple:
                  for s in fluxspecs)
 
 
+def _uv(spec: FluxSpec, local):
+    """Torch twin of fluxmap.uv_project for one spec (local (n, 3))."""
+    x, y, z = local[:, 0], local[:, 1], local[:, 2]
+    if spec.kind in _CARTESIAN:
+        return x, y
+    theta = torch.atan2(y, x)
+    theta = torch.where(theta < 0.0, theta + 2.0 * np.pi, theta)
+    if spec.kind in _POLAR:
+        return torch.hypot(x, y), theta
+    if spec.kind in _AXIAL:
+        return z, theta
+    if spec.kind in _SPHERICAL:
+        return torch.arccos(torch.clamp(z / spec.p0, -1.0, 1.0)), theta
+    raise NotImplementedError(f"no device fluxmap for kind {spec.kind}")
+
+
+def _row_frames(spec: FluxSpec, scene, sid):
+    """(on_spec (n,) bool, each lane's inverse row frame): one (4, 4)
+    frame for a one-row surface; for several rows, the top (n, 3, 4) of
+    each lane's frame gathered through a table from row id to slot in
+    ``spec.rows`` indexed by sid, so the work does not grow with the
+    number of rows."""
+    if len(spec.rows) == 1:
+        return sid == spec.rows[0], scene.inv_frame[spec.rows[0]]
+    rows = torch.as_tensor(spec.rows, dtype=torch.int64, device=sid.device)
+    slot_of = torch.full((scene.num_rows + 1,), -1, dtype=torch.int64,
+                         device=sid.device)
+    slot_of[rows + 1] = torch.arange(len(spec.rows), device=sid.device)
+    slot = slot_of[sid.long() + 1]          # sid -1 reads the -1 at 0
+    inv = scene.inv_frame.index_select(0, rows)[:, :3].contiguous()
+    return slot >= 0, inv.index_select(0, slot.clamp(min=0))
+
+
 def accumulate(flux: tuple, fluxspecs: tuple, scene, sid, hit_pts,
                absorbed) -> None:
     """One bounce's histogram update, in place. sid (n,) winning row or
     -1; hit_pts (n, 3) global hit points (garbage on non-hit lanes —
     masked by sid); absorbed (n,)."""
     for spec, hist in zip(fluxspecs, flux):
-        # one flat row binned in its local (x, y) (flux_plan checks)
-        inv = scene.inv_frame[spec.rows[0]]
-        on_spec = sid == spec.rows[0]
-        local = hit_pts.to(inv.dtype) @ inv[:3, :3].T + inv[:3, 3]
-        u, v = local[:, 0], local[:, 1]
+        on_spec, inv = _row_frames(spec, scene, sid)
+        # elementwise rotation (mathutils.apply_rot), rounded alike on
+        # every device
+        local = transform_points(inv, hit_pts.to(inv.dtype))
+        u, v = _uv(spec, local)
         su = (u - spec.u0) * (spec.nu / (spec.u1 - spec.u0))
         sv = (v - spec.v0) * (spec.nv / (spec.v1 - spec.v0))
         su = torch.where(torch.isfinite(su), su, -1.0)

@@ -206,6 +206,6 @@ def surface_fluxmap(result, surface, resolution: int = 40):
     name) of an engine.TraceResult, from its records."""
     sidx = (result.meta.index_of(surface) if isinstance(surface, str)
             else surface)
-    hits = result.hits_of(sidx)
+    hits = result.hits_of(sidx, keys=("absorbed", "local"))
     return fluxmap(result.meta.surfaces[sidx].geometries[0],
                    hits["absorbed"], hits["local"], resolution)

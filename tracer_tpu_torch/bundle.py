@@ -100,9 +100,44 @@ class RayBundle:
                                for f in FIELDS + SPECTRAL_FIELDS
                                if getattr(self, f) is not None})
 
+    def inherit(self, **overrides) -> "RayBundle":
+        """A copy with ``overrides`` (the reference's inherit)."""
+        return self.replace(**overrides)
+
+    def select(self, mask) -> "RayBundle":
+        """Rays where ``mask`` stay alive, the others become dead slots:
+        the shape stays."""
+        return self.replace(alive=self.alive & torch.as_tensor(
+            mask, dtype=torch.bool, device=self.alive.device))
+
     def concat(self, other: "RayBundle") -> "RayBundle":
         """The two bundles' rays, ``self``'s first, along the ray axis."""
         return concatenate_rays([self, other])
+
+    def compact_host(self) -> "RayBundle":
+        """The live rays alone (a shape known only after a read of the
+        device), on the bundle's device; a polychromatic bundle keeps its
+        grid whole."""
+        keep = torch.nonzero(self.alive).flatten()
+        return self.replace(**{f: getattr(self, f).index_select(0, keep)
+                               for f in FIELDS + ("spectra",)
+                               if getattr(self, f) is not None})
+
+    def pad_to(self, n: int) -> "RayBundle":
+        """The bundle padded with dead zero rays up to ``n`` slots (for
+        fixed-slab batching); a polychromatic bundle keeps its grid
+        whole."""
+        cur = self.num_rays
+        if cur == n:
+            return self
+        if cur > n:
+            raise ValueError(f"cannot pad {cur} rays down to {n}")
+
+        def pad(a):
+            return torch.cat([a, a.new_zeros((n - cur,) + a.shape[1:])])
+        return self.replace(**{f: pad(getattr(self, f))
+                               for f in FIELDS + ("spectra",)
+                               if getattr(self, f) is not None})
 
 
 # the per-ray fields every bundle has, and the polychromatic pair

@@ -855,7 +855,11 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
                         w_cap: float = 0.15, age_cap: int = 3,
                         margin: float = 0.25, resolution: int = 8,
                         balance: bool = True,
-                        pilot_rays: int = 256, mesh_devices: int = 1,
+                        pilot_rays: int = 256,
+                        max_smem_bytes: int = 1 << 20,
+                        max_segments: int = 64,
+                        min_segments: int = 1,
+                        mesh_devices: int = 1,
                         park_aureole: Optional[bool] = None) -> BlockCulling:
     """Build per-block candidate lists for a disk source
     (``sources.buie_sunshape_pallas_spec``, ``disk_pillbox_pallas_spec``)
@@ -884,7 +888,15 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
     survivors of aureole-born lanes' first bounce for the exact drain.
     It is off for a source without an aureole. ``None`` (the default)
     means off: tracer_tpu turns it on by itself only for its mesh
-    builds."""
+    builds.
+
+    ``max_smem_bytes``, ``max_segments`` and ``min_segments`` are
+    tracer_tpu's keywords, with its defaults, for its split of the block
+    lists into sequential segments that each fit the TPU's 1 MB scalar
+    memory. They are accepted and ignored: the port's build is always one
+    segment, and its own checks against what K1 and K2 stage in shared
+    memory still raise past the H100's budget."""
+    del max_smem_bytes, max_segments, min_segments
     from .kernels.bounce import MAX_STAGE_FLOATS, TILE, row_width
     from .accel import UNBOUNDED_KINDS
     tile = tile or TILE

@@ -1384,18 +1384,24 @@ class TraceResult:
             surface = self.meta.index_of(surface)
         return np.nonzero(self.meta.row_logical == surface)[0]
 
-    def hits_of(self, surface) -> dict:
+    def hits_of(self, surface, keys=None) -> dict:
         """Every hit on a logical surface across bounces as numpy arrays:
         global and local hit points, absorbed, incident and outgoing
         energy, incoming direction, backside flag, wavelength, shading
         normal and bounce index (the reference's accountant queries), and
-        the outgoing ``spectra`` (n_hits, K) when any record has them."""
+        the outgoing ``spectra`` (n_hits, K) when any record has them.
+        ``keys`` picks some of these fields (and the bounce index), so a
+        caller that bins one of them copies only what it reads."""
         rows = list(self._rows_of(surface))
-        keys = ("hit", "local", "absorbed", "e_in", "e_out", "dir_in",
-                "backside", "wavelength", "normal")
+        every = ("hit", "local", "absorbed", "e_in", "e_out", "dir_in",
+                 "backside", "wavelength", "normal")
         if any(rec.spectra is not None for rec in self.records):
-            keys = keys + ("spectra",)
-        out = {k: [] for k in keys + ("bounce",)}
+            every = every + ("spectra",)
+        if keys is None:
+            keys = every
+        elif set(keys) - set(every):
+            raise KeyError(f"no hit field {sorted(set(keys) - set(every))}")
+        out = {k: [] for k in tuple(keys) + ("bounce",)}
         for b, rec in enumerate(self.records):
             mask = np.isin(_np(rec.sid), rows) & _np(rec.alive_in)
             if not mask.any():

@@ -78,3 +78,13 @@ def rotate_to_normal(local_dirs: torch.Tensor,
     ``normals``; both (N,3)."""
     return apply_rot(rotation_to_z(normals), local_dirs)
 
+
+def transform_points(frame: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Homogeneous ``frame`` (4, 4), or one per point (N, 4, 4), applied
+    to points (N, 3)."""
+    return apply_rot(frame[..., :3, :3], pts) + frame[..., :3, 3]
+
+
+def transform_dirs(frame: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """The rotation part of ``frame`` applied to directions (N, 3)."""
+    return apply_rot(frame[..., :3, :3], dirs)
