@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py             # every phase, 14-16 minutes
+    python3 chip_smoke.py             # every phase, 10-18 minutes
     python3 chip_smoke.py --profile   # plus a torch.profiler breakdown
                                       # of one NSTTF bench-size trace
 
@@ -69,8 +69,9 @@ Phases, each printing its lines:
    trace_streaming(culling=None) at the suite's size (128 emission rounds,
    89,653,248 rays, max_path 20, 20 and 8): one untimed short trace, three
    timed (median and every wall time, rounds and K2 launches printed) and
-   one profiled for K2's share of device time. Guards: full emission,
-   closure below 1e-4, config 1's receiver fraction within 3 binomial
+   one profiled for K2's share of device time (a quarter call: the
+   profiler takes minutes to sort a whole call's events). Guards: full
+   emission, closure below 1e-4, config 1's receiver fraction within 3 binomial
    sigma of phase 6's float64 reference, configs 2 and 3's per-surface
    fractions (and config 3's medium share) within 3 combined sigma of a
    196,608-ray CPU trace through the plain version, and a medium loss in
@@ -157,10 +158,10 @@ Phases, each printing its lines:
    encoded sids), each timed with and without parking beside its plain
    version and its bound; then phase 5's NSTTF trace at 537,919,488
    rays: one counted trace with phase 5's culling and one with a parked
-   culling (rounds, drains, aureole-parked lanes), three timed parked
-   ones, under bench.py's guards and within 3 combined binomial sigma of
-   phase 5's receiver; and the rect-source NSTTF with a parked culling
-   once, under phase 10's guards against its unculled trace;
+   culling (rounds, drains, aureole-parked lanes, walls), three timed
+   parked ones, under bench.py's guards and within 3 combined binomial
+   sigma of phase 5's receiver; and the rect-source NSTTF with a parked
+   culling once, under phase 10's guards against its unculled trace;
 13. the unfused bounce (K3, the volumetric media and the shade of every
    optics kind) at the suite's 700,416 rays: config 2's flux map
    (benchmarks/suite.py:174-181: ray_tracer with record="tags", reps 20,
@@ -238,7 +239,35 @@ Phases, each printing its lines:
    CAD receiver written and loaded as STL (1,920 triangle rows, streamed
    through K3's shared memory) under 1,048,576 rays through ray_tracer:
    closure, the hit share against the mesh's projected width, K3 against
-   its plain version with its time and bound.
+   its plain version with its time and bound;
+17. float64 traces and multi-device tracing (parallel.py): (a) the
+   MiniDish through trace_fused in float64 on the card at 4,194,304 rays
+   (the oracle's nearest hits and the unfused shade; closure below 1e-9,
+   receiver within 3 sigma of phase 6's reference) and its first 65,536
+   rays against the same float64 trace on the CPU (per-row sums within
+   1e-9 relative: the MiniDish draws nothing), and config 1 on the
+   float64 general streaming path at 5,603,328 rays (cut from 128 slabs
+   to 8), closure below 1e-9, no kernel launched; (b) one rank over NCCL
+   (init_process_group("nccl", world_size=1)): trace_sharded of the
+   MiniDish at 4,194,304 rays equal bit for bit to trace_fused with the
+   rank's generator, trace_streaming_sharded of config 1 at 89,653,248
+   rays and of the culled NSTTF at bench size (phase 5's culling,
+   mesh_devices=1) under bench.py's guards and within 3 sigma of phase
+   5's receiver; (c) two ranks on the one card over gloo, spawned by
+   torch.multiprocessing after the build: the culled NSTTF at bench size
+   built with mesh_devices=2 (342 tiles a rank, aureole parking on, each
+   rank's row shard through K1), a forced two-segment row-shard run of
+   phase 5's culling at 67,239,936 rays and trace_sharded of the
+   MiniDish, each under its guards and within 3 sigma of its one-rank
+   counterpart. Each workload's walls are the min, median and max of
+   three after a warm-up, the spawn and set-up printed apart; the ranks
+   report their launches to the parent and print nothing; (d) the culled
+   trace of a table past K2's stage, whose drain runs through the oracle
+   and the unfused shade: a 4,097-row mirror grid (tracer_tpu's 20,001-row
+   mesh-scale field cut to 64 x 64 mirrors) at 12,582,912 rays with an
+   aureole-parked culling and with an unparked one, full emission,
+   closure below 1e-4, no K2 or K3 launch, oracle drain bounces in the
+   parked trace, its receiver within 3 sigma of the unparked trace's.
 
 Every kernel's launch count is set to 0 just before a main path runs and
 read just after. The line before the last is the kernels' JSON record;
@@ -408,6 +437,14 @@ def main(argv) -> None:
         if "registers" in line or "Compiling entry" in line \
                 or "spill" in line:
             log("  ptxas: " + line.strip())
+
+    def lap(t_prev, label):
+        """Log ``label``'s wall since ``t_prev`` (phases 3-10 print none of
+        their own) and return the time now."""
+        now = time.perf_counter()
+        log(f"{label}: {now - t_prev:.1f} s")
+        return now
+    t_mark = time.perf_counter()
 
     # ---- phase 3: kernels vs their plain versions
     slab = 2 * ((1 << 20) // kb.TILE * kb.TILE + kb.TILE)     # bench.py's
@@ -590,6 +627,7 @@ def main(argv) -> None:
                      k2_err, times["K2"][0], times["K2"][1], k2_bound)]}
     del pos, dirs, e, o
 
+    t_mark = lap(t_mark, "phase 3")
     # ---- phase 4: K3 against its plain version
     record["kernels"].append(k3_phase(dev, card, table, source_fn, kn,
                                        build))
@@ -599,6 +637,7 @@ def main(argv) -> None:
         profile(table, source_fn, culling, 256 * slab, fspec,
                 trace_streaming)
 
+    t_mark = lap(t_mark, "phase 4")
     # ---- phase 5: the NSTTF main path at benchmark size
     culling_d1 = build_block_culling(table, meta, spec, slab, age_cap=1)
     # (label, culling, rays, max_rounds, timed runs)
@@ -641,10 +680,12 @@ def main(argv) -> None:
     record["kernels"][1]["launches"] = kb.bounce_reflect.launches
     check(kn.nearest_hit.launches == 0, "K3 launched on the NSTTF path")
 
+    t_mark = lap(t_mark, "phase 5")
     # ---- phase 6: the MiniDish main paths
     record["kernels"][2]["launches"], p_ref = minidish_phase(dev, card, kn,
                                                              kb)
 
+    t_mark = lap(t_mark, "phase 6")
     # ---- phases 7-9: bench configs 1-3, then 6, 8 and 8b, then 7, on the
     # plain megakernel; then config 7 on the general path
     entry = record["kernels"][1]
@@ -662,6 +703,7 @@ def main(argv) -> None:
                                              "bound_by")})
     entry["launches"] += general_phase(dev, card, kb, kn, 7, physics[7])[0]
 
+    t_mark = lap(t_mark, "phases 7-9")
     # ---- phase 10: K1's other modes, K2's rect regeneration and
     # backside_miss, then the curved and the rect-source fields
     k2 = bench_phase(dev, card, kb, kn, p_ref, PHASE10_K2_MODES, ())
@@ -674,6 +716,7 @@ def main(argv) -> None:
         k1["launches"] += l1
         entry["launches"] += l2
 
+    t_mark = lap(t_mark, "phase 10")
     # ---- phase 11: energy splitting, and the stage (d)/(e) kinds beside
     # refraction and media ids: K2's new modes, the glazed config 7 on the
     # megakernel, then the split stream on the general path
@@ -722,6 +765,13 @@ def main(argv) -> None:
     # ---- phase 16: the model library on K3: the seven-module solar
     # simulator, curved device flux maps, an STL receiver
     record["kernels"][2]["launches"] += model_phase(dev, card, kb, kn)
+
+    # ---- phase 17: float64 on the card, one rank over NCCL, two ranks on
+    # the card over gloo
+    for k, n in zip(record["kernels"], phase17(
+            dev, card, kb, kn, p_ref, slab, culling, fspec,
+            phase5["default corridors"])):
+        k["launches"] += n
     for k in record["kernels"]:
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
     print(json.dumps(record))
@@ -1385,8 +1435,11 @@ def bench_phase(dev, card, kb, kn, p_ref, modes, cfgs):
         if cfg != 1:
             log(f"  the plain version's {int(em_s)}-ray CPU trace: "
                 + ", ".join(f"{x:.5f}" for x in q))
-        profile_path(f"config {cfg} trace", lambda: run(200 + seed0),
-                     "K2", "bounce_kernel", card)
+        # a quarter call: sorting a whole call's events (150,000 for 8b)
+        # took the profiler most of these phases' wall
+        profile_path(f"config {cfg} trace, a quarter call",
+                     lambda: run(200 + seed0, total // 4), "K2",
+                     "bounce_kernel", card)
     return out
 
 
@@ -1400,10 +1453,10 @@ def surface_fraction(meta, p, name) -> float:
 # the general path's runs: the surface its guard reads (against the
 # megakernel's share of the same scene, or for the split stream of the
 # roulette lens's), the seeds of its untimed, timed and profiled runs,
-# and the emission rounds of the profiled run (the split stream's full
-# call makes 150,000 device events, which the profiler takes over a
-# minute to sort)
-GENERAL_RUNS = {7: ("dome", 170, 71, 270, BENCH_ROUNDS),
+# and the emission rounds of the profiled run, a quarter call (the split
+# stream's full call makes 150,000 device events, which the profiler
+# takes over a minute to sort)
+GENERAL_RUNS = {7: ("dome", 170, 71, 270, BENCH_ROUNDS // 4),
                 "6s": ("rec", 160, 61, 260, BENCH_ROUNDS // 4)}
 
 
@@ -1413,7 +1466,7 @@ def general_phase(dev, card, kb, kn, cfg, mega):
     suite's general-path cell) or "6s" (the split stream: the split lens,
     one overflow slot per lane). One untimed short trace, three timed
     (median, every wall time, rounds and K2 launches per call), one
-    profiled (a quarter call for the split stream). Guards: exact
+    profiled (a quarter call). Guards: exact
     emission, closure below 1e-4, K1 and K3 never
     launched, the surface's share within 2% and 3 combined sigma of the
     megakernel's (``mega``: that phase's (meta, fractions, emitted) of
@@ -1842,9 +1895,9 @@ def aureole_trace_phase(dev, card, kb, kn, culling0, t_culling0, unparked,
     8, min_energy 1e-6, the 50x50 receiver flux map) with a parked
     culling, beside the unparked ``culling0`` (built in ``t_culling0``
     s): one counted trace at full size (emit-drain cycles, lanes drained,
-    aureole-parked lanes: encoded hits that survive min_energy), then
-    three timed (median and every wall, K1 and K2 launches); the
-    unparked culling's counted trace too. Guards:
+    aureole-parked lanes: encoded hits that survive min_energy, its
+    wall), then three timed (median and every wall, K1 and K2 launches);
+    the unparked culling's counted trace too. Guards:
     bench.py's (check_trace) on every trace, and the receiver within 3
     combined binomial sigma of phase 5's ``unparked`` (receiver fraction,
     rays, median wall). Then the rect-source NSTTF (phase 10's source,
@@ -1889,6 +1942,8 @@ def aureole_trace_phase(dev, card, kb, kn, culling0, t_culling0, unparked,
     # one counted trace with each culling: rounds, the drains and the
     # lanes they take, K1's encoded hits and those that survive to park
     k1_fn, drain_fn = engine.bounce_reflect_culled, engine._chunked_drain
+    reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
+                   kn.nearest_hit)
     for label, cul in (("unparked", culling0), ("parked", culling)):
         seen = {"parked": torch.zeros((), dtype=torch.int64, device=dev),
                 "hits": torch.zeros((), dtype=torch.int64, device=dev),
@@ -1910,7 +1965,11 @@ def aureole_trace_phase(dev, card, kb, kn, culling0, t_culling0, unparked,
         try:
             l1 = kb.bounce_reflect_culled.launches
             l2 = kb.bounce_reflect.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             accum, emitted, source_e = run(0, culling=cul)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
             rounds = kb.bounce_reflect_culled.launches - l1
             k2_counted = kb.bounce_reflect.launches - l2
         finally:
@@ -1925,7 +1984,7 @@ def aureole_trace_phase(dev, card, kb, kn, culling0, t_culling0, unparked,
             f" {k2_counted} K2 launches in {seen['drains']} drains of "
             f"{seen['drained']} live lanes; {hits} aureole-born hits, "
             f"{parked} parked = {100 * parked / int(emitted):.4f}% of "
-            f"{int(emitted)} refills ({card})")
+            f"{int(emitted)} refills; wall {wall:.3f} s ({card})")
     reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
                    kn.nearest_hit)
     walls, recs = [], []
@@ -3291,6 +3350,514 @@ def model_phase(dev, card, kb, kn):
     log(f"phase 16: {time.perf_counter() - t16:.1f} s, K3 launches "
         + " + ".join(str(n) for n in launches))
     return sum(launches)
+
+
+P17_SEED = 17
+P17_CUT = 8                   # phase 17 (a)'s float64 config 1: 8 slabs
+
+
+def free_port() -> int:
+    """A free TCP port on localhost for a process group's rendezvous."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def walls3(run):
+    """One warm-up call of ``run``, then three timed (synchronized) calls:
+    (the last call's result, (min, median, max) walls in s)."""
+    import torch
+    run()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    walls.sort()
+    return out, tuple(walls)
+
+
+def walls_text(walls, n) -> str:
+    return (f"walls min {walls[0]:.3f}, median {walls[1]:.3f}, max "
+            f"{walls[2]:.3f} s, {n / walls[1] / 1e6:.1f} Mrays/s")
+
+
+def float64_phase(dev, card, kb, kn, p_ref):
+    """Phase 17 (a): float64 traces on the card, the oracle's nearest hits
+    and the unfused shade on CUDA tensors. The MiniDish through
+    trace_fused at 4,194,304 rays (closure, receiver within 3 sigma of
+    phase 6's reference) and its first 65,536 rays against the same
+    float64 trace on the CPU (the MiniDish draws nothing: per-row sums
+    within 1e-9 relative); config 1 on the general streaming path at 8
+    slabs (cut from the suite's 128: the float64 oracle's rounds are
+    slower than K2's): full emission, closure below 1e-9, receiver within
+    3 sigma of phase 6's reference. No kernel may launch."""
+    import torch
+    from tracer_tpu_torch.engine import (energy_closure, trace_fused,
+                                         trace_streaming)
+    from tracer_tpu_torch.models.bench_configs import (BENCH, bench_scene,
+                                                       max_rounds)
+    f64 = torch.float64
+    n_md = P17_SIZES["md_lanes"]
+    _, table, meta = minidish_scene(dev, f64)
+    rec_i = meta.names.index("receiver")
+    sun = head(minidish_sun(n_md, dev), n_md, dtype=f64)
+    reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
+                   kn.nearest_hit)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, acc = trace_fused(table, sun, max_bounces=20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    src = float(sun.total_energy())
+    ab = acc.absorbed.cpu().numpy()
+    closure = (src - ab.sum() - float(acc.escaped) - float(acc.culled)
+               - float(final.total_energy())) / src
+    check(acc.absorbed.dtype == f64 and abs(closure) < 1e-9,
+          f"float64 MiniDish: closure {closure}")
+    p = float(acc.absorbed.cpu()[torch.as_tensor(
+        meta.row_logical == rec_i)].sum()) / src
+    within_sigma("float64 MiniDish receiver", [p], n_md, [p_ref], MD_CPU)
+    _, t_cpu, _ = minidish_scene("cpu", f64)
+    h = head(sun, MD_CPU)
+    _, a_dev = trace_fused(table, h, max_bounces=20)
+    _, a_cpu = trace_fused(t_cpu, head(h, MD_CPU, "cpu"), max_bounces=20)
+    got, want = a_dev.absorbed.cpu(), a_cpu.absorbed
+    rel = float(((got - want).abs() / want.abs().clamp(min=1e-300))
+                [want > 0].max())
+    check(rel < 1e-9 and bool((got[want == 0] == 0).all()),
+          f"float64 MiniDish head: per-row relative difference {rel}")
+    log(f"float64 MiniDish trace_fused on the card: {n_md} rays, "
+        f"receiver fraction {p:.5f} (phase 6's reference {p_ref:.5f}), "
+        f"closure {closure:.1e}, wall {wall:.3f} s; its first {MD_CPU} rays "
+        f"against the CPU's float64 trace: per-row sums within {rel:.1e} "
+        f"relative ({card})")
+
+    slab = BENCH_SLAB
+    total = P17_CUT * slab
+    table, meta, source_fn = bench_scene(1, slab, dev, dtype=f64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc, em, se = trace_streaming(
+        table, source_fn, torch.Generator().manual_seed(P17_SEED), total,
+        max_rounds=max_rounds(1, 4 * P17_CUT),
+        max_path=BENCH[1]["max_path"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    closure = energy_closure(acc, se)
+    p = surface_fraction(meta, acc.absorbed.cpu().numpy() / float(se),
+                         "receiver")
+    check(acc.absorbed.dtype == f64 and int(em) == total
+          and abs(closure) < 1e-9,
+          f"float64 config 1: emitted {int(em)}, closure {closure}")
+    within_sigma("float64 config 1 receiver", [p], total, [p_ref], MD_CPU)
+    check(kb.bounce_reflect_culled.launches == kb.bounce_reflect.launches
+          == kn.nearest_hit.launches == 0, "a kernel ran in float64")
+    log(f"float64 config 1 on the general streaming path on the card: "
+        f"{total} rays (cut from the suite's {BENCH_ROUNDS * slab}), "
+        f"receiver fraction {p:.5f}, closure {closure:.1e}, wall "
+        f"{wall:.3f} s, {total / wall / 1e6:.1f} Mrays/s; no kernel "
+        f"launched ({card})")
+
+
+def nccl_phase(dev, card, kb, kn, p_ref, slab, culling, fspec, phase5):
+    """Phase 17 (b): one rank over NCCL (init_process_group("nccl",
+    world_size=1)). trace_sharded of the MiniDish at 4,194,304 rays
+    equal bit for bit to trace_fused with the rank's generator;
+    trace_streaming_sharded of config 1 at the suite's 89,653,248 rays
+    (full emission, closure below 1e-4, receiver within 3 sigma of phase
+    6's reference); the culled NSTTF at bench size on phase 5's culling
+    (mesh_devices=1) under bench.py's guards, its receiver within 3 sigma
+    of phase 5's. Returns (K1, K2, K3) launches and the one-rank results
+    phase 17 (c) holds its ranks to."""
+    import torch
+    import torch.distributed as dist
+    from tracer_tpu_torch import parallel
+    from tracer_tpu_torch.engine import energy_closure, trace_fused
+    from tracer_tpu_torch.models.bench_configs import (BENCH, bench_scene,
+                                                       max_rounds)
+    from tracer_tpu_torch.models.nsttf import build_scene, make_source_fn
+    t0 = time.perf_counter()
+    # NCCL on the card (gloo only for a dry run on the CPU)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    setup = time.perf_counter() - t0
+    out = {}
+    launches = [0, 0, 0]
+    wrappers = (kb.bounce_reflect_culled, kb.bounce_reflect, kn.nearest_hit)
+    try:
+        n_md = P17_SIZES["md_lanes"]
+        _, md_table, md_meta = minidish_scene(dev)
+        sun = minidish_sun(n_md, dev)
+        reset_launches(*wrappers)
+        (final, acc), walls = walls3(lambda: parallel.trace_sharded(
+            md_table, sun, P17_SEED, max_bounces=20))
+        launches = [w.launches for w in wrappers]
+        final_f, acc_f = trace_fused(
+            md_table, sun, parallel.rank_generator(P17_SEED, 0, dev),
+            max_bounces=20)
+        for name in ("absorbed", "escaped", "culled"):
+            check(torch.equal(getattr(acc, name), getattr(acc_f, name)),
+                  f"NCCL trace_sharded: {name} differs from trace_fused")
+        check(torch.equal(final.pos, final_f.pos)
+              and torch.equal(final.energy, final_f.energy),
+              "NCCL trace_sharded: final rays differ from trace_fused")
+        src = float(sun.total_energy())
+        rec = torch.as_tensor(md_meta.row_logical
+                              == md_meta.names.index("receiver"))
+        p = float(acc.absorbed.double().cpu()[rec].sum()) / src
+        out["minidish"] = (acc.absorbed.double().cpu().numpy() / src,
+                           n_md)
+        log(f"NCCL 1 rank trace_sharded MiniDish: {n_md} rays, receiver"
+            f" fraction {p:.5f}, equal bit for bit to trace_fused with the "
+            f"rank's generator; {walls_text(walls, n_md)} ({card})")
+
+        table, meta, source_fn = bench_scene(1, BENCH_SLAB, dev)
+        total = BENCH_ROUNDS * BENCH_SLAB
+        l0 = [w.launches for w in wrappers]
+        (acc, em, se), walls = walls3(
+            lambda: parallel.trace_streaming_sharded(
+                table, source_fn, P17_SEED, total,
+                max_rounds=max_rounds(1, BENCH_ROUNDS),
+                max_path=BENCH[1]["max_path"]))
+        launches = [a + w.launches - b
+                    for a, w, b in zip(launches, wrappers, l0)]
+        closure = energy_closure(acc, se)
+        p = surface_fraction(meta, acc.absorbed.double().cpu().numpy()
+                             / float(se), "receiver")
+        check(int(em) >= total and abs(closure) < 1e-4,
+              f"NCCL config 1: emitted {int(em)}, closure {closure}")
+        within_sigma("NCCL config 1 receiver", [p], int(em), [p_ref],
+                     MD_CPU)
+        log(f"NCCL 1 rank trace_streaming_sharded config 1: {int(em)} rays "
+            f"(slab {BENCH_SLAB}), receiver fraction {p:.5f}, closure "
+            f"{closure:.1e}; {walls_text(walls, int(em))} ({card})")
+
+        table, meta, info = build_scene(device=dev)
+        source_fn = make_source_fn(info, slab)
+        total = P17_SIZES["mesh_slabs"] * slab
+        l0 = [w.launches for w in wrappers]
+        (acc, em, se), walls = walls3(
+            lambda: parallel.trace_streaming_sharded(
+                table, source_fn, P17_SEED, total, max_rounds=600,
+                max_path=8, min_energy=1e-6, culling=culling,
+                fluxspecs=(fspec,)))
+        launches = [a + w.launches - b
+                    for a, w, b in zip(launches, wrappers, l0)]
+        rec_frac, closure, flux_rec = check_trace(
+            "NCCL culled NSTTF", acc, em, se, total, energy_closure)
+        within_sigma("NCCL culled NSTTF receiver", [rec_frac], int(em),
+                     [phase5[0]], phase5[1])
+        log(f"NCCL 1 rank culled NSTTF: {int(em)} rays, {culling.nb} tiles "
+            f"(mesh_devices {culling.mesh_devices}), receiver fraction "
+            f"{rec_frac:.5f} (phase 5 {phase5[0]:.5f}), "
+            f"closure {closure:.1e}, flux/receiver {flux_rec:.6f}; "
+            f"{walls_text(walls, int(em))} ({card})")
+    finally:
+        dist.destroy_process_group()
+    log(f"NCCL set-up (init_process_group) {setup:.2f} s; launches K1 "
+        f"{launches[0]}, K2 {launches[1]}, K3 {launches[2]}")
+    return launches, out
+
+
+# phase 17's sizes: the NSTTF traces' slabs (bench size, the forced
+# segments' run) and the MiniDish's rays
+P17_SIZES = dict(mesh_slabs=256, segment_slabs=32, md_lanes=MD_LANES)
+
+
+def rank17(rank, world, port, results, device, sizes, slab, culling_mesh,
+           culling1, fspec):
+    """One rank of phase 17 (c), spawned: the gloo group, its scenes on
+    ``device`` (the card, or the CPU for a dry run), then each workload
+    once untimed and three times between barriers. Rank 0 puts the
+    reduced results, every rank its launches and walls, on ``results``; a
+    rank prints nothing."""
+    import torch
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    from tracer_tpu_torch import parallel
+    from tracer_tpu_torch.kernels import bounce as kb
+    from tracer_tpu_torch.kernels import build
+    from tracer_tpu_torch.kernels import nearest as kn
+    from tracer_tpu_torch.models.nsttf import build_scene, make_source_fn
+    if dev.type == "cuda":
+        build.load()
+    table, meta, info = build_scene(device=dev)
+    source_fn = make_source_fn(info, slab)
+    _, md_table, _ = minidish_scene(dev)
+    sun = minidish_sun(sizes["md_lanes"], dev)
+    dist.barrier()
+    setup = time.perf_counter() - t0
+    wrappers = (kb.bounce_reflect_culled, kb.bounce_reflect, kn.nearest_hit)
+    def nsttf(cul, slabs, **kw):
+        # the parked culling's emit -> drain cycles take ~10x the rounds
+        # of an unparked trace (phase 12): max_rounds as phase 12's
+        return lambda n=slabs: parallel.trace_streaming_sharded(
+            table, source_fn, P17_SEED, n * slab, max_rounds=20_000,
+            max_path=8, min_energy=1e-6, culling=cul, fluxspecs=(fspec,),
+            **kw)
+    runs = {
+        "nsttf_mesh": nsttf(culling_mesh, sizes["mesh_slabs"]),
+        "nsttf_segments": nsttf(culling1, sizes["segment_slabs"],
+                                _force_mesh_segments=2),
+        "minidish": lambda n=None: parallel.trace_sharded(
+            md_table, sun, P17_SEED, max_bounces=20)}
+    mine = {"setup": setup}
+    for name, run in runs.items():
+        # one short untimed call first (4 slabs; the MiniDish's whole), so
+        # the timed ones pay no first-use costs
+        run(4)
+        for w in wrappers:
+            w.launches = 0
+        walls = []
+        for _ in range(3):
+            dist.barrier()
+            sync()
+            t1 = time.perf_counter()
+            out = run()
+            sync()
+            dist.barrier()
+            walls.append(time.perf_counter() - t1)
+        mine[name] = dict(walls=sorted(walls),
+                          launches=[w.launches for w in wrappers])
+        if rank == 0:
+            # NumPy, so that the results outlive this process
+            if name == "minidish":
+                mine[name]["result"] = (
+                    out[1].absorbed.double().cpu().numpy(),
+                    float(sun.total_energy()))
+            else:
+                acc, em, se = out
+                mine[name]["result"] = (
+                    {k: ([f.cpu().numpy() for f in v] if k == "flux"
+                         else v.cpu().numpy())
+                     for k, v in acc.__dict__.items()}, int(em), float(se))
+    results.put((rank, mine))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def gloo_phase(dev, card, kb, kn, slab, culling, fspec, phase5, one_rank):
+    """Phase 17 (c): two ranks on the one card over gloo (NCCL refuses two
+    ranks on one device), spawned with torch.multiprocessing after the
+    kernels are built. The culled NSTTF at bench size built with
+    mesh_devices=2 (342 tiles a rank, aureole parking on, as a mesh build
+    sets it; each rank's row shard through K1), a forced two-segment
+    row-shard run of phase 5's culling (32 slabs), and trace_sharded of
+    the MiniDish at 4,194,304 rays: bench.py's guards on the NSTTF runs,
+    each receiver within 3 sigma of its one-rank counterpart (phase 5's
+    trace, phase 17 (b)'s MiniDish). Returns (K1, K2, K3) launches over
+    both ranks' timed runs."""
+    import torch
+    import torch.multiprocessing as tmp
+    from tracer_tpu_torch.culling import build_block_culling
+    from tracer_tpu_torch.engine import TraceAccum, energy_closure
+    from tracer_tpu_torch.models.nsttf import build_scene, make_source_fn
+    table, meta, info = build_scene(device=dev)
+    spec = make_source_fn(info, slab).pallas_spec
+    t0 = time.perf_counter()
+    culling2 = build_block_culling(table, meta, spec, slab, mesh_devices=2)
+    t_build = time.perf_counter() - t0
+    check(culling2.park_aureole and culling2.nb == culling.nb,
+          f"mesh culling: park {culling2.park_aureole}, {culling2.nb} tiles")
+    ctx = tmp.get_context("spawn")
+    results = ctx.SimpleQueue()
+    t0 = time.perf_counter()
+    procs = tmp.start_processes(
+        rank17, args=(2, free_port(), results, str(dev), P17_SIZES, slab,
+                      culling2, culling, fspec),
+        nprocs=2, join=False, start_method="spawn")
+    ranks = {}
+    # drain the queue while joining: a rank blocked on a full pipe would
+    # never exit, and join raises if a rank failed
+    while True:
+        while not results.empty():
+            r, v = results.get()
+            ranks[r] = v
+        if procs.join(timeout=1):
+            break
+    while not results.empty():
+        r, v = results.get()
+        ranks[r] = v
+    wall = time.perf_counter() - t0
+    check(sorted(ranks) == [0, 1], f"ranks reported: {sorted(ranks)}")
+    launches = [sum(ranks[r][name]["launches"][k] for r in ranks
+                    for name in ("nsttf_mesh", "nsttf_segments", "minidish"))
+                for k in range(3)]
+    r0 = ranks[0]
+    log(f"gloo 2 ranks: spawn and run {wall:.1f} s, each rank's set-up "
+        f"(process group, build load, scenes) "
+        f"{', '.join(f'{ranks[r]['setup']:.1f}' for r in sorted(ranks))} s;"
+        f" mesh culling build {t_build:.1f} s, n_seg "
+        f"{culling2.stats['mesh_n_seg']}, L_mean "
+        f"{culling2.stats['L_mean']:.1f} (phase 5's "
+        f"{culling.stats['L_mean']:.1f})")
+    for name, label, total in (
+            ("nsttf_mesh", "culled NSTTF, mesh_devices=2 build",
+             P17_SIZES["mesh_slabs"] * slab),
+            ("nsttf_segments", "culled NSTTF, forced 2 row-shard segments",
+             P17_SIZES["segment_slabs"] * slab)):
+        fields, em, se = r0[name]["result"]
+        acc = TraceAccum(**{k: (tuple(torch.as_tensor(f) for f in v)
+                                if k == "flux" else torch.as_tensor(v))
+                            for k, v in fields.items()})
+        rec_frac, closure, flux_rec = check_trace(
+            f"gloo {label}", acc, em, se, total, energy_closure)
+        within_sigma(f"gloo {label} receiver", [rec_frac], em,
+                     [phase5[0]], phase5[1])
+        log(f"gloo 2 ranks {label}: {em} rays, receiver fraction "
+            f"{rec_frac:.5f} (phase 5 {phase5[0]:.5f}), "
+            f"closure {closure:.1e}, flux/receiver {flux_rec:.6f}; "
+            f"{walls_text(r0[name]['walls'], em)}; launches K1/K2/K3 "
+            f"{' + '.join(str(ranks[r][name]['launches']) for r in ranks)}"
+            f" ({card})")
+    ab, src = r0["minidish"]["result"]
+    p = ab / src
+    q, n_q = one_rank["minidish"]
+    n_md = P17_SIZES["md_lanes"]
+    within_sigma("gloo MiniDish rows", p, n_md, q, n_q)
+    log(f"gloo 2 ranks trace_sharded MiniDish: {n_md} rays, largest "
+        f"per-row difference from one rank {abs(p - q).max():.1e} of the "
+        f"source; {walls_text(r0['minidish']['walls'], n_md)}; launches "
+        f"K1/K2/K3 "
+        f"{' + '.join(str(ranks[r]['minidish']['launches']) for r in ranks)}"
+        f" ({card})")
+    return launches
+
+
+# phase 17 (d): a 64 x 64 grid of flat 0.45 m mirrors at a 1 m pitch
+# under one receiver (tracer_tpu's mesh-scale field, cut from 20,001 rows
+# to 4,097: its table is still 2.3 times K2's stage), the sun between
+# the receiver and the field
+GRID_MIRRORS = 4096
+GRID_TILES = 128
+GRID_SLABS = 32
+
+
+def grid_field(dev):
+    """(table, meta, source_fn) of phase 17 (d)'s field: a Buie sun
+    (CSR 0.02) cast down from 45 m onto the mirrors, which send it up to
+    the one-sided receiver at 50 m."""
+    import math
+
+    import numpy as np
+    import tracer_tpu_torch as ptt
+    G, M, sp = ptt.geometry, ptt.materials, ptt.spatial
+    cols = int(math.ceil(math.sqrt(GRID_MIRRORS)))
+    half = (cols - 1) / 2.0
+    surfs = [ptt.Surface(G.rect_plate(0.45, 0.45), M.reflective(0.1),
+                         location=[k // cols - half, k % cols - half, 0.0],
+                         name=f"m{k}") for k in range(GRID_MIRRORS)]
+    rec = ptt.Surface(G.rect_plate(3.0 * half, 3.0 * half),
+                      M.absorber(one_sided=True), name="rec",
+                      location=[0.0, 0.0, 50.0],
+                      rotation=sp.rotx(np.pi)[:3, :3])
+    table, meta = ptt.compile_scene(
+        ptt.Assembly([ptt.AssembledObject(surfs + [rec])]), device=dev)
+    slab = GRID_TILES * 3072
+    sun = ([0.0, 0.0, 45.0], [0.0, 0.0, -1.0], half * math.sqrt(2.0) + 2.0,
+           0.02, 1000.0)
+
+    def source_fn(generator, device=None):
+        return ptt.sources.buie_sunshape(generator, slab, *sun[:4],
+                                         flux=sun[4], device=device)
+    source_fn.num_rays = slab
+    source_fn.pallas_spec = ptt.sources.buie_sunshape_pallas_spec(slab,
+                                                                  *sun)
+    return table, meta, source_fn
+
+
+def oracle_drain_phase(dev, card, kb, kn):
+    """Phase 17 (d): the culled trace of a table past K2's stage, whose
+    drain runs through the oracle and the unfused shade
+    (engine._oracle_bounce). The grid field with an aureole-parked
+    culling (its aureole-born lanes' hits park and drain through the
+    oracle) and with an unparked one (no lane outlives its corridor, so
+    K1 alone traces it): full emission, closure below 1e-4, no K2 or K3
+    launch, oracle drain bounces in the parked trace, and its receiver
+    within 3 combined sigma of the unparked trace's. Returns (K1, K2, K3)
+    launches of the warm-up and timed calls."""
+    import torch
+    from tracer_tpu_torch import engine
+    from tracer_tpu_torch.culling import build_block_culling
+    from tracer_tpu_torch.engine import energy_closure, trace_streaming
+    table, meta, source_fn = grid_field(dev)
+    check(not engine._k2_fits(table), f"grid field: {table.num_rows} rows "
+          "fit K2's stage")
+    slab = source_fn.num_rays
+    total = GRID_SLABS * slab
+    wrappers = (kb.bounce_reflect_culled, kb.bounce_reflect, kn.nearest_hit,
+                engine._oracle_bounce)
+    launches, out = [0, 0, 0], {}
+    for park in (True, False):
+        t0 = time.perf_counter()
+        cul = build_block_culling(table, meta, source_fn.pallas_spec, slab,
+                                  park_aureole=park)
+        t_build = time.perf_counter() - t0
+        reset_launches(*wrappers)
+        (acc, em, se), walls = walls3(lambda: trace_streaming(
+            table, source_fn, torch.Generator().manual_seed(P17_SEED),
+            total, max_rounds=20_000, max_path=8, min_energy=1e-6,
+            culling=cul))
+        n = [w.launches for w in wrappers]
+        launches = [a + b for a, b in zip(launches, n)]
+        closure = energy_closure(acc, se)
+        p = surface_fraction(meta, acc.absorbed.double().cpu().numpy()
+                             / float(se), "rec")
+        label = f"grid field, {'parked' if park else 'unparked'} culling"
+        for name in ("absorbed", "escaped", "culled", "residual"):
+            check(bool(torch.isfinite(getattr(acc, name)).all()),
+                  f"{label}: {name} not finite")
+        check(int(em) >= total and abs(closure) < 1e-4 and p > 0.05,
+              f"{label}: emitted {int(em)}, closure {closure}, receiver {p}")
+        # (K1 launches nothing in a dry run on the CPU)
+        check((n[0] > 0 or dev.type != "cuda") and n[1] == n[2] == 0,
+              f"{label}: launches K1/K2/K3 {n[:3]}")
+        check(n[3] > 0 or not park, f"{label}: the drain never ran")
+        out[park] = (p, int(em))
+        log(f"{label}: {table.num_rows} rows (K2's stage holds "
+            f"{kb.MAX_STAGE_FLOATS // kb.row_width(table)}), {cul.nb} "
+            f"tiles, L_mean {cul.stats['L_mean']:.1f}, build {t_build:.1f} "
+            f"s; {int(em)} rays, receiver fraction {p:.5f}, closure "
+            f"{closure:.1e}; {walls_text(walls, int(em))}; launches in "
+            f"the warm-up and 3 timed calls K1 {n[0]}, K2 {n[1]}, K3 "
+            f"{n[2]}, oracle drain bounces {n[3]} ({card})")
+    within_sigma("grid field receiver, parked vs unparked", [out[True][0]],
+                 out[True][1], [out[False][0]], out[False][1])
+    return launches
+
+
+def phase17(dev, card, kb, kn, p_ref, slab, culling, fspec, phase5):
+    """Phase 17: float64 on the card (a), one rank over NCCL (b), two
+    ranks on the card over gloo (c), the culled drain of a table past
+    K2's stage (d). Returns each kernel's launches in (b), (c) and (d)
+    (float64 launches none)."""
+    t17 = time.perf_counter()
+    float64_phase(dev, card, kb, kn, p_ref)
+    t_a = time.perf_counter() - t17
+    launches, one_rank = nccl_phase(dev, card, kb, kn, p_ref, slab, culling,
+                                    fspec, phase5)
+    t_b = time.perf_counter() - t17 - t_a
+    gl = gloo_phase(dev, card, kb, kn, slab, culling, fspec, phase5,
+                    one_rank)
+    t_c = time.perf_counter() - t17 - t_a - t_b
+    od = oracle_drain_phase(dev, card, kb, kn)
+    launches = [a + b + c for a, b, c in zip(launches, gl, od)]
+    log(f"phase 17: {time.perf_counter() - t17:.1f} s ((a) {t_a:.1f}, (b) "
+        f"{t_b:.1f}, (c) {t_c:.1f}, (d) "
+        f"{time.perf_counter() - t17 - t_a - t_b - t_c:.1f}), "
+        f"launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}")
+    return launches
 
 
 def check_trace(label, accum, emitted, source_e, total, energy_closure):

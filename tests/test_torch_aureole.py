@@ -111,20 +111,32 @@ def test_parked_culling_equals_jax(source):
 
 def test_park_aureole_needs_an_aureole_and_one_device():
     """A pillbox sun has no aureole: park_aureole=True is dropped, as in
-    tracer_tpu. Mesh-targeted layouts (mesh_devices > 1) raise, naming
-    ROADMAP A13; mesh_devices=1 is the default build."""
+    tracer_tpu, and a mesh build (mesh_devices=2) parks nothing either;
+    its layout equals tracer_tpu's mesh build array for array.
+    mesh_devices=1 is the default build."""
     table, meta, _ = nsttf.build_scene(40, device="cpu")
-    spec = ptt.sources.disk_pillbox_pallas_spec(
-        4 * kb.TILE, [0.0, 0.0, 300.0], [0.0, 0.0, -1.0], 150.0, 4.65e-3,
-        1000.0)
+    args = (4 * kb.TILE, [0.0, 0.0, 300.0], [0.0, 0.0, -1.0], 150.0,
+            4.65e-3, 1000.0)
+    spec = ptt.sources.disk_pillbox_pallas_spec(*args)
     cul = build_block_culling(table, meta, spec, 4 * kb.TILE,
                               park_aureole=True)
     assert not cul.park_aureole
     one = build_block_culling(table, meta, spec, 4 * kb.TILE,
                               mesh_devices=1)
     np.testing.assert_array_equal(one.lists, cul.lists)
-    with pytest.raises(NotImplementedError, match="A13"):
-        build_block_culling(table, meta, spec, 4 * kb.TILE, mesh_devices=2)
+    mesh = build_block_culling(table, meta, spec, 4 * kb.TILE,
+                               mesh_devices=2)
+    jt, jm, _ = jax_nsttf.build_scene(40, dtype=jnp.float32)
+    jmesh = jax_build(jt, jm, jax_sources.disk_pillbox_pallas_spec(*args),
+                      4 * kb.TILE, mesh_devices=2)
+    assert not mesh.park_aureole and not jmesh.park_aureole
+    for name in ARRAYS:
+        a, b = getattr(mesh, name), getattr(jmesh, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert mesh.group_offsets == jmesh.group_offsets
+    assert mesh.demote_rows == jmesh.demote_rows
+    assert mesh.stats["mesh_n_seg"] == jmesh.stats["mesh_n_seg"]
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,9 @@ tracer_tpu.diff and against central finite differences.
   numbers every bounce;
 * the double-where helpers' gradients and the functional scene edits.
 
-tests/test_diff.py's vmap sweep and sharded gradient have no counterpart:
-the port has no vmap, and sharding is ROADMAP A13.
+tests/test_diff.py's vmap sweep has no counterpart (the port has no vmap);
+its sharded gradient is tests/test_torch_parallel.py's, over
+torch.distributed.
 """
 import importlib
 

@@ -12,8 +12,9 @@ tracer_tpu on the CPU:
   trace cut by max_rounds; mixed IAM exponents and a spec-less source
   over a scattering sheet trace on the general path's unfused bounce (K3
   and the shade), the mixed exponents within 3 sigma of tracer_tpu's
-  trace_streaming; the refusal left (float64 tables, ROADMAP A4). Energy
-  splitting streams too (tests/test_torch_split.py).
+  trace_streaming; a float64 table streams on the general path within 3
+  sigma of tracer_tpu's float64 trace. Energy splitting streams too
+  (tests/test_torch_split.py).
 """
 import jax
 import jax.numpy as jnp
@@ -24,6 +25,7 @@ import torch
 import tracer_tpu
 import tracer_tpu_torch as ptt
 from tracer_tpu import engine as jax_engine
+from tracer_tpu import sources as jax_sources
 from tracer_tpu_torch import engine
 from tracer_tpu_torch.engine import (TraceAccum, energy_closure,
                                      trace_streaming)
@@ -189,8 +191,10 @@ def test_streaming_refusals_left():
     unfused bounce from both sources, within 3 combined binomial sigma of
     tracer_tpu's trace_streaming per plate; a spec-less source over a
     scattering sheet traces there too; energy splitting traces on both
-    sources. Every closure below 1e-5. Float64 tables still raise naming
-    ROADMAP A4."""
+    sources. Every closure below 1e-5. A float64 table streams on the
+    general path (the spec ignored, the source's rays cast to float64),
+    within 3 combined sigma of tracer_tpu's float64 trace_streaming per
+    row, closing to 1e-9."""
     _, _, source_fn = bench_scene(7, SLAB, "cpu")
     G, M = ptt.geometry, ptt.materials
 
@@ -246,6 +250,27 @@ def test_streaming_refusals_left():
                                   max_rounds=60, max_path=16)
     assert int(em) == TOTAL
     assert abs(energy_closure(acc, se)) < 1e-5
-    with pytest.raises(NotImplementedError, match="A4"):
-        trace_streaming(scene(M.reflective(0.1), dtype=torch.float64),
-                        source_fn, torch.Generator(), TOTAL)
+    plates = (M.reflective(0.1), M.lambertian(0.3))
+    acc, em, se = trace_streaming(scene(*plates, dtype=torch.float64),
+                                  source_fn, torch.Generator().manual_seed(7),
+                                  TOTAL, max_rounds=40, max_path=8)
+    assert acc.absorbed.dtype == torch.float64 and int(em) == TOTAL
+    assert abs(energy_closure(acc, se)) < 1e-9
+    jt64, _ = tracer_tpu.compile_scene(
+        build(tracer_tpu, tracer_tpu.materials.reflective(0.1),
+              tracer_tpu.materials.lambertian(0.3)), dtype=jnp.float64)
+
+    def jax_source64(key):
+        return jax_sources.disk_bundle(key, SLAB, center=c["center"],
+                                       direction=c["direction"],
+                                       radius=c["radius"],
+                                       ang_range=c["ang_range"],
+                                       flux=1000.0)
+    ja, jem, jse = jax_engine.trace_streaming(
+        jt64, jax_source64, jax.random.PRNGKey(1), total_rays=TOTAL,
+        max_rounds=40, max_path=8)
+    p = acc.absorbed.numpy() / float(se)
+    q = np.asarray(ja.absorbed, np.float64) / float(jse)
+    sig = np.sqrt(q * (1 - q) * (1 / int(em) + 1 / int(jem)))
+    assert (np.abs(p - q) <= 3 * sig).all(), (p, q, sig)
+    assert p.min() > 0.005

@@ -1753,3 +1753,82 @@ def test_curved_device_flux_matches_host_on_gpu(cuda_device):
         assert c["absorbed"] > 0
         assert abs(c["hist"].sum() - c["absorbed"]) <= 1e-5 * c["absorbed"]
         assert c["l1"] < 1e-4, (name, c["l1"])
+
+
+# ---- float64 traces and the sharded entry points on the card
+
+
+def _minidish(device, dtype):
+    from tracer_tpu_torch.models.tau_minidish import MiniDish
+    asm = MiniDish(5.0, 6.25, 0.9, 6.95, 0.4, 0.7, 0.9)
+    asm.set_transform(ptt.spatial.rotx(-np.pi / 4))
+    return ptt.compile_scene(asm, dtype=dtype, device=device)
+
+
+def _minidish_sun(n, device, dtype):
+    x = -1.0 / np.sqrt(2.0)
+    return ptt.sources.solar_disk_bundle(
+        torch.Generator(device=device).manual_seed(42), n, [0.0, 7.0, 7.0],
+        [0.0, x, x], 3.0, 0.005, flux=1000.0, dtype=dtype, device=device)
+
+
+@pytest.mark.cuda
+def test_float64_traces_on_gpu(cuda_device):
+    """float64 on CUDA tensors: the MiniDish through trace_fused at 65,536
+    rays equals the same float64 trace on the CPU per row to 1e-9
+    relative (its optics draw nothing), and ray_tracer's on the card to
+    1e-12; config 1 streams on the general path closing to 1e-9; no
+    kernel launches."""
+    from tracer_tpu_torch.engine import trace_fused
+    f64 = torch.float64
+    table, meta = _minidish(cuda_device, f64)
+    t_cpu, _ = _minidish("cpu", f64)
+    sun = _minidish_sun(65_536, cuda_device, f64)
+    for w in (kb.bounce_reflect_culled, kb.bounce_reflect, kn.nearest_hit):
+        w.launches = 0
+    _, got = trace_fused(table, sun, max_bounces=20)
+    _, want = trace_fused(t_cpu, sun.to("cpu"), max_bounces=20)
+    g, w_ = got.absorbed.cpu(), want.absorbed
+    assert got.absorbed.dtype == f64
+    np.testing.assert_allclose(g.numpy(), w_.numpy(), rtol=1e-9, atol=0)
+    res = ptt.TracerEngine(table, meta).ray_tracer(sun, reps=20)
+    assert res.accum.absorbed.dtype == f64
+    np.testing.assert_allclose(res.accum.absorbed.numpy(), g.numpy(),
+                               rtol=1e-12, atol=0)
+    slab = 4 * kb.TILE
+    table, meta, source_fn = bench_scene(1, slab, cuda_device, dtype=f64)
+    acc, em, se = trace_streaming(table, source_fn,
+                                  torch.Generator().manual_seed(1),
+                                  4 * slab, max_rounds=60, max_path=20)
+    assert int(em) == 4 * slab and abs(energy_closure(acc, se)) < 1e-9
+    assert (kb.bounce_reflect_culled.launches == kb.bounce_reflect.launches
+            == kn.nearest_hit.launches == 0)
+
+
+@pytest.mark.cuda
+def test_trace_sharded_one_rank_nccl_on_gpu(cuda_device):
+    """One rank over NCCL: trace_sharded of the MiniDish equals trace_fused
+    with the rank's generator bit for bit, on K3."""
+    import socket
+    import torch.distributed as dist
+    from tracer_tpu_torch import parallel
+    from tracer_tpu_torch.engine import trace_fused
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        table, _ = _minidish(cuda_device, torch.float32)
+        sun = _minidish_sun(1 << 20, cuda_device, torch.float32)
+        kn.nearest_hit.launches = 0
+        final, acc = parallel.trace_sharded(table, sun, 5, max_bounces=20)
+        assert kn.nearest_hit.launches > 0
+        final_f, acc_f = trace_fused(
+            table, sun, parallel.rank_generator(5, 0, cuda_device),
+            max_bounces=20)
+        for name in ("absorbed", "escaped", "culled"):
+            assert torch.equal(getattr(acc, name), getattr(acc_f, name))
+        assert torch.equal(final.energy, final_f.energy)
+    finally:
+        dist.destroy_process_group()

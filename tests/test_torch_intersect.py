@@ -175,10 +175,16 @@ def test_bifacial_flat_plate(monkeypatch, from_below):
 
 
 def test_float64_off_the_cpu_raises():
-    """The oracle runs on CPU tensors only: float64 rays elsewhere (here a
-    meta tensor stands in for a CUDA one) raise."""
+    """The oracle takes float64 rays on any device: on meta tensors (which
+    stand in for CUDA ones here) it runs through, its outputs of the rays'
+    shape on their device, in their dtype."""
     pt, _ = ptt.compile_scene(_bifacial_plate(ptt), dtype=torch.float64,
                               device="cpu")
+    pt_meta = ptt.SceneTable(**{
+        f: (v.to("meta") if isinstance(v, torch.Tensor) else v)
+        for f, v in pt.__dict__.items()})
     pos = torch.zeros((4, 3), dtype=torch.float64, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ki.nearest_hit_aux(pt, pos, pos)
+    t, sid, aux = ki.nearest_hit_aux(pt_meta, pos, pos)
+    assert aux is None
+    assert t.device.type == sid.device.type == "meta"
+    assert t.shape == sid.shape == (4,) and t.dtype == torch.float64

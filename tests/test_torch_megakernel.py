@@ -35,6 +35,7 @@ from tracer_tpu import optical_constants as jax_oc
 from tracer_tpu import sources as jax_sources
 from tracer_tpu.kernels.pallas_intersect import (
     bounce_reflect_pallas, pack_rows as jax_pack_rows)
+from tracer_tpu.culling import build_block_culling as jax_build
 from tracer_tpu.scene import compile_scene as jax_compile_scene
 from tracer_tpu_torch import engine, optical_constants, sources
 from tracer_tpu_torch.analysis.device_fluxmap import flux_plan
@@ -62,10 +63,13 @@ def _fresh_jit_caches():
     jax.clear_caches()
 
 
-def _jax_table(cfg):
+def _jax_scene(cfg):
     asm, extra = bench_assembly(tracer_tpu, cfg)
-    return jax_compile_scene(asm, dtype=jnp.float32,
-                             extra_features=extra)[0]
+    return jax_compile_scene(asm, dtype=jnp.float32, extra_features=extra)
+
+
+def _jax_table(cfg):
+    return _jax_scene(cfg)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -294,8 +298,10 @@ def test_trace_streaming_matches_jax(cfg):
 
 
 def test_unported_streaming_modes_raise():
-    """The culling layouts of tracer_tpu's mesh builds and float64 traces
-    raise naming their ROADMAP items; K2's refr_split needs ref_index
+    """The culling layout of a two-rank mesh build equals tracer_tpu's;
+    a float64 plate streams on the general path within 3 combined sigma
+    of tracer_tpu's float64 trace_streaming, closing to 1e-9 (the
+    modes once refused); K2's refr_split needs ref_index
     (ValueError, as tracer_tpu asserts); mixed IAM exponents trace on the
     general path's unfused bounce, closing to 1e-5; a cullable scene
     traces culled, with aureole parking too, an energy-splitting scene on
@@ -332,8 +338,8 @@ def test_unported_streaming_modes_raise():
                                       SLAB, max_rounds=8, max_path=4,
                                       culling=culling)
     assert int(emitted) == SLAB
-    # ... with K1's aureole parking on too, but tracer_tpu's mesh layouts
-    # are not built
+    # ... with K1's aureole parking on too, and in tracer_tpu's mesh
+    # layout
     parked = dataclasses.replace(culling)
     object.__setattr__(parked, "park_aureole", True)
     acc, emitted, se = trace_streaming(table, source_fn, torch.Generator(),
@@ -341,12 +347,37 @@ def test_unported_streaming_modes_raise():
                                        culling=parked)
     assert int(emitted) == SLAB
     assert abs(energy_closure(acc, se)) < 1e-5
-    with pytest.raises(NotImplementedError, match="A13"):
-        build_block_culling(table, meta, source_fn.pallas_spec, SLAB,
-                            mesh_devices=2)
-    with pytest.raises(NotImplementedError, match="A4"):
-        trace_streaming(scene(M.reflective(0.1), torch.float64), source_fn,
-                        torch.Generator(), SLAB)
+    mesh = build_block_culling(table, meta, source_fn.pallas_spec, SLAB,
+                               mesh_devices=2)
+    jmesh = jax_build(*_jax_scene(2), bench_spec(tracer_tpu, 2, SLAB), SLAB,
+                      mesh_devices=2)
+    for name in ("lists", "counts", "cell_bounds", "cell_of_block",
+                 "age_caps"):
+        np.testing.assert_array_equal(getattr(mesh, name),
+                                      getattr(jmesh, name), err_msg=name)
+    assert mesh.mesh_devices == jmesh.mesh_devices == 2
+    assert mesh.stats["mesh_n_seg"] == jmesh.stats["mesh_n_seg"]
+    acc, emitted, se = trace_streaming(scene(M.reflective(0.1), torch.float64),
+                                       source_fn,
+                                       torch.Generator().manual_seed(3),
+                                       SLAB, max_rounds=8, max_path=4)
+    assert acc.absorbed.dtype == torch.float64 and int(emitted) == SLAB
+    assert abs(energy_closure(acc, se)) < 1e-9
+    jplate = jax_compile_scene(tracer_tpu.Assembly([tracer_tpu.AssembledObject(
+        [tracer_tpu.Surface(tracer_tpu.geometry.round_plate(0.5),
+                            tracer_tpu.materials.reflective(0.1))])]),
+        dtype=jnp.float64)[0]
+    c = BENCH[2]
+    ja, jem, jse = jax_engine.trace_streaming(
+        jplate, lambda key: jax_sources.disk_bundle(
+            key, SLAB, center=c["center"], direction=c["direction"],
+            radius=c["radius"], ang_range=c["ang_range"], flux=BENCH_FLUX),
+        jax.random.PRNGKey(3), total_rays=SLAB, max_rounds=8, max_path=4)
+    p = np.append(acc.absorbed.numpy(), float(acc.escaped)) / float(se)
+    q = np.append(np.asarray(ja.absorbed), float(ja.escaped)) / float(jse)
+    sig = np.sqrt(q * (1 - q) * (1 / int(emitted) + 1 / int(jem)))
+    assert (np.abs(p - q) <= 3 * sig).all(), (p, q, sig)
+    assert p[0] > 0.005
     # a Cook-Torrance plate takes the plain megakernel (stage d)
     acc, emitted, _ = trace_streaming(
         scene(M.bdrf_cook_torrance(0.3, 1.2, 7.0, 0.9)), source_fn,

@@ -37,7 +37,15 @@ The slices that run end to end:
   maps of every binned kind and of multi-row surfaces; and the
   utilities: samplers (sampling), vector helpers (vector_utils), results
   and ray-source files (io_utils), the reference's optics names (compat)
-  and a matplotlib renderer (viz.render).
+  and a matplotlib renderer (viz.render);
+* float64 traces on every path, on either device (the float64 oracle's
+  nearest hits and the unfused shade; the kernels are float32), and the
+  bundled n,k database (optical_constants.from_sopra, data/nk);
+* multi-device tracing over torch.distributed (parallel): trace_sharded
+  and multi_ray_sim (TracerEngineMP) on the nearest-hit kernel, and
+  trace_streaming_sharded, plain or culled, each rank on its block range
+  of a mesh-targeted culling (culling.build_block_culling(mesh_devices=D),
+  mesh_segment_shards' row-shard segments).
 
 Entry points put their tensors on the GPU (device.default_device) and
 raise without one unless given ``device="cpu"``. On CPU tensors every
@@ -48,15 +56,19 @@ never jax; tracer_tpu stays the reference it is tested against.
 from .bundle import RayBundle, bundle_from_jax, concatenate_rays
 from .engine import (TraceAccum, TraceOptions, TraceResult, TracerEngine,
                      trace_fused, trace_streaming)
+from .parallel import (TracerEngineMP, multi_ray_sim, trace_sharded,
+                       trace_streaming_sharded)
 from .scene import (Assembly, AssembledObject, SceneMeta, SceneTable,
                     Surface, compile_scene, scene_from_jax)
-from . import (engine, geometry, materials, sampling, scene, sources,
-               spatial, stl_utils, vector_utils)
+from . import (engine, geometry, materials, parallel, sampling, scene,
+               sources, spatial, stl_utils, vector_utils)
 
 __version__ = "0.2.0"
 __all__ = [
     "RayBundle", "bundle_from_jax", "concatenate_rays", "TraceAccum", "TraceOptions",
     "TraceResult", "TracerEngine", "trace_fused", "trace_streaming",
+    "TracerEngineMP", "multi_ray_sim", "trace_sharded",
+    "trace_streaming_sharded", "parallel",
     "Assembly", "AssembledObject", "SceneMeta", "SceneTable", "Surface",
     "compile_scene", "scene_from_jax", "engine", "geometry", "materials",
     "sampling", "scene", "sources", "spatial", "stl_utils", "vector_utils",

@@ -170,11 +170,12 @@ def efficiency_sweep(assembly, field, angles, total_mirror_area: float,
 
     Per position: ``field.track_sun`` re-aims (host NumPy), the scene
     compiles to a fresh table on ``device`` and ``engine.trace_streaming``
-    traces ``rays_per_position`` rays in float32 (the port's streaming
-    traces are float32, ROADMAP A4) on the plain megakernel, or with
-    ``use_culling`` on the culled trace, whose culling
+    traces ``rays_per_position`` rays in ``dtype``: float32 on the plain
+    megakernel, or with ``use_culling`` on the culled trace, whose culling
     (``culling.build_block_culling``) is built for each position on the
-    host; its ``slab`` must then be a whole number of ray tiles.
+    host (its ``slab`` must then be a whole number of ray tiles); float64
+    on the general streaming path, which ignores the culling, as
+    tracer_tpu's does.
 
     Returns a dict with per-position arrays (azimuth, zenith, weight,
     receiver_kw, efficiency, cosine_eff, closure, and the walls build_s,

@@ -9,7 +9,7 @@ wrapper) and a binned axisymmetric receiver.
 Every adaptive iteration fires all elements at once: one call samples
 every element's emission bundle, finds each ray's nearest hit over the
 cavity table (nearest_hit: K3 for float32 rays on the card, the float64
-oracle on CPU tensors), bins the destination element on the device and
+oracle on either device), bins the destination element on the device and
 sums the (src, dst) exchange matrix with one index_add_. View factors are
 direct-exchange fractions, so that one pass with black walls is the whole
 trace. A call makes ``iters_per_call`` independent samples, stacks them

@@ -35,10 +35,17 @@ the culled kernel marks the hits of lanes born into the aureole by an
 encoded sid, and the engine parks their survivors for the exact drain,
 like demoted-surface survivors.
 
-The TPU build's scalar-memory budget (segments, row shards, corridor
-degrades) and its mesh layouts do not exist on the GPU and are left out:
+The TPU build's single-device scalar-memory budget (sequential
+segments, corridor degrades) does not exist on the GPU and is left out:
 for scenes that fit the TPU budget the lists are identical to
-tracer_tpu's. The analysis is pure NumPy.
+tracer_tpu's. The mesh layouts of the sharded trace are ported
+(``build_block_culling(mesh_devices=D)``, ``mesh_segment_shards``,
+``device_row_shards``): rank d of D owns blocks [d*nb/D, (d+1)*nb/D),
+split into uniform sequential segments that each ship only the rows
+their lists reference. Their sizes follow tracer_tpu's budget
+(``smem_need_bytes``, ``max_smem_bytes``), so the layouts equal
+tracer_tpu's array for array; whether a segment fits the card is the
+business of the kernels' own stage checks. The analysis is pure NumPy.
 """
 from __future__ import annotations
 
@@ -78,6 +85,8 @@ class BlockCulling:
     demote_rows rows whose surviving rays are parked (wide scatterers)
     park_aureole the closure is sized to the solar-disc cone: the culled
             trace parks the survivors of aureole-born lanes' first bounce
+    mesh_devices the rank count a mesh-targeted build serves
+            (parallel.trace_streaming_sharded); 1 for one device
     order   (nb,) int32 the blocks by descending candidate count (a stable
             argsort of -counts.sum(1)): the order in which K1 dispatches
             them on the card, so the longest lists start first; None (a
@@ -95,6 +104,7 @@ class BlockCulling:
     demote_rows: tuple
     stats: dict
     park_aureole: bool = False
+    mesh_devices: int = 1
     order: Optional[np.ndarray] = None
 
     def __post_init__(self):
@@ -187,6 +197,30 @@ def disk_cells(nb: int) -> np.ndarray:
                           2.0 * np.pi * j / k, 2.0 * np.pi * (j + 1) / k))
         done += k
     return np.asarray(cells, dtype=np.float32)
+
+
+def smem_need_bytes(table, nb: int, width: int,
+                    n_rows: Optional[int] = None) -> int:
+    """tracer_tpu's budget of one culled-kernel call on a TPU
+    (tracer_tpu/culling.py:215): the bytes of scalar memory that ``nb``
+    blocks with a candidate layout ``width`` columns wide need, the packed
+    rows (``n_rows`` of them, all by default) included, every array padded
+    to 128 in its minor dimension. The mesh layouts are sized by it, so
+    that they equal tracer_tpu's; the card's own limits are the kernels'
+    stage checks."""
+    def pad(x: int) -> int:
+        return -(-x // 128) * 128
+    K = _TPU_ROW_F + 6 * table.ap_params.shape[1]
+    S = table.ap_params.shape[0] if n_rows is None else n_rows
+    rows_bytes = K * pad(S) * 4
+    n_tab = int(table.spectral_wl.shape[0])
+    misc = ((8 + len(table.groups)) * pad(nb) * 4
+            + 2 * pad(max(n_tab, 2)) * 4 + 64 * 1024)
+    return rows_bytes + misc + width * pad(nb) * 4
+
+
+# floats of a packed row before its aperture slots in tracer_tpu's table
+_TPU_ROW_F = 30
 
 
 def rect_cells(nb: int, w: float = 1.0, h: float = 1.0) -> np.ndarray:
@@ -866,7 +900,7 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
     or a rect one (``rect_buie_sunshape_pallas_spec``,
     ``oblique_rect_pillbox_pallas_spec``); the culled bounce kernel
     (kernels/bounce.py) consumes the same spec for in-kernel
-    regeneration. The port of tracer_tpu/culling.py:906 for one device.
+    regeneration. The port of tracer_tpu/culling.py:906.
 
     slab must be a whole number of ray tiles; the nb = slab / TILE blocks
     serve equal-area cells of the source disk. With ``balance`` (default),
@@ -877,26 +911,35 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
 
     The cell bounds are a disk cell's [a0, a1, th0, th1] (area fractions,
     angles) or a rect cell's [x0, x1, y0, y1] in local metres, as the
-    kernels sample them. Raises NotImplementedError for scenes whose
-    packed rows or candidate lists exceed what the bounce kernels stage
-    in shared memory (ROADMAP B5), and for ``mesh_devices > 1``, the
-    layouts of tracer_tpu's mesh-sharded trace (ROADMAP A13).
+    kernels sample them. A one-device build raises NotImplementedError
+    when its candidate lists exceed what K1 stages in shared memory
+    (ROADMAP B5); a scene whose whole table exceeds K2's stage drains
+    through the oracle instead.
+
+    ``mesh_devices > 1`` builds for the sharded trace
+    (parallel.trace_streaming_sharded) over that many ranks: ``slab`` is
+    the GLOBAL slab, nb must divide by the rank count, and, as in
+    tracer_tpu, the widest cells' corridors are degraded until every
+    (rank, segment) chunk of ``mesh_segment_shards`` fits
+    ``max_smem_bytes`` split into at most ``max_segments`` segments
+    (tracer_tpu's budget, smem_need_bytes), so the arrays equal
+    tracer_tpu's.
 
     ``park_aureole=True`` sizes the specular closure to the solar-disc
     cone (1.001 theta_dni) while the first-segment sweep keeps the full
     sunshape cone: shorter lists, and the culled trace parks the
     survivors of aureole-born lanes' first bounce for the exact drain.
     It is off for a source without an aureole. ``None`` (the default)
-    means off: tracer_tpu turns it on by itself only for its mesh
-    builds.
+    means on for a mesh build of a Buie source whose aureole reaches past
+    1.5 theta_dni, and off otherwise, as in tracer_tpu.
 
-    ``max_smem_bytes``, ``max_segments`` and ``min_segments`` are
-    tracer_tpu's keywords, with its defaults, for its split of the block
-    lists into sequential segments that each fit the TPU's 1 MB scalar
-    memory. They are accepted and ignored: the port's build is always one
-    segment, and its own checks against what K1 and K2 stage in shared
-    memory still raise past the H100's budget."""
-    del max_smem_bytes, max_segments, min_segments
+    On one device ``max_smem_bytes``, ``max_segments`` and
+    ``min_segments`` (tracer_tpu's split of the block lists into
+    sequential segments that each fit the TPU's 1 MB scalar memory) are
+    accepted and ignored: the port's build is one segment, and its own
+    checks against what K1 stages in shared memory still raise past the
+    H100's budget."""
+    del min_segments
     from .kernels.bounce import MAX_STAGE_FLOATS, TILE, row_width
     from .accel import UNBOUNDED_KINDS
     tile = tile or TILE
@@ -914,11 +957,11 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
             f"culling needs bounded surfaces; rows {unbounded} have "
             "unbounded kinds "
             f"({sorted({_row_geometries(meta)[i].kind for i in unbounded})})")
-    if mesh_devices > 1:
-        raise NotImplementedError(
-            "mesh-targeted culling layouts serve the sharded trace "
-            "(ROADMAP A13)")
     nb = slab // tile
+    if mesh_devices > 1 and nb % mesh_devices:
+        raise ValueError(f"{nb} blocks not divisible by {mesh_devices} "
+                         "mesh devices; pick a slab with a divisible "
+                         "tile count")
     (cx, cy, cz, rot, radius, _e_ray, _coeffs, _disc_end, gamma, _kappa,
      _integ, theta_tot, theta_dni) = source_spec[:13]
     center = np.array([cx, cy, cz])
@@ -940,7 +983,11 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
     # the full cone; with park_aureole the specular closure covers only
     # the disc cone (the kernel flags aureole-born lanes' hits and the
     # engine parks their survivors). The 1.001 covers the inverse-CDF
-    # polynomial's fit error.
+    # polynomial's fit error. Mesh builds park by default: the disc-sized
+    # closure is what lets multi-10k-row rank budgets fit at full depth.
+    if park_aureole is None:
+        park_aureole = (mesh_devices > 1 and gamma is not None
+                        and float(theta_tot) > 1.5 * float(theta_dni))
     park_aureole = bool(park_aureole) and gamma is not None
     theta_first = float(theta_tot if gamma is not None else theta_dni)
     theta_reach = (1.001 * float(theta_dni) if park_aureole
@@ -1064,19 +1111,27 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
     t_phase["cell_lists"] = _time.perf_counter() - t0
     t0 = _time.perf_counter()
 
-    # ---- the kernels stage a block's candidate rows (K1) and the whole
-    # packed rows table (the K2 drain) in shared memory; a scene past
-    # either budget needs the row-streaming kernels of ROADMAP B5
+    # ---- K1 stages a block's candidate rows in shared memory: a
+    # one-device layout past its budget needs the row streaming of
+    # ROADMAP B5. A mesh build degrades its widest corridors until every
+    # (rank, segment) chunk fits tracer_tpu's budget, as tracer_tpu's.
     groups = table.groups
     G = len(groups)
     K = row_width(table)
-    if S * K > MAX_STAGE_FLOATS:
-        raise NotImplementedError(
-            f"{S} rows x {K} floats exceed the drain kernel's shared-memory "
-            "stage; row streaming is ROADMAP B5")
     cell_depth = np.full(n_cells, age_cap, dtype=np.int64)
     cell_of_block = np.repeat(np.arange(n_cells), mult).astype(np.int32)
     assert len(cell_of_block) == nb
+    mesh_n_seg = None
+    if mesh_devices > 1:
+        def rebuild(c: int) -> list:
+            return _one_cell_list(cells[c], center, rot, radius,
+                                  theta_first, spheres, n_axis, widen,
+                                  expandable_set, int(cell_depth[c]),
+                                  margin, d0, rect_wh=rect_wh,
+                                  reach_cache=reach_cache)
+        mesh_n_seg = _fit_mesh(table, cl, cell_of_block, cell_depth, nb,
+                               mesh_devices, max_smem_bytes, max_segments,
+                               rebuild)
     lists = [cl[c] for c in cell_of_block]
     cell_bounds = cells[cell_of_block]
     if rect is not None:
@@ -1103,7 +1158,7 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
 
     w_g = tuple(max(1, int(counts[:, g].max())) for g in range(G))
     offsets = tuple(int(sum(w_g[:g])) for g in range(G))
-    if sum(w_g) * K > MAX_STAGE_FLOATS:
+    if mesh_devices == 1 and sum(w_g) * K > MAX_STAGE_FLOATS:
         raise NotImplementedError(
             f"candidate lists {sum(w_g)} rows wide exceed the culled "
             "kernel's shared-memory stage; row streaming is ROADMAP B5")
@@ -1116,7 +1171,7 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
     stats = dict(nb=nb, n_cells=n_cells, mult_max=int(mult.max()),
                  L_max=int(n_cand.max()), n_groups=G,
                  L_mean=float(n_cand.mean()), n_rows=S,
-                 n_demoted=int(demote.sum()),
+                 n_demoted=int(demote.sum()), mesh_n_seg=mesh_n_seg,
                  t_phase={k: round(v, 1) for k, v in t_phase.items()},
                  reduction=float(S / max(n_cand.mean(), 1.0)))
     return BlockCulling(lists=arr, counts=counts, cell_bounds=cell_bounds,
@@ -1124,4 +1179,249 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
                         age_caps=age_caps, group_offsets=offsets,
                         demote_rows=tuple(int(r) for r in
                                           np.nonzero(demote)[0]),
-                        stats=stats, park_aureole=park_aureole)
+                        stats=stats, park_aureole=park_aureole,
+                        mesh_devices=mesh_devices)
+
+
+def _fit_mesh(table, cl: list, cell_of_block, cell_depth, nb: int,
+              n_dev: int, max_smem_bytes: int, max_segments: int,
+              rebuild) -> int:
+    """tracer_tpu's mesh fit (tracer_tpu/culling.py:1243-1350): the
+    fewest uniform segments a rank, searched by doubling, such that every
+    (rank, segment) chunk's layout and row shard fit ``max_smem_bytes``
+    (smem_need_bytes; widths and row shards pad to the most over the
+    ranks). While none fits, the cells binding the widest group (the
+    next one down once it is at depth 1) lose a corridor level: their
+    list is ``rebuild(c)`` at ``cell_depth[c]`` - 1 (``cl`` and
+    ``cell_depth`` change in place). Returns the segment count."""
+    groups = table.groups
+    G = len(groups)
+    n_cells = len(cl)
+    nbl = nb // n_dev
+
+    def group_counts():
+        out = np.zeros((n_cells, G), dtype=np.int64)
+        for c in range(n_cells):
+            arr = np.asarray(cl[c], dtype=np.int64)
+            for g, (start, end, _sig, _tag) in enumerate(groups):
+                out[c, g] = (np.searchsorted(arr, end)
+                             - np.searchsorted(arr, start))
+        return out
+
+    def chunk_rows(cells_in) -> int:
+        if not len(cells_in):
+            return 1
+        return len(np.unique(np.concatenate(
+            [np.asarray(cl[c], dtype=np.int64) for c in cells_in]
+            + [np.zeros(1, dtype=np.int64)])))
+
+    def fits(cgc, n_seg) -> bool:
+        cuts = [round(i * nbl / n_seg) for i in range(n_seg + 1)]
+        if any(b1 - b0 < 1 for b0, b1 in zip(cuts, cuts[1:])):
+            return False
+        for b0, b1 in zip(cuts, cuts[1:]):
+            w_i = 0
+            s_pad = 1
+            for d in range(n_dev):
+                cells_in = np.unique(cell_of_block[d * nbl + b0:
+                                                   d * nbl + b1])
+                w_d = int(sum(max(1, int(cgc[cells_in, g].max()))
+                              for g in range(G)))
+                w_i = max(w_i, w_d)
+                s_pad = max(s_pad, chunk_rows(cells_in))
+            if smem_need_bytes(table, b1 - b0, w_i,
+                               n_rows=s_pad) > max_smem_bytes:
+                return False
+        return True
+
+    def search(cgc, only_max: bool = False):
+        n_max = min(max_segments, nbl)
+        if only_max:
+            return n_max if fits(cgc, n_max) else None
+        n_seg = 1
+        while n_seg <= n_max:
+            if fits(cgc, n_seg):
+                return n_seg
+            n_seg *= 2
+        return n_max if fits(cgc, n_max) else None
+
+    cgc = group_counts()
+    probing = False          # once a fit failed, probe the finest split
+    while True:
+        n_seg = search(cgc, only_max=probing)
+        if n_seg is not None:
+            return search(cgc) if probing else n_seg
+        probing = True
+        cands = np.array([], dtype=np.int64)
+        for g_star in np.argsort(cgc.max(axis=0))[::-1]:
+            cands = np.nonzero((cgc[:, g_star] == cgc[:, g_star].max())
+                               & (cell_depth > 1))[0]
+            if len(cands):
+                break
+        if len(cands) == 0:
+            raise ValueError(
+                f"first-segment candidate lists (group widths "
+                f"{cgc.max(axis=0).tolist()}) exceed the per-rank budget "
+                f"even split into {max_segments} sequential segments; "
+                "increase the slab (smaller cells) or the rank count")
+        for c in cands:
+            cell_depth[c] -= 1
+            cl[c] = rebuild(int(c))
+        cgc = group_counts()
+
+
+def _localize_rows(a: np.ndarray, n_rows: int, demote_rows):
+    """Remap an array of global row ids (-1 padded) onto its own row
+    shard (tracer_tpu/culling.py:1439). Returns (a_local, ids, local,
+    dem_local): ids the sorted unique referenced rows (never empty),
+    local the (n_rows,) global->local map, dem_local the demoted rows
+    present in the shard in LOCAL ids."""
+    ids = np.unique(a[a >= 0]).astype(np.int32)
+    if len(ids) == 0:
+        ids = np.array([0], dtype=np.int32)
+    local = np.full(n_rows, -1, dtype=np.int32)
+    local[ids] = np.arange(len(ids), dtype=np.int32)
+    a_local = np.where(a >= 0, local[np.maximum(a, 0)],
+                       -1).astype(np.int32)
+    dem_local = tuple(int(local[r]) for r in demote_rows
+                      if local[r] >= 0)
+    return a_local, ids, local, dem_local
+
+
+def mesh_segment_shards(culling: BlockCulling, table, n_dev: int,
+                        max_smem_bytes: int = 1 << 20,
+                        max_segments: int = 64,
+                        force_n_seg: int = 0) -> list:
+    """Uniform per-rank segments of the culled block grid for the sharded
+    trace (tracer_tpu/culling.py:1461): rank d owns the contiguous block
+    range [d*nb/D, (d+1)*nb/D), and every rank runs the same ``n_seg``
+    sequential segments over even cuts of its range, each with only the
+    candidate columns and the row SHARD that chunk references. Blocks
+    never interact, so the decomposition is exact. ``n_seg`` is the
+    build's (stats["mesh_n_seg"]) for a build of ``n_dev`` ranks, else the
+    fewest, by doubling, whose chunks fit ``max_smem_bytes`` by
+    tracer_tpu's budget (smem_need_bytes); ``force_n_seg`` sets it.
+
+    Returns a list of ``n_seg`` dicts with keys:
+      blocks        (D*chunk,) int32 global block ids, rank-major
+      lists         (D*chunk, W) int32 candidate layout, entries LOCAL
+                    to each rank's row shard, per-group columns
+      counts        (D*chunk, G) int32
+      group_offsets (G,) column offsets for this segment
+      row_maps      (D, s_pad) int32 local->global row ids (edge-padded)
+      demote_masks  (D, s_pad) bool rank-local demotion masks
+    """
+    nb = culling.nb
+    if nb % n_dev:
+        raise ValueError(f"{nb} blocks not divisible by {n_dev} devices")
+    nbl = nb // n_dev
+    counts = culling.counts
+    G = counts.shape[1]
+    goff = culling.group_offsets
+    n_rows = int(table.ap_params.shape[0])
+
+    def _plan(n_seg):
+        """Cuts + per-seg (widths, row shards) if every chunk fits."""
+        cuts = [round(i * nbl / n_seg) for i in range(n_seg + 1)]
+        if any(b1 - b0 < 1 for b0, b1 in zip(cuts, cuts[1:])):
+            return None
+        plan = []
+        for b0, b1 in zip(cuts, cuts[1:]):
+            w_g = np.ones(G, dtype=np.int64)
+            shards = []
+            for d in range(n_dev):
+                lo, hi = d * nbl + b0, d * nbl + b1
+                w_g = np.maximum(w_g, counts[lo:hi].max(axis=0))
+                a_local, ids, _, dem_local = _localize_rows(
+                    culling.lists[lo:hi], n_rows, culling.demote_rows)
+                shards.append((a_local, ids, dem_local))
+            W = int(w_g.sum())
+            s_pad = max(len(x[1]) for x in shards)
+            if smem_need_bytes(table, b1 - b0, W,
+                               n_rows=s_pad) > max_smem_bytes:
+                return None
+            plan.append((b0, b1, tuple(int(w) for w in w_g), shards,
+                         s_pad))
+        return plan
+
+    if force_n_seg:
+        plan = _plan(force_n_seg)
+        if plan is None:
+            raise ValueError(f"forced n_seg={force_n_seg} does not fit "
+                             "the per-device SMEM budget")
+    else:
+        plan = None
+        hint = culling.stats.get("mesh_n_seg")
+        if hint and culling.mesh_devices == n_dev:
+            plan = _plan(int(hint))
+        n_seg = 1
+        while plan is None and n_seg <= min(max_segments, nbl):
+            plan = _plan(n_seg)
+            n_seg *= 2
+        if plan is None:
+            raise ValueError(
+                f"culled layout does not fit the per-device SMEM budget "
+                f"even split into {min(max_segments, nbl)} sequential "
+                f"segments per device; use more devices or a larger "
+                "slab (smaller cells)")
+
+    out = []
+    for b0, b1, w_g, shards, s_pad in plan:
+        off = tuple(int(sum(w_g[:g])) for g in range(G))
+        chunk = b1 - b0
+        lists_l = np.full((n_dev * chunk, sum(w_g)), -1, dtype=np.int32)
+        blocks = np.zeros(n_dev * chunk, dtype=np.int32)
+        row_maps = np.stack([np.pad(ids, (0, s_pad - len(ids)),
+                                    mode="edge") for _, ids, _ in shards])
+        demote_masks = np.zeros((n_dev, s_pad), dtype=bool)
+        cnt = np.zeros((n_dev * chunk, G), dtype=np.int32)
+        for d, (a_local, _, dem_local) in enumerate(shards):
+            demote_masks[d, list(dem_local)] = True
+            for j, blk in enumerate(range(d * nbl + b0, d * nbl + b1)):
+                row = d * chunk + j
+                blocks[row] = blk
+                cnt[row] = counts[blk]
+                for g in range(G):
+                    k = int(counts[blk, g])
+                    if k:
+                        lists_l[row, off[g]:off[g] + k] = \
+                            a_local[j, goff[g]:goff[g] + k]
+        out.append(dict(blocks=blocks, lists=lists_l, counts=cnt,
+                        group_offsets=off, row_maps=row_maps,
+                        demote_masks=demote_masks))
+    return out
+
+
+def device_row_shards(culling: BlockCulling, n_rows: int, n_dev: int):
+    """Per-rank row shards of the whole block range of each rank
+    (tracer_tpu/culling.py:1579): rank d's blocks [d*nb/D, (d+1)*nb/D)
+    reference a subset of the scene rows, so it can ship just that
+    subset.
+
+    Returns (lists_local, row_maps, demote_masks):
+      lists_local (nb, W) int32 — the global candidate layout with every
+          entry remapped to its rank's LOCAL row index;
+      row_maps (n_dev, S_pad) int32 — rank d's sorted global row ids,
+          edge-padded to the widest shard (padding rows are shipped but
+          never referenced);
+      demote_masks (n_dev, S_pad) bool — rank-local demotion masks.
+    """
+    nb = culling.nb
+    if nb % n_dev:
+        raise ValueError(f"{nb} blocks not divisible by {n_dev} devices")
+    per = nb // n_dev
+    lists_local = np.full_like(culling.lists, -1)
+    outs = []
+    for d in range(n_dev):
+        sub = culling.lists[d * per:(d + 1) * per]
+        a_local, ids, _, dem_local = _localize_rows(
+            sub, n_rows, culling.demote_rows)
+        lists_local[d * per:(d + 1) * per] = a_local
+        outs.append((ids, dem_local))
+    s_pad = max(len(ids) for ids, _ in outs)
+    row_maps = np.stack([np.pad(ids, (0, s_pad - len(ids)), mode="edge")
+                         for ids, _ in outs])
+    demote_masks = np.zeros((n_dev, s_pad), dtype=bool)
+    for d, (_, dem_local) in enumerate(outs):
+        demote_masks[d, list(dem_local)] = True
+    return lists_local, row_maps, demote_masks

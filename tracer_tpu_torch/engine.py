@@ -35,7 +35,7 @@
   device flux maps only.
 
 Both bundle traces run :func:`_bounce_step`: nearest hit (K3 for float32,
-the float64 oracle on CPU tensors, or the Kd candidates), free paths in
+the float64 oracle on either device, or the Kd candidates), free paths in
 volumetric media, shade, the spectral filter, account. Every loop runs
 on the host and reads one value from the device per bounce or round.
 """
@@ -310,7 +310,8 @@ def _trace_streaming_megakernel_culled(
         max_rounds: int, max_path: int, min_energy: float, t_eps: float,
         disc_eps: float, bivar, one_sided: bool, slope: bool,
         demote_rows: tuple, fluxspecs: tuple = (), spectral: bool = False,
-        modes=None, park_aureole: bool = False, order=None):
+        modes=None, park_aureole: bool = False, order=None, row_map=None,
+        demote_mask=None, drain_oracle: bool = False):
     """Relevancy-culled streaming trace (tracer_tpu/engine.py:1158): each
     tile owns one equal-area source cell and intersects only its static
     candidate list; per-tile quotas keep the stratified emission
@@ -320,8 +321,21 @@ def _trace_streaming_megakernel_culled(
     which the drain's K2 takes too. With an ambient attenuation the medium
     takes each hit segment's loss beyond the surfaces'. With
     ``park_aureole`` (the culling's) K1 flags the hits of aureole-born
-    lanes, and their survivors park for the drain. ``order`` is the
-    culling's tile order, which K1 dispatches by. Returns (accum, rays
+    lanes, and their survivors park for the drain. ``order`` is the tile
+    order of these ``lists``, which K1 dispatches by (None: K1 derives
+    it).
+
+    The per-tile arrays may be a rank's block range of the global layout
+    (parallel.trace_streaming_sharded): ``cells`` then carries the global
+    tile ids, so each tile draws its own random stream wherever it runs.
+    With ``row_map`` ((S_loc,) int64, a rank's or segment's local->global
+    row map, culling.mesh_segment_shards) the lists and ``demote_rows``
+    hold LOCAL row ids: K1 gets the gathered table rows[row_map], and the
+    winners' rows map back to global ones before they are accounted.
+    ``demote_mask`` ((S_loc,) bool) adds demoted rows as data. The drain
+    always traces the FULL scene: K2, or with ``drain_oracle`` (a table
+    past K2's stage) the oracle's nearest hit and the unfused shade on
+    the rays' device (tracer_tpu's drain_jnp). Returns (accum, rays
     emitted, source energy)."""
     dev = scene.device
     nb = lists.shape[0]
@@ -330,6 +344,7 @@ def _trace_streaming_megakernel_culled(
     e_ray = float(source_spec[5])
     att_on = modes.get("ambient_att", 0.0) > 0.0
     rows = pack_rows(scene)
+    rows_k = rows if row_map is None else rows[row_map]
     S = scene.num_rows
     f32 = dict(dtype=torch.float32, device=dev)
     tab = _k2_table(scene) if spectral or modes.get("conductor") else None
@@ -343,8 +358,12 @@ def _trace_streaming_megakernel_culled(
     parked = torch.zeros((slab,), dtype=torch.bool, device=dev)
     emitted_b = torch.zeros((nb,), dtype=torch.int32, device=dev)
     accum = TraceAccum.zeros(S, device=dev, fluxspecs=fluxspecs)
-    demote = torch.zeros((S,), dtype=torch.bool, device=dev)
+    demote = torch.zeros((rows_k.shape[0],), dtype=torch.bool, device=dev)
     demote[list(demote_rows)] = True
+    if demote_mask is not None:
+        demote |= demote_mask
+    drain_gen = (torch.Generator(device=dev).manual_seed(_seed(generator))
+                 if drain_oracle else None)
     age_cap_lane = age_caps.repeat_interleave(TILE)
     shared = dict(t_eps=t_eps, disc_eps=disc_eps, bivar=bivar,
                   one_sided=one_sided, slope=slope, spectral_tab=tab,
@@ -367,11 +386,17 @@ def _trace_streaming_megakernel_culled(
         for _ in range(max_path + 1):
             if not bool((ce > 0.0).any()):
                 break
-            outs = bounce_reflect(rows, _seed(generator), cpos, cdirs, ce,
-                                  scene.groups, wavelength=cwl, **shared)
-            cpos, cdirs, ne, sid, absorbed = outs[:5]
-            if cwl is not None:
-                cwl = outs[5]
+            if drain_oracle:
+                cpos, cdirs, ne, sid, absorbed = _oracle_bounce(
+                    scene, cpos, cdirs, ce, cwl, drain_gen, t_eps, disc_eps,
+                    modes.get("ambient_att", 0.0))
+            else:
+                outs = bounce_reflect(rows, _seed(generator), cpos, cdirs,
+                                      ce, scene.groups, wavelength=cwl,
+                                      **shared)
+                cpos, cdirs, ne, sid, absorbed = outs[:5]
+                if cwl is not None:
+                    cwl = outs[5]
             hit = sid >= 0
             _account(accum, sid, (ce > 0.0) & ~hit, absorbed, ce)
             _dfm.accumulate(accum.flux, fluxspecs, scene, sid, cpos,
@@ -410,7 +435,7 @@ def _trace_streaming_megakernel_culled(
             age = torch.where(reborn, 0, age)
 
             outs = bounce_reflect_culled(
-                rows, lists, counts, cells, cell_bounds, _seed(generator),
+                rows_k, lists, counts, cells, cell_bounds, _seed(generator),
                 remaining_b, active_b, pos, dirs, e, scene.groups,
                 group_offsets, source_spec=source_spec, wavelength=wl,
                 park_aureole=park_aureole, order=order, **shared)
@@ -426,6 +451,10 @@ def _trace_streaming_megakernel_culled(
             aur_hit = sid <= -16
             sid = torch.where(aur_hit, -sid - 16, sid)
             hit = sid >= 0
+            demote_hit = hit & demote[sid.clamp(min=0).long()]
+            if row_map is not None:
+                sid = torch.where(hit, row_map[sid.clamp(min=0).long()]
+                                  .to(torch.int32), sid)
             _account(accum, sid, ~parked & (e_before > 0.0) & ~hit,
                      absorbed, e_before)
             _dfm.accumulate(accum.flux, fluxspecs, scene, sid, npos,
@@ -441,7 +470,6 @@ def _trace_streaming_megakernel_culled(
             age = torch.where(~parked & (e_before > 0.0), age + 1, age)
             # park survivors of demoted rows, of aureole-born lanes' first
             # bounce and rays at the age cap
-            demote_hit = hit & demote[sid.clamp(min=0).long()]
             newly = ~parked & (ne > 0.0) & (demote_hit | aur_hit
                                             | (age >= age_cap_lane))
             pos = torch.where(parked[:, None], pos, npos)
@@ -459,6 +487,39 @@ def _trace_streaming_megakernel_culled(
     accum.residual += e.sum()
     emitted = emitted_b.sum(dtype=torch.int64)
     return accum, emitted, emitted.to(torch.float64) * e_ray
+
+
+def _oracle_bounce(scene, pos, dirs, e, wl, generator, t_eps: float,
+                   disc_eps: float, ambient_att: float):
+    """One bounce of the culled drain without K2 (tracer_tpu/engine.py
+    :1402-1425): the oracle's nearest hit over the full scene and the
+    unfused shade, in the rays' dtype on their device, the ambient's
+    Beer-Lambert loss taken over each hit segment first. Returns (pos,
+    dir, energy, sid, absorbed) as K2 does: misses keep their state.
+    Each call adds one to ``_oracle_bounce.launches``, so that a run can
+    show its oracle drain bounces beside K2's launches."""
+    from .kernels.intersect import nearest_hit
+    _oracle_bounce.launches += 1
+    t, sid = nearest_hit(scene, pos, dirs, t_eps=t_eps, disc_eps=disc_eps,
+                         use_pallas=False)
+    sid = torch.where(e > 0.0, sid, -1)
+    hit = sid >= 0
+    e_att = e
+    if ambient_att > 0.0:
+        e_att = torch.where(hit, e * torch.exp(
+            -ambient_att * torch.where(hit, t, 0.0)), e)
+    zeros = torch.zeros_like(e)
+    res = shade(scene, sid, t, pos, dirs, e_att,
+                zeros if wl is None else wl, torch.ones_like(e), generator,
+                medium=(zeros, zeros, zeros))
+    h3 = hit[:, None]
+    return (torch.where(h3, res.out_pos, pos),
+            torch.where(h3, res.out_dir, dirs),
+            torch.where(hit, res.out_energy, e), sid,
+            torch.where(hit, res.absorbed, 0.0))
+
+
+_oracle_bounce.launches = 0
 
 
 # optics kinds K2 shades (tracer_tpu/engine.py:1746-1757): the plain
@@ -671,12 +732,22 @@ def trace_streaming(scene: SceneTable, source_fn, generator: torch.Generator,
     Bifacial rows reject rays that reach their back (backside_miss) on
     every path. Mixed IAM exponents (K2 takes one) and splitting scenes
     with volumetric media or dispersive interfaces take the general path's
-    unfused bounce, K3 and the shade."""
+    unfused bounce, K3 and the shade. A float64 scene takes the general
+    path on either device, its nearest hits from the float64 oracle and
+    its accumulators in float64; a ``culling`` is then ignored with a
+    warning (the kernels are float32, tracer_tpu/engine.py:1760-1767)."""
     spec = getattr(source_fn, "pallas_spec", None)
     spec, source_fn = _apply_scene_ambient(scene, spec, source_fn)
     if scene.frame.dtype != torch.float32:
-        raise NotImplementedError("float64 traces are not ported yet "
-                                  "(ROADMAP A4)")
+        # K1 and K2 are float32: a float64 scene streams on the general
+        # path (nearest hits from the oracle, the unfused shade), as
+        # tracer_tpu's kernel_ok gate sends it to its jnp path
+        if culling is not None:
+            log.warning("culling ignored: %s scene takes the general "
+                        "streaming path", scene.frame.dtype)
+        return _trace_streaming_general(
+            scene, source_fn, generator, total_rays, max_rounds, max_path,
+            min_energy, t_eps, disc_eps, fluxspecs=fluxspecs)
     n = source_fn.num_rays
     kinds = set(scene.kinds_present)
     features = set(scene.features)
@@ -750,11 +821,8 @@ def _cullable(scene, spec) -> bool:
 
 def _trace_culled(scene, spec, culling, generator, total_rays, n, common,
                   disc_eps):
-    """trace_streaming's culled dispatch for a cullable scene: K1's modes
-    from the scene's kinds and features (tracer_tpu/engine.py:1794-1806),
-    the wavelength lane where spectral or dispersive-conductor rows read
-    it."""
-    kinds, features = set(scene.kinds_present), set(scene.features)
+    """trace_streaming's culled dispatch for a cullable scene: the
+    culling's whole layout on this device (_run_culled)."""
     nb = culling.nb
     if n != nb * TILE:
         raise ValueError(
@@ -767,30 +835,58 @@ def _trace_culled(scene, spec, culling, generator, total_rays, n, common,
             or (culling.counts > widths).any()):
         raise ValueError("culling does not match this scene's rows and "
                          "groups: build it for this scene")
-    if not _k2_fits(scene):
-        raise NotImplementedError("the rows and the spectral table exceed "
-                                  "the drain kernel's shared-memory stage "
-                                  "(ROADMAP B5)")
+    return _run_culled(
+        scene, spec, generator, common, disc_eps, lists=culling.lists,
+        counts=culling.counts, cells=np.arange(nb),
+        cell_bounds=culling.cell_bounds,
+        quota=culling.block_quota(total_rays), age_caps=culling.age_caps,
+        group_offsets=culling.group_offsets,
+        demote_rows=culling.demote_rows, park_aureole=culling.park_aureole,
+        order=culling.order)
+
+
+def _run_culled(scene, spec, generator, common, disc_eps, *, lists, counts,
+                cells, cell_bounds, quota, age_caps, group_offsets,
+                demote_rows=(), park_aureole: bool = False, order=None,
+                row_map=None, demote_mask=None):
+    """The culled trace of the tiles given by the host arrays ``lists``,
+    ``counts``, ``cells`` (global tile ids), ``cell_bounds``, ``quota``
+    and ``age_caps`` (a whole layout, or a rank's block range or segment
+    of it, with its ``row_map`` and ``demote_mask``), copied to the
+    scene's device: K1's modes from the scene's kinds and features
+    (tracer_tpu/engine.py:1794-1806), the wavelength lane where spectral
+    or dispersive-conductor rows read it, and the drain on K2 or, for a
+    table past K2's stage, through the oracle."""
+    kinds, features = set(scene.kinds_present), set(scene.features)
     modes = dict(lambertian=_M.K_LAMBERTIAN in kinds,
                  ambient_att=_spec_medium(spec)[0],
                  conductor=_M.K_FRESNEL_CONDUCTOR in kinds,
                  iam=_iam_mode(scene), backside_miss="bifacial" in features)
     dev = scene.device
+    drain_oracle = not _k2_fits(scene)
+    if drain_oracle:
+        log.warning("the table's %d rows are past K2's stage: the culled "
+                    "drain runs through the oracle and the unfused shade "
+                    "in PyTorch, counted in _oracle_bounce.launches",
+                    scene.num_rows)
 
     def dev_i32(a):
-        return torch.as_tensor(a, dtype=torch.int32, device=dev)
+        return torch.as_tensor(np.asarray(a), dtype=torch.int32, device=dev)
 
     return _trace_streaming_megakernel_culled(
-        scene, generator, dev_i32(culling.lists), dev_i32(culling.counts),
-        torch.arange(nb, dtype=torch.int32, device=dev),
-        torch.as_tensor(culling.cell_bounds, dtype=torch.float32,
+        scene, generator, dev_i32(lists), dev_i32(counts), dev_i32(cells),
+        torch.as_tensor(np.asarray(cell_bounds), dtype=torch.float32,
                         device=dev),
-        dev_i32(culling.block_quota(total_rays)), dev_i32(culling.age_caps),
-        source_spec=spec, group_offsets=culling.group_offsets, slab=n,
-        demote_rows=culling.demote_rows, disc_eps=disc_eps,
-        spectral=_culled_wl(scene), modes=modes,
-        park_aureole=culling.park_aureole, order=dev_i32(culling.order),
-        **common)
+        dev_i32(quota), dev_i32(age_caps), source_spec=spec,
+        group_offsets=tuple(group_offsets), slab=len(lists) * TILE,
+        demote_rows=tuple(demote_rows), disc_eps=disc_eps,
+        spectral=_culled_wl(scene), modes=modes, park_aureole=park_aureole,
+        order=None if order is None else dev_i32(order),
+        row_map=(None if row_map is None else torch.as_tensor(
+            np.asarray(row_map), dtype=torch.int64, device=dev)),
+        demote_mask=(None if demote_mask is None else torch.as_tensor(
+            np.asarray(demote_mask), dtype=torch.bool, device=dev)),
+        drain_oracle=drain_oracle, **common)
 
 
 # the per-ray state fields of a streaming slab that regeneration moves
@@ -833,15 +929,25 @@ def _trace_streaming_general(scene: SceneTable, source_fn,
     source rays refill the rest, so the population never grows. Branches
     past ``max_path`` are culled with their energy accounted.
 
-    One device read a round (emitted, live and parked counts). Energy
-    still alive at ``max_rounds``, parked branches included, goes to the
-    residual, so the closure is exact. Returns (accum, emitted, source
-    energy)."""
+    The slab traces in the scene's dtype (a float64 scene casts the
+    source's rays to float64), and the accumulators follow it. One device
+    read a round (emitted, live and parked counts). Energy still alive at
+    ``max_rounds``, parked branches included, goes to the residual, so the
+    closure is exact. Returns (accum, emitted, source energy)."""
     split = "split" in scene.features
     dev = scene.device
     n = source_fn.num_rays
     src_gen = torch.Generator(device=dev).manual_seed(_seed(generator))
-    fresh = source_fn(src_gen, device=dev)
+    dtype = scene.frame.dtype
+
+    def draw():
+        # the slab traces in the scene's dtype
+        b = source_fn(src_gen, device=dev)
+        if b.pos.dtype == dtype:
+            return b
+        return b.replace(**{f: getattr(b, f).to(dtype) for f in
+                            _RAY_FIELDS})
+    fresh = draw()
     if fresh.spectra is not None:
         # tracer_tpu/engine.py:1687-1691; the spec'd paths draw their rays
         # in the kernels from the spec, which carries no spectra
@@ -871,7 +977,7 @@ def _trace_streaming_general(scene: SceneTable, source_fn,
         n_new = torch.zeros((), dtype=torch.int64, device=dev)
         if emitted < total_rays:
             if i:
-                fresh = source_fn(src_gen, device=dev)
+                fresh = draw()
             free = ~bundle.alive
             rank = torch.cumsum(free.to(torch.int32), 0)
             refill = free & (rank <= total_rays - emitted)

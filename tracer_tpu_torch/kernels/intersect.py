@@ -10,8 +10,8 @@ its Pallas kernel:
 * float64 goes through the oracle below, a dtype-generic transcription of
   tracer_tpu's jnp path: every quadric solved with the general
   10-coefficient formula, the L2 self-hit guard, apertures of each group's
-  static signature. It runs on CPU tensors; float64 on CUDA is not ported
-  (ROADMAP A4).
+  static signature. It is torch code and runs on either device; K3, like
+  tracer_tpu's Pallas kernel, takes float32 only.
 
 The oracle is also the differentiable nearest hit: ``force_jnp`` (the
 switch diff.trace_diff sets, as tracer_tpu's does) pins it for any dtype,
@@ -31,11 +31,6 @@ import torch
 from .. import geometry as G
 from .. import materials as M
 from ..mathutils import apply_rot, safe_sqrt
-
-_F64_CUDA = ("float64 tracing on CUDA tensors is not ported yet (ROADMAP "
-             "A4: the oracle runs on CPU tensors; the card's nearest-hit "
-             "kernel is float32)")
-
 
 def default_t_eps(dtype) -> float:
     """Relative positive-t threshold by precision: float32 needs a much
@@ -271,13 +266,10 @@ def nearest_hit_candidates(scene, cand, pos, dirs,
 
 
 def _oracle_nearest(scene, pos, dirs, t_eps: float, disc_eps: float,
-                    block: int, force_jnp: bool = False):
+                    block: int):
     """Brute-force nearest hit over every group, ``block`` rows at a time,
-    differentiable in every float input. CUDA tensors are taken only in
-    float32 under ``force_jnp`` (the differentiable trace)."""
-    if pos.device.type != "cpu" and not (force_jnp
-                                         and pos.dtype == torch.float32):
-        raise NotImplementedError(_F64_CUDA)
+    differentiable in every float input, in the rays' dtype on their
+    device."""
     if not scene.groups:
         raise ValueError("SceneTable.groups missing: compile with "
                          "scene.compile_scene")
@@ -305,8 +297,8 @@ def nearest_hit(scene, pos, dirs, t_eps: Optional[float] = None,
 
     Returns (t, sid): t (N,) hit distance (+inf = escaped), sid (N,) int32
     row of the hit surface (-1 = escaped). ``use_pallas`` None picks K3 for
-    float32 rays and the oracle otherwise; False forces the oracle (CPU
-    tensors only), True forces K3."""
+    float32 rays and the oracle otherwise; False forces the oracle (either
+    device, either dtype), True forces K3."""
     if t_eps is None:
         t_eps = default_t_eps(pos.dtype)
     if use_pallas is None:
@@ -338,11 +330,7 @@ def nearest_hit_aux(scene, pos, dirs, t_eps=None, disc_eps: float = 1e-6,
     aux None, as tracer_tpu's nearest_hit(use_pallas=False) does."""
     if t_eps is None:
         t_eps = default_t_eps(pos.dtype)
-    if force_jnp:
-        t, sid = _oracle_nearest(scene, pos, dirs, t_eps, disc_eps,
-                                 block or 16, force_jnp=True)
-        return t, sid, None
-    if pos.dtype == torch.float32:
+    if pos.dtype == torch.float32 and not force_jnp:
         return _k3(scene, pos, dirs, t_eps, disc_eps, need_local)
     t, sid = _oracle_nearest(scene, pos, dirs, t_eps, disc_eps, block or 16)
     return t, sid, None

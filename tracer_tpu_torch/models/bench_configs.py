@@ -206,13 +206,15 @@ def bench_spec(pkg, cfg, slab: int):
         ambient_scat=c.get("scat", 0.0), ambient_g=c.get("g", 0.0))
 
 
-def bench_scene(cfg, slab: int, device=None):
+def bench_scene(cfg, slab: int, device=None, dtype=torch.float32):
     """(table, meta, source_fn) of bench configuration ``cfg`` on the port,
-    on the GPU unless ``device`` says otherwise: ``source_fn(generator,
-    device=None)`` draws a slab of the rays its ``pallas_spec``
+    on the GPU unless ``device`` says otherwise, the table in ``dtype``
+    (a float64 table streams on the general path): ``source_fn(generator,
+    device=None)`` draws a float32 slab of the rays its ``pallas_spec``
     regenerates, and ``num_rays`` is the slab."""
     asm, extra = bench_assembly(ptt, cfg)
-    table, meta = ptt.compile_scene(asm, extra_features=extra, device=device)
+    table, meta = ptt.compile_scene(asm, extra_features=extra, dtype=dtype,
+                                    device=device)
     spec = bench_spec(ptt, cfg, slab)
     c = BENCH[cfg]
 

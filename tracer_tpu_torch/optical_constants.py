@@ -3,14 +3,17 @@
 
 Capability parity with the reference's ray_trace_utils/optical_constants.py
 (optical_material base with validity checking :35, Sopra-database loader :9,
-file loader :116, hand-written models :99-269). The port bundles only the
-n,k table its traces read: silver, ``data/nk/AG.txt`` (a byte copy of the
-JAX package's generated Lorentz-Drude table, Rakic et al., Appl. Opt. 37,
-5271 (1998), Table 1). ``from_sopra`` looks in that folder, then in its
-``sopra`` subfolder; point database_dir at any external Sopra-format
-archive for other materials. Built-in analytic models (Sellmeier SiO2/BK7,
-Lorentz-Drude metals) are provided in corrected eV units (see
-electromagnetics module docstring).
+file loader :116, hand-written models :99-269). The port bundles the JAX
+package's whole n,k database, byte for byte: ``data/nk/NAME.txt``, ten
+tables generated from the analytic models below (Lorentz-Drude metals,
+Rakic et al., Appl. Opt. 37, 5271 (1998); Sellmeier SiO2 and BK7) by
+``data/generate_nk.py``, and ``data/nk/sopra/``, the 267 measured tables
+of the public SOPRA archive as ``data/convert_sopra.py`` normalises them.
+``from_sopra`` looks in ``data/nk``, then in its ``sopra`` subfolder
+(``measured=True`` flips the order); point database_dir at any external
+Sopra-format archive for other materials. Built-in analytic models
+(Sellmeier SiO2/BK7, Lorentz-Drude metals) are provided in corrected eV
+units (see electromagnetics module docstring).
 """
 from __future__ import annotations
 
