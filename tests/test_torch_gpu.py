@@ -1832,3 +1832,122 @@ def test_trace_sharded_one_rank_nccl_on_gpu(cuda_device):
         assert torch.equal(final.energy, final_f.energy)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_spans_share_the_profilers_clock_on_gpu(cuda_device):
+    """A span around one torch.cuda._sleep launch holds the launch's host
+    event (cudaLaunchKernel) of the profiler's trace, and the kernel's
+    device event starts after the span does: spans, host and device
+    events read one clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tracer_tpu_torch import telemetry
+    torch.cuda.synchronize()
+    telemetry.collect()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        telemetry.enable()
+        try:
+            with telemetry.span("launch"):
+                torch.cuda._sleep(10_000_000)
+        finally:
+            telemetry.enable(False)
+        torch.cuda.synchronize()
+    (sp,) = telemetry.collect()
+    events = list(prof.profiler.kineto_results.events())
+    host = {e.correlation_id(): e for e in events
+            if e.device_type() != DeviceType.CUDA
+            and e.name().startswith("cu")}
+    kernels = [e for e in events if e.device_type() == DeviceType.CUDA
+               and e.correlation_id() in host]
+    assert len(kernels) == 1, [e.name() for e in kernels]
+    h = host[kernels[0].correlation_id()]
+    assert sp.start <= h.start_ns()
+    assert h.start_ns() + h.duration_ns() <= sp.end
+    assert kernels[0].start_ns() >= sp.start
+
+
+def _cell_paths(path: str, device):
+    """A small call of a benchmark cell's path: the culled field with its
+    receiver's flux map (K1, the drain on K2), the plain megakernel on the
+    MiniDish (K2), trace_fused with the flux map on a bundle drawn on the
+    card (K3)."""
+    from tracer_tpu_torch.analysis.device_fluxmap import flux_plan
+    from tracer_tpu_torch.engine import trace_fused
+    if path == "culled":
+        slab = 4 * kb.TILE
+        table, meta, culling, spec = k1_scene("flat", 40, slab, device)
+        fspecs = (flux_plan(meta, "receiver", resolution=50),)
+
+        def source_fn(generator, device=None):
+            raise AssertionError("the culled trace draws in K1")
+        source_fn.pallas_spec, source_fn.num_rays = spec, slab
+        return lambda: trace_streaming(
+            table, source_fn, torch.Generator().manual_seed(1), 2 * slab,
+            culling=culling, max_rounds=300, max_path=8, fluxspecs=fspecs)
+    if path == "megakernel":
+        slab = 8 * kb.TILE
+        table, _, source_fn = bench_scene(1, slab, device)
+        return lambda: trace_streaming(
+            table, source_fn, torch.Generator().manual_seed(1), 4 * slab,
+            max_rounds=200, max_path=20)
+    table, meta, source_fn = bench_scene(1, 1 << 16, device)
+    fspecs = (flux_plan(meta, "receiver", resolution=50),)
+
+    def fused():
+        gen = torch.Generator(device=device).manual_seed(4)
+        return trace_fused(table, source_fn(gen, device=device),
+                           generator=gen, max_bounces=20, fluxspecs=fspecs)
+    return fused
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["culled", "megakernel", "fused"])
+def test_round_loops_wait_only_in_telemetry_read_on_gpu(cuda_device, path,
+                                                        monkeypatch):
+    """With torch.cuda.set_sync_debug_mode("error") from a call's first
+    round to its end, everywhere but inside telemetry.read and
+    telemetry.count, a small call of each benchmark cell's path runs:
+    every wait of the round loops is a counted ``sync`` span. Its round
+    spans equal each kernel's launch counter's delta."""
+    from tracer_tpu_torch import engine, telemetry
+    run = _cell_paths(path, cuda_device)
+    run()
+    real_span = telemetry.span
+
+    def allowed(fn):
+        def wait(x):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(x)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return wait
+
+    def span(name, **attrs):
+        if name == "round":
+            torch.cuda.set_sync_debug_mode("error")
+        return real_span(name, **attrs)
+    monkeypatch.setattr(telemetry, "read", allowed(telemetry.read))
+    monkeypatch.setattr(telemetry, "count", allowed(telemetry.count))
+    monkeypatch.setattr(telemetry, "span", span)
+    counters = (("k1", kb.bounce_reflect_culled), ("k2", kb.bounce_reflect),
+                ("k3", kn.nearest_hit), ("oracle", engine._oracle_bounce))
+    torch.cuda.synchronize()
+    telemetry.collect()
+    n0 = {k: f.launches for k, f in counters}
+    telemetry.enable()
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        telemetry.enable(False)
+    torch.cuda.synchronize()
+    spans = telemetry.collect()
+    rounds = {k: sum(1 for s in spans if s.name == "round"
+                     and s.attrs["kernel"] == k) for k, _ in counters}
+    assert rounds == {k: f.launches - n0[k] for k, f in counters}
+    assert sum(rounds.values()) > 2
+    assert sum(1 for s in spans if s.name == "sync") > 2

@@ -45,7 +45,11 @@ The slices that run end to end:
   and multi_ray_sim (TracerEngineMP) on the nearest-hit kernel, and
   trace_streaming_sharded, plain or culled, each rank on its block range
   of a mesh-targeted culling (culling.build_block_culling(mesh_devices=D),
-  mesh_segment_shards' row-shard segments).
+  mesh_segment_shards' row-shard segments);
+* the span recorder (telemetry): off by default, on it records the
+  entry calls, the round loops' launches, bookkeeping and waits, the
+  drains, the all-reduce and the scene build as spans in memory on the
+  profiler's host clock.
 
 Entry points put their tensors on the GPU (device.default_device) and
 raise without one unless given ``device="cpu"``. On CPU tensors every

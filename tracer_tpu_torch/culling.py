@@ -59,6 +59,7 @@ import torch
 from .accel import _row_geometries, _row_points
 from .kernels.bounce import tile_order
 from . import materials as M
+from . import telemetry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -993,12 +994,9 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
     theta_reach = (1.001 * float(theta_dni) if park_aureole
                    else theta_first)
 
-    import time as _time
-    t_phase = {}
-    t0 = _time.perf_counter()
-    spheres = _row_spheres(meta, resolution)
-    n_axis, n_beta = _row_normal_cones(table, meta, resolution)
-    t_phase["geometry"] = _time.perf_counter() - t0
+    with telemetry.span("build.geometry"):
+        spheres = _row_spheres(meta, resolution)
+        n_axis, n_beta = _row_normal_cones(table, meta, resolution)
 
     kinds = (meta.host_opt_kind if meta.host_opt_kind is not None
              else np.asarray(table.opt_kind))
@@ -1049,130 +1047,125 @@ def build_block_culling(table, meta, source_spec, slab: int, *,
     # each candidate by max_c(w_c / m_c) / n_cells after greedy allocation
     n_cells = nb
     mult = np.ones(nb, dtype=np.int64)
-    t0 = _time.perf_counter()
-    if balance and nb > 1:
-        # ONE pilot; candidate partitions aggregate/sample it. The grid
-        # is CAPPED: the pilot only feeds block multiplicities, and the
-        # survival field is smooth at ~2k-cell resolution
-        fine = cells_fn(min(nb, 2048))
-        fill = _row_fill(meta, spheres, resolution)
-        # the pilot is O(cells x rays x rows) and only feeds load
-        # balancing — scale rays down as the scene grows (relative
-        # survival needs ~1/sqrt(n) accuracy, not absolute precision)
-        pilot_eff = max(48, int(pilot_rays
-                                * min(1.0, (1500.0 / S) ** 0.5)))
-        fine_h = _pilot_survival(fine, center, rot, radius,
-                                 float(theta_dni), pilot_eff,
-                                 spheres, n_axis, fill, absorptivity,
-                                 rect_wh=rect_wh, rays_rot=rays_rot)
-        best = None
-        tried = set()
-        for div in (1.0, 1.1, 1.2, 1.35, 1.5, 1.7, 2.0):
-            nc = int(np.clip(round(nb / div), 1, nb))
-            if nc in tried:
-                continue
-            tried.add(nc)
-            cand = cells_fn(nc)
-            h = (fine_h if nc == len(fine)
-                 else _aggregate_survival(fine, fine_h, cand))
-            w = 1.0 / np.maximum(1.0 - h, 0.1)
-            m = np.ones(nc, dtype=np.int64)
-            for _ in range(nb - nc):
-                m[np.argmax(w / m)] += 1
-            # total cost ~ rounds x per-round cost. Rounds ~ max_c of
-            # quota/(m_c (1-h_c)) ~ max(w/m)/nc. Per-round cost has a
-            # fixed part and a candidate-loop part that grows with cell
-            # area (estimated by the first-segment sweep count of a mid
-            # ring cell; the closure roughly doubles it). The weights are
-            # tracer_tpu's cost model, kept so the block layout (and the
-            # lists) equal the JAX build's; re-tuning them for the H100
-            # belongs with the tile re-tune (ROADMAP B5).
-            mid = cand[len(cand) // 2]
-            c0, r0 = _cell_sphere(center, rot, radius, mid,
-                                  rect_wh=rect_wh)
-            L1 = int(_cone_sweep_hits(spheres, c0, r0, d0, theta_first,
-                                      margin).sum())
-            score = (float((w / m).max()) / nc) * (1.0 + 0.09 * L1)
-            if best is None or score < best[0]:
-                best = (score, nc, m)
-        _, n_cells, mult = best
-    t_phase["pilot_balance"] = _time.perf_counter() - t0
+    with telemetry.span("build.pilot_balance"):
+        if balance and nb > 1:
+            # ONE pilot; candidate partitions aggregate/sample it. The grid
+            # is CAPPED: the pilot only feeds block multiplicities, and the
+            # survival field is smooth at ~2k-cell resolution
+            fine = cells_fn(min(nb, 2048))
+            fill = _row_fill(meta, spheres, resolution)
+            # the pilot is O(cells x rays x rows) and only feeds load
+            # balancing — scale rays down as the scene grows (relative
+            # survival needs ~1/sqrt(n) accuracy, not absolute precision)
+            pilot_eff = max(48, int(pilot_rays
+                                    * min(1.0, (1500.0 / S) ** 0.5)))
+            fine_h = _pilot_survival(fine, center, rot, radius,
+                                     float(theta_dni), pilot_eff,
+                                     spheres, n_axis, fill, absorptivity,
+                                     rect_wh=rect_wh, rays_rot=rays_rot)
+            best = None
+            tried = set()
+            for div in (1.0, 1.1, 1.2, 1.35, 1.5, 1.7, 2.0):
+                nc = int(np.clip(round(nb / div), 1, nb))
+                if nc in tried:
+                    continue
+                tried.add(nc)
+                cand = cells_fn(nc)
+                h = (fine_h if nc == len(fine)
+                     else _aggregate_survival(fine, fine_h, cand))
+                w = 1.0 / np.maximum(1.0 - h, 0.1)
+                m = np.ones(nc, dtype=np.int64)
+                for _ in range(nb - nc):
+                    m[np.argmax(w / m)] += 1
+                # total cost ~ rounds x per-round cost. Rounds ~ max_c of
+                # quota/(m_c (1-h_c)) ~ max(w/m)/nc. Per-round cost has a
+                # fixed part and a candidate-loop part that grows with cell
+                # area (estimated by the first-segment sweep count of a mid
+                # ring cell; the closure roughly doubles it). The weights are
+                # tracer_tpu's cost model, kept so the block layout (and the
+                # lists) equal the JAX build's; re-tuning them for the H100
+                # belongs with the tile re-tune (ROADMAP B5).
+                mid = cand[len(cand) // 2]
+                c0, r0 = _cell_sphere(center, rot, radius, mid,
+                                      rect_wh=rect_wh)
+                L1 = int(_cone_sweep_hits(spheres, c0, r0, d0, theta_first,
+                                          margin).sum())
+                score = (float((w / m).max()) / nc) * (1.0 + 0.09 * L1)
+                if best is None or score < best[0]:
+                    best = (score, nc, m)
+            _, n_cells, mult = best
     cells = cells_fn(n_cells)
 
     reach_cache = _ReachCache(spheres, n_axis, widen, expandable_set,
                               margin, d0, theta_reach)
-    t0 = _time.perf_counter()
-    reach_cache.precompute(age_cap)
-    t_phase["reach_precompute"] = _time.perf_counter() - t0
-    t0 = _time.perf_counter()
-    cl = _cell_lists(cells, center, rot, radius, theta_first, spheres,
-                     n_axis, widen, expandable_set, age_cap, margin, d0,
-                     rect_wh=rect_wh, reach_cache=reach_cache)
-    t_phase["cell_lists"] = _time.perf_counter() - t0
-    t0 = _time.perf_counter()
+    with telemetry.span("build.reach_precompute"):
+        reach_cache.precompute(age_cap)
+    with telemetry.span("build.cell_lists"):
+        cl = _cell_lists(cells, center, rot, radius, theta_first, spheres,
+                         n_axis, widen, expandable_set, age_cap, margin, d0,
+                         rect_wh=rect_wh, reach_cache=reach_cache)
+    with telemetry.span("build.layout"):
 
-    # ---- K1 stages a block's candidate rows in shared memory: a
-    # one-device layout past its budget needs the row streaming of
-    # ROADMAP B5. A mesh build degrades its widest corridors until every
-    # (rank, segment) chunk fits tracer_tpu's budget, as tracer_tpu's.
-    groups = table.groups
-    G = len(groups)
-    K = row_width(table)
-    cell_depth = np.full(n_cells, age_cap, dtype=np.int64)
-    cell_of_block = np.repeat(np.arange(n_cells), mult).astype(np.int32)
-    assert len(cell_of_block) == nb
-    mesh_n_seg = None
-    if mesh_devices > 1:
-        def rebuild(c: int) -> list:
-            return _one_cell_list(cells[c], center, rot, radius,
-                                  theta_first, spheres, n_axis, widen,
-                                  expandable_set, int(cell_depth[c]),
-                                  margin, d0, rect_wh=rect_wh,
-                                  reach_cache=reach_cache)
-        mesh_n_seg = _fit_mesh(table, cl, cell_of_block, cell_depth, nb,
-                               mesh_devices, max_smem_bytes, max_segments,
-                               rebuild)
-    lists = [cl[c] for c in cell_of_block]
-    cell_bounds = cells[cell_of_block]
-    if rect is not None:
-        # the kernels sample rect cells in local metres: the fractional
-        # [u0, u1, v0, v1] become [x0, x1, y0, y1]
-        w_src, h_src = rect_wh
-        cell_bounds = np.stack([
-            w_src * (cell_bounds[:, 0] - 0.5),
-            w_src * (cell_bounds[:, 1] - 0.5),
-            h_src * (cell_bounds[:, 2] - 0.5),
-            h_src * (cell_bounds[:, 3] - 0.5)], axis=1).astype(np.float32)
-    age_caps = cell_depth[cell_of_block].astype(np.int32)
+        # ---- K1 stages a block's candidate rows in shared memory: a
+        # one-device layout past its budget needs the row streaming of
+        # ROADMAP B5. A mesh build degrades its widest corridors until every
+        # (rank, segment) chunk fits tracer_tpu's budget, as tracer_tpu's.
+        groups = table.groups
+        G = len(groups)
+        K = row_width(table)
+        cell_depth = np.full(n_cells, age_cap, dtype=np.int64)
+        cell_of_block = np.repeat(np.arange(n_cells), mult).astype(np.int32)
+        assert len(cell_of_block) == nb
+        mesh_n_seg = None
+        if mesh_devices > 1:
+            def rebuild(c: int) -> list:
+                return _one_cell_list(cells[c], center, rot, radius,
+                                      theta_first, spheres, n_axis, widen,
+                                      expandable_set, int(cell_depth[c]),
+                                      margin, d0, rect_wh=rect_wh,
+                                      reach_cache=reach_cache)
+            mesh_n_seg = _fit_mesh(table, cl, cell_of_block, cell_depth, nb,
+                                   mesh_devices, max_smem_bytes, max_segments,
+                                   rebuild)
+        lists = [cl[c] for c in cell_of_block]
+        cell_bounds = cells[cell_of_block]
+        if rect is not None:
+            # the kernels sample rect cells in local metres: the fractional
+            # [u0, u1, v0, v1] become [x0, x1, y0, y1]
+            w_src, h_src = rect_wh
+            cell_bounds = np.stack([
+                w_src * (cell_bounds[:, 0] - 0.5),
+                w_src * (cell_bounds[:, 1] - 0.5),
+                h_src * (cell_bounds[:, 2] - 0.5),
+                h_src * (cell_bounds[:, 3] - 0.5)], axis=1).astype(np.float32)
+        age_caps = cell_depth[cell_of_block].astype(np.int32)
 
-    # ---- partition each block's list by APERTURE-SIGNATURE GROUP: the
-    # kernel runs one specialized fori per group (its aperture predicates
-    # and flat/quadric solver are compile-time), so a block's candidates
-    # land in static per-group column segments [off_g, off_g + W_g),
-    # padded with -1. counts is (nb, G).
-    per_group = [[sorted(r for r in rows_b if start <= r < end)
-                  for (start, end, _sig, _tag) in groups]
-                 for rows_b in lists]
-    counts = np.asarray([[len(gl) for gl in pg] for pg in per_group],
-                        dtype=np.int32)
+        # ---- partition each block's list by APERTURE-SIGNATURE GROUP: the
+        # kernel runs one specialized fori per group (its aperture predicates
+        # and flat/quadric solver are compile-time), so a block's candidates
+        # land in static per-group column segments [off_g, off_g + W_g),
+        # padded with -1. counts is (nb, G).
+        per_group = [[sorted(r for r in rows_b if start <= r < end)
+                      for (start, end, _sig, _tag) in groups]
+                     for rows_b in lists]
+        counts = np.asarray([[len(gl) for gl in pg] for pg in per_group],
+                            dtype=np.int32)
 
-    w_g = tuple(max(1, int(counts[:, g].max())) for g in range(G))
-    offsets = tuple(int(sum(w_g[:g])) for g in range(G))
-    if mesh_devices == 1 and sum(w_g) * K > MAX_STAGE_FLOATS:
-        raise NotImplementedError(
-            f"candidate lists {sum(w_g)} rows wide exceed the culled "
-            "kernel's shared-memory stage; row streaming is ROADMAP B5")
-    arr = np.full((nb, sum(w_g)), -1, dtype=np.int32)
-    for b in range(nb):
-        for g, gl in enumerate(per_group[b]):
-            arr[b, offsets[g]:offsets[g] + len(gl)] = gl
-    t_phase["layout"] = _time.perf_counter() - t0
+        w_g = tuple(max(1, int(counts[:, g].max())) for g in range(G))
+        offsets = tuple(int(sum(w_g[:g])) for g in range(G))
+        if mesh_devices == 1 and sum(w_g) * K > MAX_STAGE_FLOATS:
+            raise NotImplementedError(
+                f"candidate lists {sum(w_g)} rows wide exceed the culled "
+                "kernel's shared-memory stage; row streaming is ROADMAP B5")
+        arr = np.full((nb, sum(w_g)), -1, dtype=np.int32)
+        for b in range(nb):
+            for g, gl in enumerate(per_group[b]):
+                arr[b, offsets[g]:offsets[g] + len(gl)] = gl
     n_cand = counts.sum(axis=1)
     stats = dict(nb=nb, n_cells=n_cells, mult_max=int(mult.max()),
                  L_max=int(n_cand.max()), n_groups=G,
                  L_mean=float(n_cand.mean()), n_rows=S,
                  n_demoted=int(demote.sum()), mesh_n_seg=mesh_n_seg,
-                 t_phase={k: round(v, 1) for k, v in t_phase.items()},
                  reduction=float(S / max(n_cand.mean(), 1.0)))
     return BlockCulling(lists=arr, counts=counts, cell_bounds=cell_bounds,
                         cell_of_block=cell_of_block, n_cells=n_cells,

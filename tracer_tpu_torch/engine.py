@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from . import materials as _M
+from . import telemetry
 from .analysis import device_fluxmap as _dfm
 from .bundle import RayBundle, concatenate_rays
 from .device import resolve
@@ -166,18 +167,25 @@ def _chunked_drain(e, fields, drain_fn, cap: int, accum):
     ``drain_fn(ce, cfields, accum)`` (which returns the energy its round
     budget left alive, added to ``accum.residual``). Repeats until the
     slab is dead."""
-    if cap >= e.shape[0]:
-        ce = drain_fn(e, fields, accum)
-        accum.residual += ce.sum()
-        return torch.zeros_like(e)
-    e = e.clone()
-    while bool((e > 0.0).any()):
-        ce, idx = torch.topk(e, cap)
-        cfields = tuple(None if f is None else f[idx] for f in fields)
-        e[idx] = 0.0
-        ce = drain_fn(ce, cfields, accum)
-        accum.residual += ce.sum()
-    return e
+    with telemetry.span("drain") as sp:
+        if cap >= e.shape[0]:
+            sp.set(chunks=1)
+            ce = drain_fn(e, fields, accum)
+            accum.residual += ce.sum()
+            return torch.zeros_like(e)
+        e = e.clone()
+        chunks = 0
+        while telemetry.read((e > 0.0).any()):
+            ce, idx = torch.topk(e, cap)
+            cfields = tuple(None if f is None else f[idx] for f in fields)
+            # a fill, not e[idx] = 0.0, whose value would be copied from
+            # the host and wait for the queue
+            e.index_fill_(0, idx, 0.0)
+            ce = drain_fn(ce, cfields, accum)
+            accum.residual += ce.sum()
+            chunks += 1
+        sp.set(chunks=chunks)
+        return e
 
 
 def _seed(generator) -> int:
@@ -248,52 +256,60 @@ def _trace_streaming_megakernel(
         emission loop and the compacted tail share it); ``lanes`` is the
         (wavelength, index, medium id) triple, None where off."""
         wl, ri, mid = lanes
-        outs = bounce_reflect(rows, _seed(generator), pos, dirs, e,
-                              scene.groups, t_eps, regen=regen,
-                              wavelength=wl, ref_index=ri, medium_id=mid,
-                              **kernel_args)
-        pos, dirs, e_new, sid, absorbed = outs[:5]
-        rest = iter(outs[5:])
-        lanes = tuple(None if x is None else next(rest) for x in lanes)
-        # a live lane that scattered (sid -2) is on no surface but alive
-        live_hit = (sid >= 0) | (sid == -2) if scat_on else sid >= 0
-        _account(accum, sid, (e_before > 0.0) & ~live_hit, absorbed,
-                 e_before)
-        _dfm.accumulate(accum.flux, fluxspecs, scene, sid, pos, absorbed)
-        if att_on:
-            # the kernel reports surface absorption only: the medium took
-            # the rest of each hit or scattering segment's loss
-            accum.medium += torch.where(live_hit, e_before - absorbed - e_new,
-                                        0.0).sum()
-        low = live_hit & (e_new <= min_energy)
-        accum.culled += torch.where(low, e_new, 0.0).sum()
-        e_new = torch.where(live_hit & ~low, e_new, 0.0)
-        # the per-ray bounce budget
-        age = torch.where(e_before > 0.0, age + 1, 0)
-        over = (e_new > 0.0) & (age >= max_path)
-        accum.culled += torch.where(over, e_new, 0.0).sum()
-        return pos, dirs, torch.where(over, 0.0, e_new), lanes, age
+        with telemetry.span("launch"):
+            outs = bounce_reflect(rows, _seed(generator), pos, dirs, e,
+                                  scene.groups, t_eps, regen=regen,
+                                  wavelength=wl, ref_index=ri,
+                                  medium_id=mid, **kernel_args)
+        with telemetry.span("account"):
+            pos, dirs, e_new, sid, absorbed = outs[:5]
+            rest = iter(outs[5:])
+            lanes = tuple(None if x is None else next(rest) for x in lanes)
+            # a live lane that scattered (sid -2) is on no surface but alive
+            live_hit = (sid >= 0) | (sid == -2) if scat_on else sid >= 0
+            _account(accum, sid, (e_before > 0.0) & ~live_hit, absorbed,
+                     e_before)
+            _dfm.accumulate(accum.flux, fluxspecs, scene, sid, pos,
+                            absorbed)
+            if att_on:
+                # the kernel reports surface absorption only: the medium
+                # took the rest of each hit or scattering segment's loss
+                accum.medium += torch.where(
+                    live_hit, e_before - absorbed - e_new, 0.0).sum()
+            low = live_hit & (e_new <= min_energy)
+            accum.culled += torch.where(low, e_new, 0.0).sum()
+            e_new = torch.where(live_hit & ~low, e_new, 0.0)
+            # the per-ray bounce budget
+            age = torch.where(e_before > 0.0, age + 1, 0)
+            over = (e_new > 0.0) & (age >= max_path)
+            accum.culled += torch.where(over, e_new, 0.0).sum()
+            return pos, dirs, torch.where(over, 0.0, e_new), lanes, age
 
     lanes = (wl, ri, mid)
     emitted = 0
     i = 0
     while i < max_rounds and emitted < total_rays:
-        reborn = e <= 0.0
-        emitted += int(reborn.sum())
-        e_before = torch.where(reborn, e_ray, e)
-        age = torch.where(reborn, 0, age)      # fresh rays restart their age
-        pos, dirs, e, lanes, age = one_round(pos, dirs, e, e_before, lanes,
-                                             age, True)
+        # every lane carries energy in: the dead ones regenerate
+        with telemetry.span("round", kernel="k2", lanes=slab, live=slab):
+            reborn = e <= 0.0
+            emitted += telemetry.read(reborn.sum())
+            e_before = torch.where(reborn, e_ray, e)
+            age = torch.where(reborn, 0, age)  # fresh rays restart their age
+            pos, dirs, e, lanes, age = one_round(pos, dirs, e, e_before,
+                                                 lanes, age, True)
         i += 1
 
     def drain_fn(ce, cfields, accum):
         cpos, cdirs, cage, *clanes = cfields
         clanes = tuple(clanes)
         for _ in range(max_path + 1):
-            if not bool((ce > 0.0).any()):
+            live = telemetry.count(ce > 0.0)
+            if not live:
                 break
-            cpos, cdirs, ce, clanes, cage = one_round(cpos, cdirs, ce, ce,
-                                                      clanes, cage, False)
+            with telemetry.span("round", kernel="k2", lanes=len(ce),
+                                live=live):
+                cpos, cdirs, ce, clanes, cage = one_round(
+                    cpos, cdirs, ce, ce, clanes, cage, False)
         return ce
 
     e = _chunked_drain(e, (pos, dirs, age, *lanes), drain_fn,
@@ -377,107 +393,125 @@ def _trace_streaming_megakernel_culled(
         lu = (e > 0.0) & ~parked
         lu_b = lu.view(nb, TILE).sum(1, dtype=torch.int32)
         can_emit = (emitted_b < quota_b) & ((dead_b > 0) | (lu_b > 0))
-        return dead_b, lu_b, bool(can_emit.any() | lu.any())
+        return dead_b, lu_b, telemetry.read(can_emit.any() | lu.any())
 
     def drain_fn(ce, cfields, accum):
         """Trace a compacted chunk against the FULL scene until it dies
         or its round budget runs out; returns the energy left."""
         cpos, cdirs, cage, cwl = cfields
         for _ in range(max_path + 1):
-            if not bool((ce > 0.0).any()):
+            live = telemetry.count(ce > 0.0)
+            if not live:
                 break
-            if drain_oracle:
-                cpos, cdirs, ne, sid, absorbed = _oracle_bounce(
-                    scene, cpos, cdirs, ce, cwl, drain_gen, t_eps, disc_eps,
-                    modes.get("ambient_att", 0.0))
-            else:
-                outs = bounce_reflect(rows, _seed(generator), cpos, cdirs,
-                                      ce, scene.groups, wavelength=cwl,
-                                      **shared)
-                cpos, cdirs, ne, sid, absorbed = outs[:5]
-                if cwl is not None:
-                    cwl = outs[5]
-            hit = sid >= 0
-            _account(accum, sid, (ce > 0.0) & ~hit, absorbed, ce)
-            _dfm.accumulate(accum.flux, fluxspecs, scene, sid, cpos,
-                            absorbed)
-            if att_on:
-                accum.medium += torch.where(hit, ce - absorbed - ne,
-                                            0.0).sum()
-            low = hit & (ne <= min_energy)
-            accum.culled += torch.where(low, ne, 0.0).sum()
-            ne = torch.where(hit & ~low, ne, 0.0)
-            cage = torch.where(ce > 0.0, cage + 1, cage)
-            over = (ne > 0.0) & (cage >= max_path)
-            accum.culled += torch.where(over, ne, 0.0).sum()
-            ce = torch.where(over, 0.0, ne)
+            with telemetry.span("round",
+                                kernel="oracle" if drain_oracle else "k2",
+                                lanes=len(ce), live=live):
+                with telemetry.span("launch"):
+                    if drain_oracle:
+                        cpos, cdirs, ne, sid, absorbed = _oracle_bounce(
+                            scene, cpos, cdirs, ce, cwl, drain_gen, t_eps,
+                            disc_eps, modes.get("ambient_att", 0.0))
+                    else:
+                        outs = bounce_reflect(rows, _seed(generator), cpos,
+                                              cdirs, ce, scene.groups,
+                                              wavelength=cwl, **shared)
+                        cpos, cdirs, ne, sid, absorbed = outs[:5]
+                        if cwl is not None:
+                            cwl = outs[5]
+                with telemetry.span("account"):
+                    hit = sid >= 0
+                    _account(accum, sid, (ce > 0.0) & ~hit, absorbed, ce)
+                    _dfm.accumulate(accum.flux, fluxspecs, scene, sid, cpos,
+                                    absorbed)
+                    if att_on:
+                        accum.medium += torch.where(hit, ce - absorbed - ne,
+                                                    0.0).sum()
+                    low = hit & (ne <= min_energy)
+                    accum.culled += torch.where(low, ne, 0.0).sum()
+                    ne = torch.where(hit & ~low, ne, 0.0)
+                    cage = torch.where(ce > 0.0, cage + 1, cage)
+                    over = (ne > 0.0) & (cage >= max_path)
+                    accum.culled += torch.where(over, ne, 0.0).sum()
+                    ce = torch.where(over, 0.0, ne)
         return ce
 
     cap = min(slab, 64 * TILE)
     # emit -> drain cycles: the main loop exits when no tile can make
     # progress (quota done, or every remaining tile fully parked); the
     # drain then clears the parked lanes so emission can resume
-    while i < max_rounds and bool((emitted_b < quota_b).any()
-                                  | (e > 0.0).any()):
+    while i < max_rounds and telemetry.read((emitted_b < quota_b).any()
+                                            | (e > 0.0).any()):
         while i < max_rounds:
             dead_b, lu_b, go = round_state()
             if not go:
                 break
-            remaining_b = torch.clamp(quota_b - emitted_b, min=0)
-            n_new = torch.minimum(dead_b, remaining_b)
-            active_b = ((n_new > 0) | (lu_b > 0)).to(torch.int32)
-            emitted_b += n_new
-            # the engine-side twin of the kernel's dead-lane rank
-            dead = (e <= 0.0).view(nb, TILE)
-            rank = torch.cumsum(dead.to(torch.int32), dim=1) - 1
-            reborn = (dead & (rank < remaining_b[:, None])).view(slab)
-            e_before = torch.where(reborn, e_ray, e)
-            age = torch.where(reborn, 0, age)
+            with telemetry.span("round", kernel="k1", lanes=slab) as sp:
+                remaining_b = torch.clamp(quota_b - emitted_b, min=0)
+                n_new = torch.minimum(dead_b, remaining_b)
+                if telemetry.enabled():
+                    # the unparked lanes with energy and the reborn ones,
+                    # each tile's, summed when the spans are collected
+                    sp.set(live=(lu_b, n_new))
+                active_b = ((n_new > 0) | (lu_b > 0)).to(torch.int32)
+                emitted_b += n_new
+                # the engine-side twin of the kernel's dead-lane rank
+                dead = (e <= 0.0).view(nb, TILE)
+                rank = torch.cumsum(dead.to(torch.int32), dim=1) - 1
+                reborn = (dead & (rank < remaining_b[:, None])).view(slab)
+                e_before = torch.where(reborn, e_ray, e)
+                age = torch.where(reborn, 0, age)
 
-            outs = bounce_reflect_culled(
-                rows_k, lists, counts, cells, cell_bounds, _seed(generator),
-                remaining_b, active_b, pos, dirs, e, scene.groups,
-                group_offsets, source_spec=source_spec, wavelength=wl,
-                park_aureole=park_aureole, order=order, **shared)
-            npos, ndirs, ne, sid, absorbed = outs[:5]
-            # parked lanes are frozen: the kernel traces them anyway, but
-            # their results are discarded until the drain
-            sid = torch.where(parked, -1, sid)
-            absorbed = torch.where(parked, 0.0, absorbed)
-            # a hit of a lane born into the aureole arrives encoded as
-            # -(row + 16): account it like any other and park the
-            # survivor, since the disc-sized closure does not cover its
-            # reflected cone
-            aur_hit = sid <= -16
-            sid = torch.where(aur_hit, -sid - 16, sid)
-            hit = sid >= 0
-            demote_hit = hit & demote[sid.clamp(min=0).long()]
-            if row_map is not None:
-                sid = torch.where(hit, row_map[sid.clamp(min=0).long()]
-                                  .to(torch.int32), sid)
-            _account(accum, sid, ~parked & (e_before > 0.0) & ~hit,
-                     absorbed, e_before)
-            _dfm.accumulate(accum.flux, fluxspecs, scene, sid, npos,
-                            absorbed)
-            if att_on:
-                # the kernel reports surface absorption only: the medium
-                # took the rest of each (unparked) hit segment's loss
-                accum.medium += torch.where(hit, e_before - absorbed - ne,
-                                            0.0).sum()
-            low = hit & (ne <= min_energy)
-            accum.culled += torch.where(low, ne, 0.0).sum()
-            ne = torch.where(hit & ~low, ne, 0.0)
-            age = torch.where(~parked & (e_before > 0.0), age + 1, age)
-            # park survivors of demoted rows, of aureole-born lanes' first
-            # bounce and rays at the age cap
-            newly = ~parked & (ne > 0.0) & (demote_hit | aur_hit
-                                            | (age >= age_cap_lane))
-            pos = torch.where(parked[:, None], pos, npos)
-            dirs = torch.where(parked[:, None], dirs, ndirs)
-            e = torch.where(parked, e, ne)
-            if spectral:
-                wl = torch.where(parked, wl, outs[5])
-            parked = parked | newly
+                with telemetry.span("launch"):
+                    outs = bounce_reflect_culled(
+                        rows_k, lists, counts, cells, cell_bounds,
+                        _seed(generator), remaining_b, active_b, pos, dirs,
+                        e, scene.groups, group_offsets,
+                        source_spec=source_spec, wavelength=wl,
+                        park_aureole=park_aureole, order=order, **shared)
+                with telemetry.span("account"):
+                    npos, ndirs, ne, sid, absorbed = outs[:5]
+                    # parked lanes are frozen: the kernel traces them
+                    # anyway, but their results are discarded until the
+                    # drain
+                    sid = torch.where(parked, -1, sid)
+                    absorbed = torch.where(parked, 0.0, absorbed)
+                    # a hit of a lane born into the aureole arrives encoded
+                    # as -(row + 16): account it like any other and park
+                    # the survivor, since the disc-sized closure does not
+                    # cover its reflected cone
+                    aur_hit = sid <= -16
+                    sid = torch.where(aur_hit, -sid - 16, sid)
+                    hit = sid >= 0
+                    demote_hit = hit & demote[sid.clamp(min=0).long()]
+                    if row_map is not None:
+                        sid = torch.where(
+                            hit, row_map[sid.clamp(min=0).long()]
+                            .to(torch.int32), sid)
+                    _account(accum, sid, ~parked & (e_before > 0.0) & ~hit,
+                             absorbed, e_before)
+                    _dfm.accumulate(accum.flux, fluxspecs, scene, sid, npos,
+                                    absorbed)
+                    if att_on:
+                        # the kernel reports surface absorption only: the
+                        # medium took the rest of each (unparked) hit
+                        # segment's loss
+                        accum.medium += torch.where(
+                            hit, e_before - absorbed - ne, 0.0).sum()
+                    low = hit & (ne <= min_energy)
+                    accum.culled += torch.where(low, ne, 0.0).sum()
+                    ne = torch.where(hit & ~low, ne, 0.0)
+                    age = torch.where(~parked & (e_before > 0.0), age + 1,
+                                      age)
+                    # park survivors of demoted rows, of aureole-born
+                    # lanes' first bounce and rays at the age cap
+                    newly = ~parked & (ne > 0.0) & (demote_hit | aur_hit
+                                                    | (age >= age_cap_lane))
+                    pos = torch.where(parked[:, None], pos, npos)
+                    dirs = torch.where(parked[:, None], dirs, ndirs)
+                    e = torch.where(parked, e, ne)
+                    if spectral:
+                        wl = torch.where(parked, wl, outs[5])
+                    parked = parked | newly
             i += 1
         # drain: re-trace every live lane (parked or not) against the
         # full scene; the zeroed slab resumes emitting
@@ -736,6 +770,16 @@ def trace_streaming(scene: SceneTable, source_fn, generator: torch.Generator,
     path on either device, its nearest hits from the float64 oracle and
     its accumulators in float64; a ``culling`` is then ignored with a
     warning (the kernels are float32, tracer_tpu/engine.py:1760-1767)."""
+    with telemetry.call("trace_streaming", total_rays):
+        return _trace_streaming(scene, source_fn, generator, total_rays,
+                                max_rounds, max_path, min_energy, t_eps,
+                                disc_eps, culling, fluxspecs)
+
+
+def _trace_streaming(scene, source_fn, generator, total_rays, max_rounds,
+                     max_path, min_energy, t_eps, disc_eps, culling,
+                     fluxspecs):
+    """trace_streaming's dispatch, inside its call span."""
     spec = getattr(source_fn, "pallas_spec", None)
     spec, source_fn = _apply_scene_ambient(scene, spec, source_fn)
     if scene.frame.dtype != torch.float32:
@@ -942,11 +986,12 @@ def _trace_streaming_general(scene: SceneTable, source_fn,
 
     def draw():
         # the slab traces in the scene's dtype
-        b = source_fn(src_gen, device=dev)
-        if b.pos.dtype == dtype:
-            return b
-        return b.replace(**{f: getattr(b, f).to(dtype) for f in
-                            _RAY_FIELDS})
+        with telemetry.span("draw", rays=n):
+            b = source_fn(src_gen, device=dev)
+            if b.pos.dtype == dtype:
+                return b
+            return b.replace(**{f: getattr(b, f).to(dtype) for f in
+                                _RAY_FIELDS})
     fresh = draw()
     if fresh.spectra is not None:
         # tracer_tpu/engine.py:1687-1691; the spec'd paths draw their rays
@@ -970,45 +1015,54 @@ def _trace_streaming_general(scene: SceneTable, source_fn,
         ovf, ovf_age = bundle, torch.zeros_like(age)
         merge_gen = torch.Generator(device=dev).manual_seed(
             _seed(generator))
+    # the bounce's kernel: K2's fused branch, else K3 (float32) or the
+    # float64 oracle, and the unfused shade
+    kernel = ("k2" if _fused_ok(scene, split) else
+              "k3" if dtype == torch.float32 else "oracle")
     emitted, live, parked, i = 0, 0, 0, 0
     while i < max_rounds and (emitted < total_rays or live or parked):
-        if split:
-            bundle, age, ovf = _place_overflow(bundle, age, ovf, ovf_age)
-        n_new = torch.zeros((), dtype=torch.int64, device=dev)
-        if emitted < total_rays:
-            if i:
-                fresh = draw()
-            free = ~bundle.alive
-            rank = torch.cumsum(free.to(torch.int32), 0)
-            refill = free & (rank <= total_rays - emitted)
-            bundle = _where_ray_fields(refill, fresh, bundle).replace(
-                alive=bundle.alive | refill)
-            age = torch.where(refill, 0, age)
-            n_new = refill.sum()
-            source_e += torch.where(refill, fresh.energy, 0.0).sum(
-                dtype=torch.float64)
-        prev = bundle
-        bundle, accum, rec = _bounce_step(
-            scene, bundle, accum, generator, min_energy=min_energy,
-            t_eps=t_eps, disc_eps=disc_eps, block=64, count_hits=False,
-            need_local=False, split_mode=split)
-        if split:
-            ovf, ovf_age = _merge_split(ovf, ovf_age, prev, age, rec, accum,
-                                        min_energy, merge_gen)
-        _dfm.accumulate(accum.flux, fluxspecs, scene, rec.sid, rec.hit,
-                        rec.absorbed)
-        # the per-ray bounce budget
-        age = age + 1
-        over = bundle.alive & (age >= max_path)
-        accum.culled += torch.where(over, bundle.energy, 0.0).sum()
-        bundle = bundle.replace(alive=bundle.alive & ~over)
-        counts = [n_new, bundle.alive.sum()]
-        if split:
-            ovf = _cull_overflow(ovf, ovf_age, max_path, accum)
-            counts.append(ovf.alive.sum())
-        new, live, *rest = torch.stack(counts).tolist()
-        parked = rest[0] if split else 0
-        emitted += new
+        with telemetry.span("round", kernel=kernel, lanes=n) as sp:
+            if split:
+                bundle, age, ovf = _place_overflow(bundle, age, ovf,
+                                                   ovf_age)
+            n_new = torch.zeros((), dtype=torch.int64, device=dev)
+            if emitted < total_rays:
+                if i:
+                    fresh = draw()
+                free = ~bundle.alive
+                rank = torch.cumsum(free.to(torch.int32), 0)
+                refill = free & (rank <= total_rays - emitted)
+                bundle = _where_ray_fields(refill, fresh, bundle).replace(
+                    alive=bundle.alive | refill)
+                age = torch.where(refill, 0, age)
+                n_new = refill.sum()
+                source_e += torch.where(refill, fresh.energy, 0.0).sum(
+                    dtype=torch.float64)
+            if telemetry.enabled():
+                sp.set(live=bundle.alive.sum())
+            prev = bundle
+            bundle, accum, rec = _bounce_step(
+                scene, bundle, accum, generator, min_energy=min_energy,
+                t_eps=t_eps, disc_eps=disc_eps, block=64, count_hits=False,
+                need_local=False, split_mode=split)
+            with telemetry.span("account"):
+                if split:
+                    ovf, ovf_age = _merge_split(ovf, ovf_age, prev, age, rec,
+                                                accum, min_energy, merge_gen)
+                _dfm.accumulate(accum.flux, fluxspecs, scene, rec.sid,
+                                rec.hit, rec.absorbed)
+                # the per-ray bounce budget
+                age = age + 1
+                over = bundle.alive & (age >= max_path)
+                accum.culled += torch.where(over, bundle.energy, 0.0).sum()
+                bundle = bundle.replace(alive=bundle.alive & ~over)
+                counts = [n_new, bundle.alive.sum()]
+                if split:
+                    ovf = _cull_overflow(ovf, ovf_age, max_path, accum)
+                    counts.append(ovf.alive.sum())
+            new, live, *rest = telemetry.read(torch.stack(counts))
+            parked = rest[0] if split else 0
+            emitted += new
         i += 1
     accum.residual += torch.where(bundle.alive, bundle.energy, 0.0).sum()
     if split:
@@ -1189,19 +1243,21 @@ def _bounce_step_fused(scene: SceneTable, bundle: RayBundle,
     refr_split = refractive and split_mode and "split" in features
     extra = _k2_extra(scene)
     need_wl = _k2_needs_wl(scene)
-    outs = bounce_reflect(
-        pack_rows(scene), _seed(generator), bundle.pos, bundle.dir,
-        bundle.energy, scene.groups, 3e-4 if t_eps is None else t_eps,
-        disc_eps, bivar=_bivar_mode(scene),
-        one_sided="one_sided" in features, slope="slope_error" in features,
-        lambertian=_M.K_LAMBERTIAN in kinds,
-        wavelength=bundle.wavelength if need_wl else None,
-        spectral_tab=(_k2_table(scene) if extra["conductor"]
-                      or extra["piecewise"] else None),
-        ref_index=bundle.ref_index if refractive else None,
-        refr_frost=refractive and "refractive_slope" in features,
-        refr_split=refr_split, backside_miss="bifacial" in features,
-        **extra)
+    with telemetry.span("launch"):
+        outs = bounce_reflect(
+            pack_rows(scene), _seed(generator), bundle.pos, bundle.dir,
+            bundle.energy, scene.groups, 3e-4 if t_eps is None else t_eps,
+            disc_eps, bivar=_bivar_mode(scene),
+            one_sided="one_sided" in features,
+            slope="slope_error" in features,
+            lambertian=_M.K_LAMBERTIAN in kinds,
+            wavelength=bundle.wavelength if need_wl else None,
+            spectral_tab=(_k2_table(scene) if extra["conductor"]
+                          or extra["piecewise"] else None),
+            ref_index=bundle.ref_index if refractive else None,
+            refr_frost=refractive and "refractive_slope" in features,
+            refr_split=refr_split, backside_miss="bifacial" in features,
+            **extra)
     new_pos, new_dir, new_e, sid, absorbed = outs[:5]
     new_ri = outs[5 + int(need_wl)] if refractive else bundle.ref_index
     alive = bundle.alive & (bundle.energy > 0.0)
@@ -1356,18 +1412,21 @@ def _bounce_step(scene: SceneTable, bundle: RayBundle, accum: TraceAccum,
                                   min_energy, t_eps, disc_eps, count_hits,
                                   split_mode)
     alive = bundle.alive & (bundle.energy > 0.0)
-    if cand is not None:
-        t, sid = nearest_hit_candidates(scene, cand, bundle.pos, bundle.dir,
-                                        t_eps=t_eps, disc_eps=disc_eps)
-        aux = None
-    elif force_jnp and scene.num_rows >= FAST_WINNER_ROWS:
-        t, sid = _fast_winner(scene, bundle, t_eps, disc_eps, block)
-        aux = None
-    else:
-        t, sid, aux = nearest_hit_aux(scene, bundle.pos, bundle.dir,
-                                      t_eps=t_eps, disc_eps=disc_eps,
-                                      block=block, need_local=need_local,
-                                      force_jnp=force_jnp)
+    with telemetry.span("launch"):
+        if cand is not None:
+            t, sid = nearest_hit_candidates(scene, cand, bundle.pos,
+                                            bundle.dir, t_eps=t_eps,
+                                            disc_eps=disc_eps)
+            aux = None
+        elif force_jnp and scene.num_rows >= FAST_WINNER_ROWS:
+            t, sid = _fast_winner(scene, bundle, t_eps, disc_eps, block)
+            aux = None
+        else:
+            t, sid, aux = nearest_hit_aux(scene, bundle.pos, bundle.dir,
+                                          t_eps=t_eps, disc_eps=disc_eps,
+                                          block=block,
+                                          need_local=need_local,
+                                          force_jnp=force_jnp)
     sid = torch.where(alive, sid, -1)
     volumetric = "volumetric" in scene.features
     if volumetric:
@@ -1377,10 +1436,12 @@ def _bounce_step(scene: SceneTable, bundle: RayBundle, accum: TraceAccum,
     escaped = alive & ~hit
     if volumetric:
         escaped = escaped & ~scattered
-    res = shade(scene, sid, t, bundle.pos, bundle.dir, bundle.energy,
-                bundle.wavelength, bundle.ref_index, generator,
-                medium=(bundle.att_coeff, bundle.scat_coeff, bundle.scat_g),
-                aux=aux, split_mode=split_mode)
+    with telemetry.span("shade"):
+        res = shade(scene, sid, t, bundle.pos, bundle.dir, bundle.energy,
+                    bundle.wavelength, bundle.ref_index, generator,
+                    medium=(bundle.att_coeff, bundle.scat_coeff,
+                            bundle.scat_g),
+                    aux=aux, split_mode=split_mode)
     e_in = torch.where(hit, bundle.energy, 0.0)
     e_out = torch.where(hit, res.out_energy, 0.0)
     absorbed_ray = torch.where(hit, res.absorbed, 0.0)
@@ -1790,17 +1851,23 @@ def trace_fused(scene: SceneTable, bundle: RayBundle,
             "TracerEngine.ray_tracer path (per-bounce spectral filtering "
             "and records); the fused and streaming paths are "
             "monochromatic — sample wavelengths instead")
-    bundle = _ambient_bundle(scene, bundle)
-    _check_device(scene, bundle)
-    generator = _generator_for(scene, generator)
-    accum = TraceAccum.zeros(scene.num_rows, dtype=bundle.pos.dtype,
-                             device=scene.device, fluxspecs=fluxspecs)
-    for _ in range(max_bounces):
-        if not bool(bundle.alive.any()):
-            break
-        bundle, accum, rec = _bounce_step(
-            scene, bundle, accum, generator, min_energy=min_energy,
-            t_eps=t_eps, disc_eps=disc_eps, block=block)
-        _dfm.accumulate(accum.flux, fluxspecs, scene, rec.sid, rec.hit,
-                        rec.absorbed)
-    return bundle, accum
+    with telemetry.call("trace_fused", bundle.num_rays):
+        bundle = _ambient_bundle(scene, bundle)
+        _check_device(scene, bundle)
+        generator = _generator_for(scene, generator)
+        accum = TraceAccum.zeros(scene.num_rows, dtype=bundle.pos.dtype,
+                                 device=scene.device, fluxspecs=fluxspecs)
+        kernel = "k3" if bundle.pos.dtype == torch.float32 else "oracle"
+        for _ in range(max_bounces):
+            live = telemetry.count(bundle.alive)
+            if not live:
+                break
+            with telemetry.span("round", kernel=kernel,
+                                lanes=bundle.num_rays, live=live):
+                bundle, accum, rec = _bounce_step(
+                    scene, bundle, accum, generator, min_energy=min_energy,
+                    t_eps=t_eps, disc_eps=disc_eps, block=block)
+                with telemetry.span("account"):
+                    _dfm.accumulate(accum.flux, fluxspecs, scene, rec.sid,
+                                    rec.hit, rec.absorbed)
+        return bundle, accum

@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from . import materials as _M
+from . import telemetry
 from .bundle import FIELDS, RayBundle, concatenate_rays
 from .engine import (TraceAccum, _apply_scene_ambient, _bivar_mode,
                      _run_culled, trace_fused, trace_streaming)
@@ -105,8 +106,9 @@ def reduce_results(accum: TraceAccum, *scalars, group=None):
     ``scalars`` (emitted counts, source energies) over the group. Returns
     (accum, *scalars)."""
     parts = _accum_tensors(accum)
-    red = _all_reduce(parts + [torch.as_tensor(x).to(parts[0].device)
-                               for x in scalars], group)
+    with telemetry.span("reduce", rank=rank_and_size(group)[0]):
+        red = _all_reduce(parts + [torch.as_tensor(x).to(parts[0].device)
+                                   for x in scalars], group)
     n = len(parts)
     return (_accum_from(accum, red[:n]),
             *(r.to(torch.as_tensor(x).device)
@@ -142,12 +144,13 @@ def trace_sharded(scene, bundle: RayBundle, seed: int = 0, group=None,
         raise ValueError(f"{bundle.num_rays} rays not divisible by "
                          f"{n_dev} devices; pad the bundle")
     per = bundle.num_rays // n_dev
-    final, accum = trace_fused(
-        scene, _shard(bundle, rank * per, (rank + 1) * per),
-        rank_generator(seed, rank, scene.device), max_bounces=max_bounces,
-        min_energy=min_energy, t_eps=t_eps, disc_eps=disc_eps, block=block,
-        fluxspecs=fluxspecs)
-    return final, reduce_results(accum, group=group)[0]
+    with telemetry.call("trace_sharded", per, rank=rank):
+        final, accum = trace_fused(
+            scene, _shard(bundle, rank * per, (rank + 1) * per),
+            rank_generator(seed, rank, scene.device),
+            max_bounces=max_bounces, min_energy=min_energy, t_eps=t_eps,
+            disc_eps=disc_eps, block=block, fluxspecs=fluxspecs)
+        return final, reduce_results(accum, group=group)[0]
 
 
 def trace_streaming_sharded(scene, source_fn, seed: int, total_rays: int,
@@ -178,6 +181,20 @@ def trace_streaming_sharded(scene, source_fn, seed: int, total_rays: int,
 
     Returns (accum, emitted, source_e), each summed over the ranks."""
     rank, n_dev = rank_and_size(group)
+    with telemetry.call("trace_streaming_sharded", -(-total_rays // n_dev),
+                        rank=rank):
+        return _trace_streaming_sharded(
+            scene, source_fn, seed, total_rays, group, rank, n_dev,
+            max_rounds, max_path, min_energy, t_eps, disc_eps, block,
+            culling, fluxspecs, _force_row_shards, _force_mesh_segments)
+
+
+def _trace_streaming_sharded(scene, source_fn, seed, total_rays, group,
+                             rank, n_dev, max_rounds, max_path, min_energy,
+                             t_eps, disc_eps, block, culling, fluxspecs,
+                             _force_row_shards, _force_mesh_segments):
+    """trace_streaming_sharded on rank ``rank`` of ``n_dev``, inside its
+    call span."""
     if culling is None:
         per_dev = -(-total_rays // n_dev)
         accum, emitted, source_e = trace_streaming(

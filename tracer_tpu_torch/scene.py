@@ -23,7 +23,7 @@ import torch
 from .device import resolve
 from .geometry import Geometry, N_AP_PARAMS
 from .materials import OpticsSpec, N_OPT_PARAMS
-from . import spatial
+from . import spatial, telemetry
 
 
 class HasFrame:
@@ -278,6 +278,13 @@ def compile_scene(assembly: Assembly, dtype=torch.float32,
     medium set on the ray bundle (att_coeff/scat_coeff) rather than entered
     through a refractive/absorbant interface — without the tag the engine
     prunes the volumetric code path."""
+    with telemetry.span("build.compile_scene"):
+        return _compile_scene(assembly, dtype, max_constraints,
+                              extra_features, device)
+
+
+def _compile_scene(assembly, dtype, max_constraints, extra_features, device):
+    """compile_scene, inside its build span."""
     device = resolve(device)
     pairs = list(assembly._walk(np.eye(4)))
     if not pairs:

@@ -23,7 +23,7 @@ import torch
 from .bundle import RayBundle, concatenate_rays
 from .device import resolve
 from . import sampling as smp
-from . import spatial
+from . import spatial, telemetry
 from .electromagnetics import planck
 from .mathutils import rotate_to_normal
 from .sampling import (PWLinCosSinDistribution, _uniform,
@@ -396,6 +396,7 @@ def oblique_rect_pillbox_pallas_spec(num_rays: int, center,
             (float(ambient_scat), float(ambient_g)))
 
 
+@telemetry.draws
 def disk_bundle(generator, num_rays: int, center, direction,
                 radius: float, ang_range: float,
                 flux: Optional[float] = None, radius_in: float = 0.0,
@@ -459,6 +460,7 @@ def disk_bundle(generator, num_rays: int, center, direction,
                             device=device)
 
 
+@telemetry.draws
 def buie_sunshape(generator, num_rays: int, center, direction,
                   radius: float, CSR: float, flux: Optional[float] = None,
                   pre_process_CSR: bool = True, rays_direction=None,
