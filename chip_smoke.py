@@ -50,10 +50,17 @@ Phases, each printing its lines:
    then trace_fused on 4,194,304 rays (20 bounces, 50x50 receiver flux
    map; one warm-up, three timed runs), one of them profiled for K3's
    share of device time. Guards: energy closure below 1e-4 of the source,
-   K3 launched once per bounce, and against the port's float64 CPU
-   ray_tracer on the first 65,536 rays (same float32 self-hit guard):
-   receiver fraction within 3 binomial sigma, every surface's absorbed
-   energy on those rays within 1e-4 of their source energy;
+   K3 launched once per bounce and the K3 epilogue once after each K3
+   launch of trace_fused (never on ray_tracer), and against the port's
+   float64 CPU ray_tracer on the first 65,536 rays (same float32 self-hit
+   guard): receiver fraction within 3 binomial sigma, every surface's
+   absorbed energy on those rays within 1e-4 of their source energy.
+   Then the K3 epilogue against its plain version (engine._bounce_step's
+   shade and accounting, device_fluxmap.accumulate) on the same 4,194,304
+   lanes, first and second bounce: alive equal, pos, dir and energy
+   within 1e-6, per-row sums, escaped, culled and the 50 x 50 bins within
+   1e-5 relative, hits equal (tests/test_torch_epilogue's comparisons);
+   its time beside the plain version's and its bound;
 7. bench configs 1-3 (benchmarks/suite.py: the MiniDish under a pillbox
    sun; a slope-error dish over a Lambertian absorber; a spectral silver
    mirror under a Buie sun with a wavelength band, in an attenuating
@@ -175,14 +182,16 @@ Phases, each printing its lines:
    split lens (its bundle grows by the reflected branches); the general
    streaming path on its three scenes (16 slabs of rays, K3 and the
    shade every round). Guards: closure below 1e-4; K3 launched once a
-   bounce, K1 and K2 never on the bundle traces and K2 never on the
-   general path's unfused rounds; every share within 3 combined
-   binomial sigma of the plain megakernel's on the card (phases 7-9 and
-   11, or an 8-round megakernel trace here for phase 9's scenes), of
-   phase 11's split stream for the split lens (less the culled shares),
-   of trace_fused for the general path, and of a float64 CPU ray_tracer
-   on the first 65,536 rays for the mixed exponents; the flux map's
-   cells times their areas summing to the receiver's absorbed energy;
+   bounce, K1 and K2 never on the bundle traces, the K3 epilogue after
+   each K3 launch of a trace_fused call its gate takes and never
+   elsewhere, and K2 never on the general path's unfused rounds; every
+   share within 3 combined binomial sigma of the plain megakernel's on
+   the card (phases 7-9 and 11, or an 8-round megakernel trace here for
+   phase 9's scenes), of phase 11's split stream for the split lens
+   (less the culled shares), of trace_fused for the general path, and of
+   a float64 CPU ray_tracer on the first 65,536 rays for the mixed
+   exponents; the flux map's cells times their areas summing to the
+   receiver's absorbed energy;
 14. cavities, the Kd accelerator and polychromatic rays: config 5
    (benchmarks/suite.py:686-740: TwoNParametersCavityRTVF at 100,000
    rays an element and precision 0.005, every sample's nearest hit on
@@ -235,7 +244,10 @@ Phases, each printing its lines:
    flux maps through trace_fused at 4,194,304 rays (config 5's cavity,
    its frustum and cylinder binned axially; SG4's outer dish binned
    polar), each against the energy absorbed on its rows and against the
-   host histogram of a ray_tracer run of the same rays and draws; (c) a
+   host histogram of a ray_tracer run of the same rays and draws (the K3
+   epilogue's gate shut: it draws from its own stream), then through the
+   K3 epilogue (the default trace_fused), each map and the rows'
+   absorbed energy within 3 sigma of the gate-shut trace's; (c) a
    CAD receiver written and loaded as STL (1,920 triangle rows, streamed
    through K3's shared memory) under 1,048,576 rays through ray_tracer:
    closure, the hit share against the mesh's projected width, K3 against
@@ -269,11 +281,12 @@ Phases, each printing its lines:
    closure below 1e-4, no K2 or K3 launch, oracle drain bounces in the
    parked trace, its receiver within 3 sigma of the unparked trace's.
 
-Every kernel's launch count is set to 0 just before a main path runs and
-read just after. The line before the last is the kernels' JSON record;
-the last line is ``{"ok": true, "device": {...}}``. Any failed check
-raises, and the script exits non-zero without that line; so does a
-machine without CUDA or a directory without the package.
+Every kernel's launch count, the K3 epilogue's included, is set to 0
+just before a main path runs and read just after. The line before the
+last is the kernels' JSON record; the last line is ``{"ok": true,
+"device": {...}}``. Any failed check raises, and the script exits
+non-zero without that line; so does a machine without CUDA or a
+directory without the package.
 """
 import argparse
 import json
@@ -368,8 +381,19 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
 
 
 def reset_launches(*wrappers) -> None:
+    """Set each wrapper's launch count to 0, and the K3 epilogue's: it
+    launches after K3 on trace_fused's float32 paths, and every main path
+    reads it."""
     for w in wrappers:
         w.launches = 0
+    epilogue().launches = 0
+
+
+def epilogue():
+    """The K3 epilogue's wrapper (kernels/epilogue.k3_epilogue), whose
+    ``launches`` the main paths read beside K1's, K2's and K3's."""
+    from tracer_tpu_torch.kernels.epilogue import k3_epilogue
+    return k3_epilogue
 
 
 def compare(name, got, want, live):
@@ -678,12 +702,14 @@ def main(argv) -> None:
             f", {int(emitted) / wall / 1e6:.1f} Mrays/s ({card})")
     record["kernels"][0]["launches"] = kb.bounce_reflect_culled.launches
     record["kernels"][1]["launches"] = kb.bounce_reflect.launches
-    check(kn.nearest_hit.launches == 0, "K3 launched on the NSTTF path")
+    check(kn.nearest_hit.launches == epilogue().launches == 0,
+          "K3 or its epilogue launched on the NSTTF path")
 
     t_mark = lap(t_mark, "phase 5")
     # ---- phase 6: the MiniDish main paths
-    record["kernels"][2]["launches"], p_ref = minidish_phase(dev, card, kn,
-                                                             kb)
+    record["kernels"][2]["launches"], p_ref, epi = minidish_phase(
+        dev, card, kn, kb)
+    record["kernels"].append(epi)
 
     t_mark = lap(t_mark, "phase 6")
     # ---- phases 7-9: bench configs 1-3, then 6, 8 and 8b, then 7, on the
@@ -745,9 +771,10 @@ def main(argv) -> None:
     # ---- phase 13: the unfused bounce (K3, the media and the shade of
     # every optics kind) on the record path, trace_fused and the general
     # streaming path
-    l2, l3 = unfused_phase(dev, card, kb, kn, physics, split_stream)
+    l2, l3, le = unfused_phase(dev, card, kb, kn, physics, split_stream)
     entry["launches"] += l2
     record["kernels"][2]["launches"] += l3
+    epi["launches"] += le
 
     # ---- phase 14: config 5 (the cavity view factors and the radiosity
     # solve), the Holman cavity, the Kd accelerator on the NSTTF and a
@@ -764,7 +791,9 @@ def main(argv) -> None:
 
     # ---- phase 16: the model library on K3: the seven-module solar
     # simulator, curved device flux maps, an STL receiver
-    record["kernels"][2]["launches"] += model_phase(dev, card, kb, kn)
+    l3, le = model_phase(dev, card, kb, kn)
+    record["kernels"][2]["launches"] += l3
+    epi["launches"] += le
 
     # ---- phase 17: float64 on the card, one rank over NCCL, two ranks on
     # the card over gloo
@@ -965,8 +994,10 @@ def k3_phase(dev, card, nsttf_table, nsttf_source, kn, build):
 
 def minidish_phase(dev, card, kn, kb):
     """ray_tracer and trace_fused on the MiniDish at the published size,
-    under the guards of the module docstring. Returns K3's launches on the
-    timed trace_fused runs."""
+    under the guards of the module docstring, then the K3 epilogue against
+    its plain version (epilogue_check). Returns K3's launches on the timed
+    trace_fused runs, phase 6's reference receiver fraction and the
+    epilogue's JSON entry, its launches those of the timed runs."""
     import math
     import statistics
     import torch
@@ -1020,7 +1051,8 @@ def minidish_phase(dev, card, kn, kb):
           f"ray_tracer: {launches} K3 launches for {len(res.records)} "
           "bounces")
     check(kb.bounce_reflect_culled.launches == kb.bounce_reflect.launches
-          == 0, "K1/K2 launched on the MiniDish path")
+          == epilogue().launches == 0,
+          "K1/K2 or the K3 epilogue launched on the MiniDish record path")
     bal = res.energy_balance()
     absorbed = res.absorbed_by_logical()
     check(all(math.isfinite(v) for v in bal.values()), f"balance {bal}")
@@ -1057,7 +1089,10 @@ def minidish_phase(dev, card, kn, kb):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     launches = kn.nearest_hit.launches
+    epi_launches = epilogue().launches
     check(launches % 3 == 0, f"trace_fused: {launches} K3 launches")
+    check(epi_launches == launches, f"trace_fused: {epi_launches} K3 "
+          f"epilogue launches for {launches} K3 launches")
     bounces = launches // 3
     check(kb.bounce_reflect_culled.launches == kb.bounce_reflect.launches
           == 0, "K1/K2 launched on the MiniDish path")
@@ -1077,14 +1112,124 @@ def minidish_phase(dev, card, kn, kb):
           f"flux map {fsum} vs receiver {ab[rec_i]}")
     wall = statistics.median(walls)
     log(f"MiniDish trace_fused: {MD_LANES} rays, {bounces} bounces, K3 "
-        f"launches {launches} in 3 runs, receiver fraction {p:.5f}, "
+        f"launches {launches} and K3 epilogue launches {epi_launches} in 3 "
+        f"runs, receiver fraction {p:.5f}, "
         f"closure {closure:.2e}, flux/receiver {fsum / ab[rec_i]:.6f}; "
         f"wall median {wall:.3f} s of "
         f"{', '.join(f'{w:.3f}' for w in walls)}, "
         f"{MD_LANES / wall / 1e6:.1f} Mrays/s ({card})")
     profile_path("MiniDish trace_fused", fused, "K3", "nearest_kernel",
                  card)
-    return launches, p_ref
+    entry = epilogue_check(dev, card, kn, table, spec, sun)
+    entry["launches"] = epi_launches
+    return launches, p_ref, entry
+
+
+# bytes a lane of the K3 epilogue moves: a live lane reads K3's t, sid,
+# normal and up_dot (24) and its ray's pos, dir, energy and alive (29),
+# and writes the next pos, dir, energy and alive (29); a dead lane reads
+# its alive flag alone
+EPI_LIVE_READ, EPI_LIVE_WRITE, EPI_DEAD_READ = 53, 29, 1
+
+
+def epilogue_check(dev, card, kn, table, spec, sun):
+    """The K3 epilogue (kernels/epilogue.k3_epilogue) against its plain
+    version (engine._bounce_step's shade and accounting, then
+    device_fluxmap.accumulate) on phase 6's 4,194,304 MiniDish lanes, on
+    the first bounce (every lane live) and on the plain version's second,
+    at tests/test_torch_epilogue's tolerances: alive equal, pos, dir and
+    energy within 1e-6, the per-row absorbed energy, escaped, culled and
+    the receiver's 50 x 50 bins within 1e-5 relative of the plain
+    version's per-lane results summed in float64, hits equal. Then its
+    time on the first bounce beside the plain version's (the plain bounce
+    less its K3 call, need_local on as it runs it) and its bound (bytes a
+    lane: EPI_LIVE_READ, EPI_LIVE_WRITE, EPI_DEAD_READ; the blocks'
+    partial rows left out, as the work needs one row). Returns its JSON
+    entry; max_abs_err is the largest difference in pos, dir and energy
+    on the live lanes."""
+    import torch
+    from tracer_tpu_torch import engine
+    from tracer_tpu_torch.analysis import device_fluxmap as dfm
+    from tracer_tpu_torch.engine import TraceAccum
+    from tracer_tpu_torch.kernels import epilogue as ke
+    from tracer_tpu_torch.kernels.intersect import nearest_hit_aux
+    threads = torch.get_num_threads()
+    # the test module keeps the suite's processes to one torch thread
+    # each; the later phases' CPU references want them all
+    from test_torch_epilogue import (Backend, assert_rays_close,
+                                     assert_sums_close, kernel_bounce,
+                                     plain_bounce)
+    torch.set_num_threads(threads)
+    n = sun.num_rays
+    backend = Backend(dev, n)
+    b, err = sun, 0.0
+    for bounce in (1, 2):
+        want_b, want = plain_bounce(table, b, (spec,))
+        got_b, acc = kernel_bounce(backend, table, b, (spec,))
+        assert_rays_close(got_b, want_b)
+        assert_sums_close(acc, want)
+        live = want_b.alive
+        errs = {k: float((getattr(got_b, k) - getattr(want_b, k))[live]
+                         .abs().max()) for k in ("pos", "dir", "energy")}
+        rel = {k: float(((getattr(acc, k).double() - want[k]).abs()
+                         / want[k].abs().clamp(min=1e-30)).max())
+               for k in ("absorbed", "escaped")}
+        ref = want["flux"][0]
+        rel["bins"] = float((acc.flux[0].double() - ref).abs().max()
+                            / ref.max())
+        err = max(err, *errs.values())
+        log(f"K3 epilogue vs plain, MiniDish bounce {bounce}: {n} lanes, "
+            f"{int(b.alive.sum())} live in, {int(live.sum())} live out "
+            f"(alive equal); max abs err "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + "; relative err " + ", ".join(f"{k} {v:.2e}"
+                                            for k, v in rel.items())
+            + f"; hits equal ({card})")
+        b = want_b
+    del got_b, want_b, acc, want, b
+    # the time of one launch on the first bounce, beside the plain
+    # version's shade, accounting and binning
+    gen = torch.Generator(device=dev).manual_seed(0)
+    plan = engine._epilogue_plan(table, sun, gen, 1e-6, (spec,))
+    t, sid, aux = kn.nearest_hit(plan.rows, sun.pos, sun.dir, table.groups,
+                                 F32_T_EPS, 1e-6, need_local=False,
+                                 backside_miss="bifacial" in table.features)
+    ray = {k: getattr(sun, k) for k in ke.RAY_FIELDS}
+    flux = (torch.zeros((spec.nu, spec.nv), dtype=torch.float32,
+                        device=dev),)
+    acc = TraceAccum.zeros(table.num_rows, device=dev)
+
+    def call_e():
+        ke.k3_epilogue(plan, 0, t, sid, aux, ray)
+
+    def call_k3():
+        nearest_hit_aux(table, sun.pos, sun.dir, t_eps=None, disc_eps=1e-6,
+                        block=64, need_local=True)
+
+    def call_p():
+        _, _, rec = engine._bounce_step(table, sun, acc, gen, 1e-6, None,
+                                        1e-6, 64)
+        dfm.accumulate(flux, (spec,), table, rec.sid, rec.hit, rec.absorbed)
+    p1, k3a = time_cuda(call_p, 3), time_cuda(call_k3, 10)
+    e1 = time_cuda(call_e, 20)
+    e2, k3b = time_cuda(call_e, 20), time_cuda(call_k3, 10)
+    p2 = time_cuda(call_p, 3)
+    ms, k3_ms = min(e1, e2), min(k3a, k3b)
+    plain_ms = min(p1, p2) - k3_ms
+    n_live = int((sun.alive & (sun.energy > 0)).sum())
+    bnd = bound((EPI_LIVE_READ + EPI_LIVE_WRITE) * n_live
+                + EPI_DEAD_READ * (n - n_live), n_live * SHADE_OPS)
+    log(f"K3 epilogue, MiniDish first bounce: {n} lanes ({n_live} live), "
+        f"{plan.blocks} blocks of {ke.EPI_THREADS} threads, "
+        f"{4 * ke.shared_floats(table.num_rows, (spec,))} B of shared "
+        f"memory a block; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms (the "
+        f"plain bounce {min(p1, p2):.3f} ms less its K3 {k3_ms:.4f} ms), "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}), {100 * bnd[0] / ms:.1f}% of it "
+        f"({card})")
+    return kernel_entry("k3_epilogue",
+                        "tracer_tpu_torch/kernels/csrc/epilogue.cu",
+                        "tracer_tpu/engine.py:933", 0, err, ms, plain_ms,
+                        bnd)
 
 
 def profile_path(label, run, name, kernel_key, card, top=8):
@@ -1365,7 +1510,8 @@ def bench_phase(dev, card, kb, kn, p_ref, modes, cfgs):
             walls.append(time.perf_counter() - t0)
         launches = kb.bounce_reflect.launches
         check(kb.bounce_reflect_culled.launches == kn.nearest_hit.launches
-              == 0, f"config {cfg}: K1 or K3 launched on the path")
+              == epilogue().launches == 0,
+              f"config {cfg}: K1, K3 or its epilogue launched on the path")
         check(launches > 3 * BENCH_ROUNDS, f"config {cfg}: {launches} K2 "
               f"launches in 3 calls of {BENCH_ROUNDS}+ rounds")
         out["launches"] += launches
@@ -1511,8 +1657,9 @@ def general_phase(dev, card, kb, kn, cfg, mega):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     launches = kb.bounce_reflect.launches
-    check(kb.bounce_reflect_culled.launches == kn.nearest_hit.launches == 0,
-          f"{label}: K1 or K3 launched")
+    check(kb.bounce_reflect_culled.launches == kn.nearest_hit.launches
+          == epilogue().launches == 0,
+          f"{label}: K1, K3 or its epilogue launched")
     check(launches > 3 * BENCH_ROUNDS, f"{label}: {launches} K2 launches in "
           "3 calls")
     meta_mega, p_mega, em_mega = mega
@@ -1753,7 +1900,8 @@ def field_phase(dev, card, kb, kn, field):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     l1, l2 = kb.bounce_reflect_culled.launches, kb.bounce_reflect.launches
-    check(kn.nearest_hit.launches == 0, f"{field}: K3 launched")
+    check(kn.nearest_hit.launches == epilogue().launches == 0,
+          f"{field}: K3 or its epilogue launched")
     fr = []
     for accum, emitted, source_e in results:
         em, se = int(emitted), float(source_e)
@@ -1998,7 +2146,8 @@ def aureole_trace_phase(dev, card, kb, kn, culling0, t_culling0, unparked,
                                              source_e, total, energy_closure)
         recs.append((rec, int(emitted), closure))
     l1, l2 = kb.bounce_reflect_culled.launches, kb.bounce_reflect.launches
-    check(kn.nearest_hit.launches == 0, "parked NSTTF: K3 launched")
+    check(kn.nearest_hit.launches == epilogue().launches == 0,
+          "parked NSTTF: K3 or its epilogue launched")
     p0, n0, wall0 = unparked
     worst = 0.0
     for rec, n, _ in recs:
@@ -2169,15 +2318,17 @@ def unfused_phase(dev, card, kb, kn, physics, split_stream):
     PHASE13_SCENES, one of them profiled; ray_tracer on the split lens
     (config 6s); the general streaming path on PHASE13_SCENES (16
     emission rounds). Guards: closure below 1e-4; K3 launched once a
-    bounce and K1 and K2 never on the bundle traces, K2 never on the
-    general path's unfused bounce; every share within 3 combined binomial
+    bounce and K1 and K2 never on the bundle traces, the K3 epilogue
+    after each K3 launch of the trace_fused calls whose gate holds
+    (engine._epilogue_ok) and never elsewhere, K2 never on the general
+    path's unfused bounce; every share within 3 combined binomial
     sigma of the plain megakernel's on the card for the same
     configuration (phases 7-9 and 11, or a megakernel trace of 8 rounds
     here for phase 9's scenes), of phase 11's split stream for the split
     lens (less both traces' culled shares), of trace_fused on the same
     scene for the general path, and of a float64 CPU ray_tracer on the
     first 65,536 rays for the mixed IAM scene. Returns the launches of K2
-    (the megakernel references) and of K3."""
+    (the megakernel references), of K3 and of the K3 epilogue."""
     import numpy as np
     import torch
     from test_torch_gpu import STAGE_DE, stage_de_assembly, stage_de_spec
@@ -2192,7 +2343,7 @@ def unfused_phase(dev, card, kb, kn, physics, split_stream):
     import tracer_tpu_torch as ptt
     t13 = time.perf_counter()
     n = BENCH_SLAB
-    launches = {"k2": 0, "k3": 0}
+    launches = {"k2": 0, "k3": 0, "epi": 0}
 
     def start():
         reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
@@ -2200,11 +2351,17 @@ def unfused_phase(dev, card, kb, kn, physics, split_stream):
         torch.cuda.synchronize()
         return time.perf_counter()
 
-    def bundle_checks(label, bounces, max_bounces, alive):
-        """K3 once a bounce, K1 and K2 never; returns K3's launches."""
+    def bundle_checks(label, bounces, max_bounces, alive, gated=False):
+        """K3 once a bounce, K1 and K2 never, the K3 epilogue after each
+        K3 launch where its gate held (``gated``) and never elsewhere;
+        returns K3's launches."""
         l3 = kn.nearest_hit.launches
         check(kb.bounce_reflect_culled.launches == kb.bounce_reflect.launches
               == 0, f"{label}: K1 or K2 launched on a bundle trace")
+        le = epilogue().launches
+        check(le == (l3 if gated else 0), f"{label}: {le} K3 epilogue "
+              f"launches for {l3} K3 launches (gate open: {gated})")
+        launches["epi"] += le
         check(l3 == bounces if bounces is not None
               else (l3 == max_bounces if alive else 1 <= l3 <= max_bounces),
               f"{label}: {l3} K3 launches for {bounces} bounces "
@@ -2276,7 +2433,8 @@ def unfused_phase(dev, card, kb, kn, physics, split_stream):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         l3 = bundle_checks(label, None, max_bounces,
-                           bool(final.alive.any()))
+                           bool(final.alive.any()),
+                           eng_mod._epilogue_ok(table, bundle))
         src = float(bundle.total_energy())
         left = float(final.total_energy())
         closure = (src - float(acc.absorbed.double().sum())
@@ -2318,7 +2476,8 @@ def unfused_phase(dev, card, kb, kn, physics, split_stream):
                                       8 * n, max_rounds=max_rounds(7, 8),
                                       max_path=20)
         check(kb.bounce_reflect.launches > 0 and kn.nearest_hit.launches
-              == 0, f"{name}: the megakernel reference did not run on K2")
+              == epilogue().launches == 0,
+              f"{name}: the megakernel reference did not run on K2")
         launches["k2"] += kb.bounce_reflect.launches
         check(abs(energy_closure(acc, se)) < 1e-4, f"{name}: megakernel "
               f"closure {energy_closure(acc, se)}")
@@ -2394,8 +2553,9 @@ def unfused_phase(dev, card, kb, kn, physics, split_stream):
         wall = time.perf_counter() - t0
         l3 = kn.nearest_hit.launches
         check(kb.bounce_reflect.launches == kb.bounce_reflect_culled.launches
-              == 0 and l3 > 0, f"{name} general path: K2 "
-              f"{kb.bounce_reflect.launches}, K3 {l3} launches")
+              == epilogue().launches == 0 and l3 > 0, f"{name} general "
+              f"path: K2 {kb.bounce_reflect.launches}, K3 {l3}, K3 "
+              f"epilogue {epilogue().launches} launches")
         launches["k3"] += l3
         check(int(em) == total, f"{name} general path: emitted {int(em)}")
         closure = energy_closure(acc, se)
@@ -2405,8 +2565,9 @@ def unfused_phase(dev, card, kb, kn, physics, split_stream):
         within_sigma(f"{name} general path", p, total, q, n)
         show(f"{name} general path", p, q, l3, wall, closure,
              ", the reference trace_fused's", rays=total, what="rounds")
-    log(f"phase 13: {time.perf_counter() - t13:.1f} s")
-    return launches["k2"], launches["k3"]
+    log(f"phase 13: {time.perf_counter() - t13:.1f} s, K3 epilogue "
+        f"launches {launches['epi']}")
+    return launches["k2"], launches["k3"], launches["epi"]
 
 
 # phase 14's cavities: config 5 (benchmarks/suite.py:692-699) and the
@@ -3198,13 +3359,22 @@ def curved_maps_phase(dev, card, kb, kn):
     closure below 1e-4, and each map within 1e-4 (L1, of its total) of the
     host histogram (analysis/fluxmap.surface_fluxmap) of a ray_tracer run
     of the same rays: the two draw the same numbers from the same
-    generator seed (test_torch_gpu.curved_map_compare). Then K3 on SG4's
-    two layers, 1e-4 m apart (test_torch_gpu.sg4_k3_compare): on the
-    4,194,304 sun rays of the first bounce and on the rays that leave
-    the dish after it, against its plain version, and on 262,144 lanes of
-    each against the plain version in float64 on the CPU, with a tie
+    generator seed (test_torch_gpu.curved_map_compare, which shuts the K3
+    epilogue's gate: the epilogue draws from its own Philox stream). Then
+    the same rays through the default trace_fused, which takes the K3
+    epilogue (its gate must hold): the epilogue launched after each K3
+    launch, closure below 1e-4, each map's sum the energy absorbed on its
+    rows to 1e-5, and each map and each row's absorbed energy against the
+    gate-shut trace's, whose draws differ, within 3 sigma
+    (test_torch_gpu.share_z on each row and each map's total: the disk
+    sun's rays carry equal energy; maps_agree on the bins, each bin's
+    sigma from ray_tracer's records of the gate-shut trace's draws). Then
+    K3 on SG4's two layers, 1e-4 m apart (test_torch_gpu.sg4_k3_compare):
+    on the 4,194,304 sun rays of the first bounce and on the rays that
+    leave the dish after it, against its plain version, and on 262,144
+    lanes of each against the plain version in float64 on the CPU, with a tie
     band narrower than the gap; at most 1e-5 of the lanes plus one flip.
-    Returns K3's launches."""
+    Returns the launches of K3 and of the K3 epilogue."""
     import torch
     from tracer_tpu_torch.models.sg4 import SG4
     from tracer_tpu_torch.models.two_n_cavity import TwoNParamCav
@@ -3222,7 +3392,7 @@ def curved_maps_phase(dev, card, kb, kn):
                     sigma=2e-3), ("dish_outer",),
          dict(center=[0, 0, 30.0], direction=[0, 0, -1.0], radius=13.0,
               ang_range=0.005, flux=1000.0), 20))
-    launches = 0
+    launches = epi_launches = 0
     for label, asm, names, beam, bounces in cases:
         table, meta = compile_scene(asm, device=dev)
         sun = solar_disk_bundle(torch.Generator(device=dev).manual_seed(6),
@@ -3234,7 +3404,8 @@ def curved_maps_phase(dev, card, kb, kn):
                                                     16, bounces)
         launches += kn.nearest_hit.launches
         check(kb.bounce_reflect_culled.launches == kb.bounce_reflect.launches
-              == 0, f"{label}: K1/K2 launched")
+              == epilogue().launches == 0,
+              f"{label}: K1/K2 or the K3 epilogue launched")
         closure = (src - float(acc.absorbed.double().sum())
                    - float(acc.escaped) - float(acc.culled)
                    - float(final.total_energy())) / src
@@ -3259,6 +3430,9 @@ def curved_maps_phase(dev, card, kb, kn):
             f"{closure:.1e}, wall {wall:.3f} s, "
             f"{CURVED_RAYS / wall / 1e6:.1f} Mrays/s, K3 launches in it and "
             f"the ray_tracer {kn.nearest_hit.launches} ({card})")
+        epi_launches += epilogue_maps(label, table, meta, names, sun, src,
+                                      bounces, acc, maps, card)
+        launches += kn.nearest_hit.launches
         if label != "SG4":
             continue
         for b, c in enumerate(sg4_k3_compare(asm, table, sun, SG4_CPU_RAYS)):
@@ -3268,7 +3442,71 @@ def curved_maps_phase(dev, card, kb, kn):
                 f" {c['ties']}, flips {c['flips']}; against float64 on the "
                 f"CPU ({c['m']} lanes) {c['diff64']} sids differ, ties "
                 f"{c['ties64']}, flips {c['flips64']} ({card})")
-    return launches
+    return launches, epi_launches
+
+
+def epilogue_maps(label, table, meta, names, sun, src, bounces, plain,
+                  maps, card):
+    """Phase 16 (b)'s trace through the K3 epilogue (the default
+    trace_fused, its gate held) against the gate-shut trace's
+    accumulators ``plain`` and maps ``maps`` (curved_map_compare's), under
+    curved_maps_phase's guards. Returns the epilogue's launches; K3's are
+    left on its counter."""
+    import torch
+    from tracer_tpu_torch import engine
+    from tracer_tpu_torch.analysis.device_fluxmap import flux_plan
+    from tracer_tpu_torch.engine import trace_fused
+    from tracer_tpu_torch.kernels import bounce as kb
+    from tracer_tpu_torch.kernels import nearest as kn
+    from test_torch_gpu import map_distance, maps_agree, share_z
+    specs = tuple(flux_plan(meta, nm, resolution=50) for nm in names)
+    check(engine._epilogue_ok(table, sun, specs),
+          f"{label}: the K3 epilogue's gate is shut")
+    reset_launches(kb.bounce_reflect_culled, kb.bounce_reflect,
+                   kn.nearest_hit)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, acc = trace_fused(table, sun,
+                             torch.Generator(device=sun.pos.device)
+                             .manual_seed(17), max_bounces=bounces,
+                             fluxspecs=specs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    l3, le = kn.nearest_hit.launches, epilogue().launches
+    check(le == l3 > 0, f"{label}: {le} K3 epilogue launches for {l3} K3 "
+          "launches")
+    n = sun.num_rays
+    closure = (src - float(acc.absorbed.double().sum())
+               - float(acc.escaped) - float(acc.culled)
+               - float(final.total_energy())) / src
+    check(abs(closure) < 1e-4, f"{label} K3 epilogue: closure {closure}")
+    rows_a = acc.absorbed.double().cpu().numpy()
+    rows_p = plain.absorbed.double().cpu().numpy()
+    z_rows = max(share_z(x, y, src, n) for x, y in zip(rows_a, rows_p))
+    check(z_rows <= 3.0, f"{label} K3 epilogue: a row's absorbed energy "
+          f"{z_rows} sigma from the gate-shut trace's")
+    for nm, spec, hist in zip(names, specs, acc.flux):
+        c = maps[nm]
+        h = hist.double().cpu().numpy()
+        absorbed = float(rows_a[list(spec.rows)].sum())
+        check(absorbed > 0 and abs(h.sum() - absorbed) <= 1e-5 * absorbed,
+              f"{label} {nm} K3 epilogue: map {h.sum()} vs absorbed "
+              f"{absorbed}")
+        z_tot = share_z(float(h.sum()), float(c["hist"].sum()), src, n)
+        r, limit = map_distance(h, c["hist"], c["sq"])
+        check(maps_agree(h, c["hist"], c["sq"], src, n), f"{label} {nm} "
+              f"K3 epilogue: total z {z_tot}, squared distance {r} of its "
+              f"mean, 3-sigma limit {limit}")
+        log(f"{label} device flux map of {nm} through the K3 epilogue: "
+            f"absorbed {absorbed:.1f} W (gate shut {c['absorbed']:.1f} W, "
+            f"z {z_tot:.2f}), map sum / absorbed - 1 = "
+            f"{h.sum() / absorbed - 1:.1e}; squared distance from the "
+            f"gate-shut map {r:.3f} of its mean (3-sigma limit "
+            f"{limit:.3f}), largest row z {z_rows:.2f} ({card})")
+    log(f"{label} trace_fused through the K3 epilogue: {n} rays, {l3} K3 "
+        f"and {le} epilogue launches, closure {closure:.1e}, wall "
+        f"{wall:.3f} s, {n / wall / 1e6:.1f} Mrays/s ({card})")
+    return le
 
 
 def stl_phase(dev, card, kb, kn):
@@ -3305,7 +3543,7 @@ def stl_phase(dev, card, kb, kn):
     wall = time.perf_counter() - t0
     launches = kn.nearest_hit.launches
     check(launches == len(res.records) and kb.bounce_reflect.launches == 0
-          and kb.bounce_reflect_culled.launches == 0,
+          and kb.bounce_reflect_culled.launches == epilogue().launches == 0,
           f"STL: {launches} K3 launches for {len(res.records)} bounces")
     bal = res.energy_balance()
     check(abs(bal["closure"]) < 1e-5 * bal["source"],
@@ -3341,15 +3579,16 @@ def stl_phase(dev, card, kb, kn):
 
 def model_phase(dev, card, kb, kn):
     """Phase 16: the model library on K3, (a) the simulator, (b) curved
-    device maps, (c) the STL receiver. Returns K3's launches on their
-    main paths."""
+    device maps, (c) the STL receiver. Returns the launches of K3 and of
+    the K3 epilogue on their main paths."""
     t16 = time.perf_counter()
-    launches = [simulator_phase(dev, card, kb, kn),
-                curved_maps_phase(dev, card, kb, kn),
-                stl_phase(dev, card, kb, kn)]
+    sim = simulator_phase(dev, card, kb, kn)
+    curved, epi = curved_maps_phase(dev, card, kb, kn)
+    launches = [sim, curved, stl_phase(dev, card, kb, kn)]
     log(f"phase 16: {time.perf_counter() - t16:.1f} s, K3 launches "
-        + " + ".join(str(n) for n in launches))
-    return sum(launches)
+        + " + ".join(str(n) for n in launches)
+        + f", K3 epilogue launches {epi}")
+    return sum(launches), epi
 
 
 P17_SEED = 17
@@ -3455,7 +3694,8 @@ def float64_phase(dev, card, kb, kn, p_ref):
           f"float64 config 1: emitted {int(em)}, closure {closure}")
     within_sigma("float64 config 1 receiver", [p], total, [p_ref], MD_CPU)
     check(kb.bounce_reflect_culled.launches == kb.bounce_reflect.launches
-          == kn.nearest_hit.launches == 0, "a kernel ran in float64")
+          == kn.nearest_hit.launches == epilogue().launches == 0,
+          "a kernel ran in float64")
     log(f"float64 config 1 on the general streaming path on the card: "
         f"{total} rays (cut from the suite's {BENCH_ROUNDS * slab}), "
         f"receiver fraction {p:.5f}, closure {closure:.1e}, wall "
@@ -3471,8 +3711,8 @@ def nccl_phase(dev, card, kb, kn, p_ref, slab, culling, fspec, phase5):
     (full emission, closure below 1e-4, receiver within 3 sigma of phase
     6's reference); the culled NSTTF at bench size on phase 5's culling
     (mesh_devices=1) under bench.py's guards, its receiver within 3 sigma
-    of phase 5's. Returns (K1, K2, K3) launches and the one-rank results
-    phase 17 (c) holds its ranks to."""
+    of phase 5's. Returns (K1, K2, K3, K3 epilogue) launches and the
+    one-rank results phase 17 (c) holds its ranks to."""
     import torch
     import torch.distributed as dist
     from tracer_tpu_torch import parallel
@@ -3487,8 +3727,9 @@ def nccl_phase(dev, card, kb, kn, p_ref, slab, culling, fspec, phase5):
                             world_size=1, rank=0)
     setup = time.perf_counter() - t0
     out = {}
-    launches = [0, 0, 0]
-    wrappers = (kb.bounce_reflect_culled, kb.bounce_reflect, kn.nearest_hit)
+    launches = [0, 0, 0, 0]
+    wrappers = (kb.bounce_reflect_culled, kb.bounce_reflect, kn.nearest_hit,
+                epilogue())
     try:
         n_md = P17_SIZES["md_lanes"]
         _, md_table, md_meta = minidish_scene(dev)
@@ -3497,6 +3738,10 @@ def nccl_phase(dev, card, kb, kn, p_ref, slab, culling, fspec, phase5):
         (final, acc), walls = walls3(lambda: parallel.trace_sharded(
             md_table, sun, P17_SEED, max_bounces=20))
         launches = [w.launches for w in wrappers]
+        # the K3 epilogue after each K3 launch on the card (CUDA float32)
+        check(launches[3] == (launches[2] if dev.type == "cuda" else 0),
+              f"NCCL trace_sharded: K3 {launches[2]}, K3 epilogue "
+              f"{launches[3]} launches")
         final_f, acc_f = trace_fused(
             md_table, sun, parallel.rank_generator(P17_SEED, 0, dev),
             max_bounces=20)
@@ -3560,7 +3805,8 @@ def nccl_phase(dev, card, kb, kn, p_ref, slab, culling, fspec, phase5):
     finally:
         dist.destroy_process_group()
     log(f"NCCL set-up (init_process_group) {setup:.2f} s; launches K1 "
-        f"{launches[0]}, K2 {launches[1]}, K3 {launches[2]}")
+        f"{launches[0]}, K2 {launches[1]}, K3 {launches[2]}, K3 epilogue "
+        f"{launches[3]}")
     return launches, out
 
 
@@ -3598,7 +3844,8 @@ def rank17(rank, world, port, results, device, sizes, slab, culling_mesh,
     sun = minidish_sun(sizes["md_lanes"], dev)
     dist.barrier()
     setup = time.perf_counter() - t0
-    wrappers = (kb.bounce_reflect_culled, kb.bounce_reflect, kn.nearest_hit)
+    wrappers = (kb.bounce_reflect_culled, kb.bounce_reflect, kn.nearest_hit,
+                epilogue())
     def nsttf(cul, slabs, **kw):
         # the parked culling's emit -> drain cycles take ~10x the rounds
         # of an unparked trace (phase 12): max_rounds as phase 12's
@@ -3656,8 +3903,8 @@ def gloo_phase(dev, card, kb, kn, slab, culling, fspec, phase5, one_rank):
     row-shard run of phase 5's culling (32 slabs), and trace_sharded of
     the MiniDish at 4,194,304 rays: bench.py's guards on the NSTTF runs,
     each receiver within 3 sigma of its one-rank counterpart (phase 5's
-    trace, phase 17 (b)'s MiniDish). Returns (K1, K2, K3) launches over
-    both ranks' timed runs."""
+    trace, phase 17 (b)'s MiniDish). Returns (K1, K2, K3, K3 epilogue)
+    launches over both ranks' timed runs."""
     import torch
     import torch.multiprocessing as tmp
     from tracer_tpu_torch.culling import build_block_culling
@@ -3693,7 +3940,14 @@ def gloo_phase(dev, card, kb, kn, slab, culling, fspec, phase5, one_rank):
     check(sorted(ranks) == [0, 1], f"ranks reported: {sorted(ranks)}")
     launches = [sum(ranks[r][name]["launches"][k] for r in ranks
                     for name in ("nsttf_mesh", "nsttf_segments", "minidish"))
-                for k in range(3)]
+                for k in range(4)]
+    for r in ranks:
+        l1, l2, l3, le = ranks[r]["minidish"]["launches"]
+        check(le == (l3 if dev.type == "cuda" else 0),
+              f"gloo rank {r} MiniDish: K3 {l3}, K3 epilogue {le} launches")
+        for name in ("nsttf_mesh", "nsttf_segments"):
+            check(ranks[r][name]["launches"][3] == 0,
+                  f"gloo rank {r} {name}: the K3 epilogue launched")
     r0 = ranks[0]
     log(f"gloo 2 ranks: spawn and run {wall:.1f} s, each rank's set-up "
         f"(process group, build load, scenes) "
@@ -3718,7 +3972,8 @@ def gloo_phase(dev, card, kb, kn, slab, culling, fspec, phase5, one_rank):
         log(f"gloo 2 ranks {label}: {em} rays, receiver fraction "
             f"{rec_frac:.5f} (phase 5 {phase5[0]:.5f}), "
             f"closure {closure:.1e}, flux/receiver {flux_rec:.6f}; "
-            f"{walls_text(r0[name]['walls'], em)}; launches K1/K2/K3 "
+            f"{walls_text(r0[name]['walls'], em)}; launches K1/K2/K3/"
+            f"epilogue "
             f"{' + '.join(str(ranks[r][name]['launches']) for r in ranks)}"
             f" ({card})")
     ab, src = r0["minidish"]["result"]
@@ -3729,7 +3984,7 @@ def gloo_phase(dev, card, kb, kn, slab, culling, fspec, phase5, one_rank):
     log(f"gloo 2 ranks trace_sharded MiniDish: {n_md} rays, largest "
         f"per-row difference from one rank {abs(p - q).max():.1e} of the "
         f"source; {walls_text(r0['minidish']['walls'], n_md)}; launches "
-        f"K1/K2/K3 "
+        f"K1/K2/K3/epilogue "
         f"{' + '.join(str(ranks[r]['minidish']['launches']) for r in ranks)}"
         f" ({card})")
     return launches
@@ -3785,8 +4040,8 @@ def oracle_drain_phase(dev, card, kb, kn):
     oracle) and with an unparked one (no lane outlives its corridor, so
     K1 alone traces it): full emission, closure below 1e-4, no K2 or K3
     launch, oracle drain bounces in the parked trace, and its receiver
-    within 3 combined sigma of the unparked trace's. Returns (K1, K2, K3)
-    launches of the warm-up and timed calls."""
+    within 3 combined sigma of the unparked trace's. Returns (K1, K2, K3, K3
+    epilogue) launches of the warm-up and timed calls."""
     import torch
     from tracer_tpu_torch import engine
     from tracer_tpu_torch.culling import build_block_culling
@@ -3797,8 +4052,8 @@ def oracle_drain_phase(dev, card, kb, kn):
     slab = source_fn.num_rays
     total = GRID_SLABS * slab
     wrappers = (kb.bounce_reflect_culled, kb.bounce_reflect, kn.nearest_hit,
-                engine._oracle_bounce)
-    launches, out = [0, 0, 0], {}
+                epilogue(), engine._oracle_bounce)
+    launches, out = [0, 0, 0, 0], {}
     for park in (True, False):
         t0 = time.perf_counter()
         cul = build_block_culling(table, meta, source_fn.pallas_spec, slab,
@@ -3821,9 +4076,9 @@ def oracle_drain_phase(dev, card, kb, kn):
         check(int(em) >= total and abs(closure) < 1e-4 and p > 0.05,
               f"{label}: emitted {int(em)}, closure {closure}, receiver {p}")
         # (K1 launches nothing in a dry run on the CPU)
-        check((n[0] > 0 or dev.type != "cuda") and n[1] == n[2] == 0,
-              f"{label}: launches K1/K2/K3 {n[:3]}")
-        check(n[3] > 0 or not park, f"{label}: the drain never ran")
+        check((n[0] > 0 or dev.type != "cuda") and n[1] == n[2] == n[3]
+              == 0, f"{label}: launches K1/K2/K3/epilogue {n[:4]}")
+        check(n[4] > 0 or not park, f"{label}: the drain never ran")
         out[park] = (p, int(em))
         log(f"{label}: {table.num_rows} rows (K2's stage holds "
             f"{kb.MAX_STAGE_FLOATS // kb.row_width(table)}), {cul.nb} "
@@ -3831,7 +4086,7 @@ def oracle_drain_phase(dev, card, kb, kn):
             f"s; {int(em)} rays, receiver fraction {p:.5f}, closure "
             f"{closure:.1e}; {walls_text(walls, int(em))}; launches in "
             f"the warm-up and 3 timed calls K1 {n[0]}, K2 {n[1]}, K3 "
-            f"{n[2]}, oracle drain bounces {n[3]} ({card})")
+            f"{n[2]}, oracle drain bounces {n[4]} ({card})")
     within_sigma("grid field receiver, parked vs unparked", [out[True][0]],
                  out[True][1], [out[False][0]], out[False][1])
     return launches
@@ -3856,7 +4111,8 @@ def phase17(dev, card, kb, kn, p_ref, slab, culling, fspec, phase5):
     log(f"phase 17: {time.perf_counter() - t17:.1f} s ((a) {t_a:.1f}, (b) "
         f"{t_b:.1f}, (c) {t_c:.1f}, (d) "
         f"{time.perf_counter() - t17 - t_a - t_b - t_c:.1f}), "
-        f"launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}")
+        f"launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}, "
+        f"K3 epilogue {launches[3]}")
     return launches
 
 

@@ -1692,13 +1692,21 @@ def curved_map_compare(table, meta, names, bundle, seed, max_bounces,
     draw the same numbers bounce for bounce, so they trace the same paths
     and differ only where the device's local point (the hit through the
     row's inverse frame) and K3's fall on two sides of a bin edge.
+    trace_fused runs with the K3 epilogue's gate shut: the epilogue draws
+    from its own Philox stream, not from the generator ray_tracer shares,
+    and its bins are held against device_fluxmap's lane by lane in
+    tests/test_torch_epilogue.py.
     Returns ({name: dict(device map, host map, hist (energy), absorbed on
     the surface's rows, l1: the maps' L1 distance over the host map's
-    total)}, trace_fused's accumulators, its final bundle, its wall in
+    total, sq: the sum of the records' squared absorbed energies in each
+    bin)}, trace_fused's accumulators, its final bundle, its wall in
     s)."""
     import time
+    import unittest.mock
+    from tracer_tpu_torch import engine
     from tracer_tpu_torch.analysis import device_fluxmap as dfm
-    from tracer_tpu_torch.analysis.fluxmap import surface_fluxmap
+    from tracer_tpu_torch.analysis.fluxmap import (areas_of, fluxmap,
+                                                   surface_fluxmap)
     from tracer_tpu_torch.engine import (TraceOptions, TracerEngine,
                                          trace_fused)
     specs = tuple(dfm.flux_plan(meta, nm, resolution=resolution)
@@ -1707,9 +1715,11 @@ def curved_map_compare(table, meta, names, bundle, seed, max_bounces,
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    final, acc = trace_fused(table, bundle,
-                             torch.Generator(device=dev).manual_seed(seed),
-                             max_bounces=max_bounces, fluxspecs=specs)
+    with unittest.mock.patch.object(engine, "_epilogue_ok",
+                                    lambda *a, **k: False):
+        final, acc = trace_fused(
+            table, bundle, torch.Generator(device=dev).manual_seed(seed),
+            max_bounces=max_bounces, fluxspecs=specs)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1720,12 +1730,55 @@ def curved_map_compare(table, meta, names, bundle, seed, max_bounces,
     for nm, spec, hist in zip(names, specs, acc.flux):
         flux, _ = dfm.finalize(spec, hist, meta)
         host, _ = surface_fluxmap(res, nm, resolution=resolution)
+        hits = res.hits_of(meta.index_of(nm), keys=("absorbed", "local"))
+        geom = meta.surfaces[meta.index_of(nm)].geometries[0]
+        sq, _ = fluxmap(geom, np.asarray(hits["absorbed"], float) ** 2,
+                        hits["local"], resolution)
         out[nm] = dict(
             device=flux, host=host, hist=hist.double().cpu().numpy(),
             absorbed=float(acc.absorbed[list(spec.rows)].double().sum()),
             l1=float(np.abs(flux - host).sum())
-            / max(float(np.abs(host).sum()), 1e-300))
+            / max(float(np.abs(host).sum()), 1e-300),
+            sq=sq * areas_of(geom.kind, geom.extent, resolution))
     return out, acc, final, wall
+
+
+def share_z(a: float, b: float, src: float, n: int) -> float:
+    """|z| of two traces' energies ``a`` and ``b`` on one part of a scene
+    (independent traces of n rays that carry src / n each). A ray puts at
+    most its own energy there, so the share p of the source varies by at
+    most p (1 - p) / n a trace (a Bernoulli trial of the ray's whole
+    energy bounds it), and two traces' shares differ by at most twice
+    that, at the pooled p."""
+    pa, pb = a / src, b / src
+    p = 0.5 * (pa + pb)
+    if p <= 0.0:
+        return 0.0
+    return abs(pa - pb) / float(np.sqrt(2.0 * p * (1.0 - p) / n))
+
+
+def map_distance(a, b, sq):
+    """Two energy maps ``a`` and ``b`` of the same bins from independent
+    traces, and ``sq``, a third trace's sum of its squared deposits in
+    each bin (the variance V of a bin's energy, a trace). Their squared
+    distance T = sum (a - b)^2 has mean 2 sum V and variance 8 sum V^2
+    where the bins' differences are normal, as c chi^2_nu with nu =
+    (sum V)^2 / sum V^2 (Welch-Satterthwaite). Returns (T / 2 sum V, the
+    3-sigma quantile of chi^2_nu / nu by Wilson and Hilferty's cube)."""
+    a, b, sq = (np.asarray(x, dtype=np.float64) for x in (a, b, sq))
+    v, v2 = float(sq.sum()), float((sq * sq).sum())
+    nu = v * v / v2
+    w = 2.0 / (9.0 * nu)
+    return (float(((a - b) ** 2).sum()) / (2.0 * v),
+            (1.0 - w + 3.0 * float(np.sqrt(w))) ** 3)
+
+
+def maps_agree(a, b, sq, src, n) -> bool:
+    """The totals of ``a`` and ``b`` within 3 sigma (share_z) and their
+    squared distance within its 3-sigma quantile (map_distance)."""
+    r, limit = map_distance(a, b, sq)
+    return share_z(float(np.sum(a)), float(np.sum(b)), src, n) <= 3.0 and \
+        r <= limit
 
 
 @pytest.mark.cuda

@@ -36,8 +36,13 @@
 
 Both bundle traces run :func:`_bounce_step`: nearest hit (K3 for float32,
 the float64 oracle on either device, or the Kd candidates), free paths in
-volumetric media, shade, the spectral filter, account. Every loop runs
-on the host and reads one value from the device per bounce or round.
+volumetric media, shade, the spectral filter, account. On CUDA float32
+bundles in the scenes K2's shade covers, trace_fused runs
+:func:`_bounce_step_epilogue` instead: K3, then the K3 epilogue
+(kernels/epilogue.py), one kernel that shades, writes the next ray state,
+accounts and bins the flux maps (_epilogue_ok is the gate). Every loop
+runs on the host and reads one value from the device per bounce or
+round.
 """
 from __future__ import annotations
 
@@ -56,11 +61,13 @@ from . import telemetry
 from .analysis import device_fluxmap as _dfm
 from .bundle import RayBundle, concatenate_rays
 from .device import resolve
-from .kernels.bounce import (MAX_STAGE_FLOATS, POSE_FLOATS, TILE,
-                             bounce_reflect, bounce_reflect_culled,
-                             media_flags, pack_rows, row_width,
-                             source_pose)
-from .kernels.intersect import nearest_hit_aux, nearest_hit_candidates
+from .kernels import epilogue as _epi
+from .kernels.bounce import (EXTRA_MODES, MAX_STAGE_FLOATS, POSE_FLOATS,
+                             TILE, _modes, bounce_reflect,
+                             bounce_reflect_culled, media_flags, pack_rows,
+                             row_width, source_pose)
+from .kernels.intersect import (default_t_eps, nearest_hit_aux,
+                                nearest_hit_candidates)
 from .kernels.shade import shade
 from .mathutils import rotate_to_normal, safe_sqrt
 from .optics import sample_scattering
@@ -1293,6 +1300,85 @@ def _bounce_step_fused(scene: SceneTable, bundle: RayBundle,
     return new_bundle, accum, rec
 
 
+def _epilogue_takes(scene: SceneTable, bundle: RayBundle,
+                    fluxspecs: tuple = ()) -> bool:
+    """The K3 epilogue's gate less its device test: a float32
+    monochromatic bundle that tracks no gradient, in a scene that passes
+    _fused_ok (the kinds K2's shade covers, no volumetric media, no
+    dispersion, no energy splitting, one IAM exponent, rows that fit K2's
+    stage), with flux specs the kernel bins (kernels.epilogue.takes)."""
+    tensors = (bundle.pos, bundle.dir, bundle.energy,
+               *(v for v in vars(scene).values()
+                 if isinstance(v, torch.Tensor)))
+    return (bundle.pos.dtype == torch.float32 and bundle.spectra is None
+            and not (torch.is_grad_enabled()
+                     and any(v.requires_grad for v in tensors))
+            and _fused_ok(scene)
+            and _epi.takes(scene.num_rows, fluxspecs))
+
+
+def _epilogue_ok(scene: SceneTable, bundle: RayBundle,
+                 fluxspecs: tuple = ()) -> bool:
+    """Whether trace_fused takes the K3 epilogue (csrc/epilogue.cu): CUDA
+    tensors and _epilogue_takes. Every other trace (CPU tensors, float64,
+    records, media, dispersion, gradients) keeps the plain bounce, the
+    kernel's twin."""
+    return bundle.pos.is_cuda and _epilogue_takes(scene, bundle, fluxspecs)
+
+
+def _epilogue_plan(scene: SceneTable, bundle: RayBundle, generator,
+                   min_energy: float, fluxspecs: tuple) -> "_epi.Epilogue":
+    """One trace_fused call's epilogue state, its modes from K2's helpers
+    (_bivar_mode, _k2_extra, _k2_needs_wl) as _bounce_step_fused takes
+    them. The Philox seed is drawn from ``generator`` only where the
+    scene's kinds draw."""
+    from .kernels import build
+    kinds, features = set(scene.kinds_present), set(scene.features)
+    refractive = _M.K_REFRACTIVE in kinds
+    extra = _k2_extra(scene)
+    lambertian = _M.K_LAMBERTIAN in kinds
+    modes = _modes(_bivar_mode(scene), "one_sided" in features,
+                   "slope_error" in features, lambertian, 0.0,
+                   refractive and "refractive_slope" in features, False,
+                   False, 0.0, 0.0, "bifacial" in features,
+                   tuple(extra[k] for k in EXTRA_MODES))
+    draws = ("slope_error" in features or lambertian or refractive
+             or any(extra[k] for k in ("cook_torrance", "lam_specular",
+                                       "semi_lambertian", "piecewise")))
+    dev = bundle.pos.device
+    stream = (torch.cuda.current_stream(dev).cuda_stream
+              if dev.type == "cuda" else None)
+    return _epi.Epilogue(
+        pack_rows(scene), {k: getattr(bundle, k) for k in _epi.RAY_FIELDS},
+        fluxspecs, modes, refractive=refractive,
+        wavelength=bundle.wavelength if _k2_needs_wl(scene) else None,
+        spectral_tab=(_k2_table(scene) if extra["conductor"]
+                      or extra["piecewise"] else None),
+        min_energy=min_energy, seed=_seed(generator) if draws else 0,
+        lib=build.load(), stream=stream)
+
+
+def _bounce_step_epilogue(scene: SceneTable, bundle: RayBundle,
+                          plan: "_epi.Epilogue", bounce: int, t_eps: float,
+                          disc_eps: float) -> RayBundle:
+    """trace_fused's bounce on the card: K3 (nearest.nearest_hit, without
+    the local hit point, which nothing reads here) and the K3 epilogue,
+    which shades, writes the next ray state into ``plan.out`` and adds the
+    bounce's accounting and flux bins to ``plan``'s partial table. Returns
+    the next bundle."""
+    from .kernels import nearest
+    with telemetry.span("launch"):
+        t, sid, aux = nearest.nearest_hit(
+            plan.rows, bundle.pos, bundle.dir, scene.groups, t_eps,
+            disc_eps, need_local=False,
+            backside_miss="bifacial" in scene.features)
+    with telemetry.span("shade", kernel=True):
+        out = _epi.k3_epilogue(plan, bounce, t, sid, aux,
+                               {k: getattr(bundle, k)
+                                for k in _epi.RAY_FIELDS})
+    return bundle.replace(**out)
+
+
 def _media_step(bundle: RayBundle, alive, sid, t, accum: TraceAccum,
                 generator: torch.Generator):
     """The volumetric part of a bounce (tracer_tpu/engine.py:403-446):
@@ -1436,7 +1522,7 @@ def _bounce_step(scene: SceneTable, bundle: RayBundle, accum: TraceAccum,
     escaped = alive & ~hit
     if volumetric:
         escaped = escaped & ~scattered
-    with telemetry.span("shade"):
+    with telemetry.span("shade", kernel=False):
         res = shade(scene, sid, t, bundle.pos, bundle.dir, bundle.energy,
                     bundle.wavelength, bundle.ref_index, generator,
                     medium=(bundle.att_coeff, bundle.scat_coeff,
@@ -1841,10 +1927,14 @@ def trace_fused(scene: SceneTable, bundle: RayBundle,
     histograms of ``fluxspecs`` (device_fluxmap.FluxSpec tuple) in
     ``accum.flux``. A host loop of :func:`_bounce_step` that reads one
     flag from the device per bounce (tracer_tpu runs the same loop as one
-    jitted while_loop). The bundle keeps its size, so energy-splitting
-    interfaces roulette here (unbiased, as tracer_tpu's); ray_tracer
-    splits them. Polychromatic bundles are refused: they trace on
-    ray_tracer. Returns (final bundle, accum)."""
+    jitted while_loop); where _epilogue_ok holds (CUDA float32 bundles,
+    the kinds K2's shade covers), of :func:`_bounce_step_epilogue`, whose
+    draws come from K2's Philox stream seeded once a call from
+    ``generator`` (and only where the scene's kinds draw). The bundle
+    keeps its size, so energy-splitting interfaces roulette here
+    (unbiased, as tracer_tpu's); ray_tracer splits them. Polychromatic
+    bundles are refused: they trace on ray_tracer. Returns (final bundle,
+    accum)."""
     if bundle.spectra is not None:
         raise NotImplementedError(
             "polychromatic bundles trace on the host-stepped "
@@ -1857,6 +1947,21 @@ def trace_fused(scene: SceneTable, bundle: RayBundle,
         generator = _generator_for(scene, generator)
         accum = TraceAccum.zeros(scene.num_rows, dtype=bundle.pos.dtype,
                                  device=scene.device, fluxspecs=fluxspecs)
+        if _epilogue_ok(scene, bundle, fluxspecs):
+            plan = _epilogue_plan(scene, bundle, generator, min_energy,
+                                  fluxspecs)
+            te = default_t_eps(torch.float32) if t_eps is None else t_eps
+            for b in range(max_bounces):
+                live = telemetry.count(bundle.alive)
+                if not live:
+                    break
+                with telemetry.span("round", kernel="k3",
+                                    lanes=bundle.num_rays, live=live):
+                    bundle = _bounce_step_epilogue(scene, bundle, plan, b,
+                                                   te, disc_eps)
+            with telemetry.span("account"):
+                plan.finish(accum)
+            return bundle, accum
         kernel = "k3" if bundle.pos.dtype == torch.float32 else "oracle"
         for _ in range(max_bounces):
             live = telemetry.count(bundle.alive)

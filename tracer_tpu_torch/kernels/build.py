@@ -55,6 +55,13 @@ _SIGNATURES = {
                    _P, _P, _P, _I, _F, _F, _I, _I, _P],
     # S K backside_miss n out (6 ints)
     "tt_k3_geometry": [_I, _I, _I, _I, _P],
+    # rows S K t sid normal up pos dir e alive wl ri att scat g npos ndir
+    # ne nalive nri natt nscat ng n seed min_energy tab n_tab modes
+    # n_specs spec_i spec_f member W partial blocks stream
+    "tt_epilogue": [_P, _I, _I, *[_P] * 21, ctypes.c_longlong, _I, _F, _P,
+                    _I, _P, _I, _P, _P, _P, _I, _P, _I, _P],
+    # n S W out (3 ints)
+    "tt_epilogue_geometry": [ctypes.c_longlong, _I, _I, _P],
 }
 
 

@@ -23,9 +23,12 @@ and a few attributes. The names, each at one layer's boundary:
              launched; live: lanes that carry energy into the launch,
              unparked ones for K1)
     launch   the kernel wrapper's call inside a round (the host's enqueue)
-    shade    the unfused shade after K3 or the oracle
+    shade    the shade after K3 or the oracle (kernel: True for the K3
+             epilogue, which also accounts and bins, False for the plain
+             shade)
     account  the per-surface accounting, the flux map and the selects
-             after the kernel
+             after the kernel; on the K3 epilogue's path, the sum of its
+             blocks' partial sums once a call
     sync     a read of the device by ``read``: the host waits for the
              queue to drain
     drain    a streaming trace's drain of its survivors (chunks)
